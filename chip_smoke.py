@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``psvi_torch``) on one CUDA card.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
+CUDA card and ``nvcc``; it exits non-zero, before printing any result, when
+there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
+
+1. device  — the card's name and power limit (nvidia-smi), versions;
+2. build   — nvcc builds every kernel of the main path from the sources in
+             the checkout (``psvi_torch/ops/csrc``), all sources at once;
+3. kernels — each CUDA kernel against its plain PyTorch version on the same
+             CUDA inputs, and the composed step against the plain and the
+             autograd-oracle backends, on three configs (TF32 off);
+   caps    — at each edge of ``supports()`` (widest layer, S = 32 with
+             M + B = 2048, eight layers) the composed CUDA step against the
+             plain version run in float64;
+4. engine  — the main path: ``run_psvi`` on four_blobs with the fn BNN
+             2-40-4 (psvi_learn_v, M=48, S=10, inner_it=10, B=128,
+             init_sd 1e-3, 101 outer steps) through the kernels, with every
+             launch counter set to 0 just before and read just after; then
+             halfmoon logistic regression (M=30, 101 steps);
+5. times   — CUDA-event medians of each kernel, its plain version, the
+             fused engine step and the plain autograd engine step.
+
+Then, as its last three lines: the ``kernels`` JSON line, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the script exits non-zero and prints no ``ok`` line.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# Tolerances (kernel against its plain version, both fp32 on the card):
+# - losses: rtol 1e-5 — the same fp32 terms summed in another order;
+# - paramsT: rtol 2e-4, atol 1e-6 — ten Adam steps divide by √n, which
+#   amplifies last-bit differences in small gradients;
+# - hypergradients g_u, g_v, the cotangents p̄, ū, c̄w and the Adam moments
+#   m, n: cosine > 0.9999 and max |Δ| ≤ 1e-3·max |ref| — sums over S·M
+#   terms with cancellation, so an elementwise rtol is not meaningful;
+# - g_α: rtol 0.05 — ∂/∂α sums N-scaled terms with heavy cancellation (the
+#   JAX reference documents the same f32 spread, tests/test_fused_nested.py).
+RTOL_LOSS, RTOL_P, ATOL_P, COS_MIN, REL_G, RTOL_ALPHA = 1e-5, 2e-4, 1e-6, 0.9999, 1e-3, 0.05
+
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+TPU_KERNEL = "psvi_tpu/ops/fused_nested.py:448"
+SOURCE = "psvi_torch/ops/csrc/fused_nested.cu"
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _rel(x, y):
+    return float((x - y).abs().max()) / (float(y.abs().max()) + 1e-30)
+
+
+def _cos(x, y):
+    x, y = x.double().flatten(), y.double().flatten()
+    return float(x @ y / (x.norm() * y.norm() + 1e-30))
+
+
+class Checker:
+    """Collects comparisons; raises on the first that fails."""
+
+    def __init__(self):
+        self.max_abs = {}
+
+    def _note(self, kernel, x, y):
+        e = float((x - y).abs().max())
+        self.max_abs[kernel] = max(self.max_abs.get(kernel, 0.0), e)
+        return e
+
+    def allclose(self, kernel, what, x, y, rtol, atol=0.0):
+        e = self._note(kernel, x, y)
+        ok = bool(torch.all((x - y).abs() <= atol + rtol * y.abs()))
+        if not ok:
+            raise AssertionError(f"{kernel}/{what}: max |diff| {e} exceeds rtol {rtol} atol {atol}")
+        return e
+
+    def grad(self, kernel, what, x, y):
+        e = self._note(kernel, x, y)
+        c, r = _cos(x, y), _rel(x, y)
+        if not (c > COS_MIN and r <= REL_G):
+            raise AssertionError(f"{kernel}/{what}: cos {c}, max|Δ|/max|ref| {r}")
+        return {"max_abs": e, "cos": c}
+
+
+def main_cfg(FN, data, widths, M, parameterised, use_alpha):
+    """The main path's step shape (S = 10, T = 10, B = 128) for one net."""
+    return FN.FusedCfg(T=10, S=10, widths=tuple(widths), M=M, B=128, N=float(data.N),
+                       parameterised=parameterised, use_alpha=use_alpha, prior_sd=1.0)
+
+
+def kernel_inputs(FN, cfg, x, y, seed, dev, dtype=torch.float32):
+    """Engine-like inputs for ``cfg`` from numpy.random.default_rng(seed), in
+    the engine's natural layouts and flat: U(±1/√in) means, ρ =
+    softplus⁻¹(1e-3) plus a small spread, coreset and minibatch rows drawn
+    from (x, y), noise ~ N(0, 1). The same seed gives the same numbers in
+    any ``dtype``."""
+    rng = np.random.default_rng(seed)
+    rho0 = math.log(math.expm1(1e-3))
+    T, S = cfg.T, cfg.S
+    layers, e_in, e_out = [], [], []
+    for i, o in cfg.layer_dims():
+        b = 1.0 / math.sqrt(i)
+        layers.append({
+            "mu_w": rng.uniform(-b, b, (o, i)), "rho_w": rho0 + 0.1 * rng.standard_normal((o, i)),
+            "mu_b": rng.uniform(-b, b, o), "rho_b": rho0 + 0.1 * rng.standard_normal(o)})
+        e_in.append({"w": rng.standard_normal((T, S, o, i)), "b": rng.standard_normal((T, S, o))})
+        e_out.append({"w": rng.standard_normal((S, o, i)), "b": rng.standard_normal((S, o))})
+    iu = rng.choice(len(x), cfg.M, replace=False)
+    ib = rng.choice(len(x), cfg.B, replace=False)
+    v = 0.3 * rng.standard_normal(cfg.M) if cfg.parameterised else np.full(cfg.M, 1.0 / cfg.M)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    def tree(ls):
+        return [{k: t(v) for k, v in d.items()} for d in ls]
+
+    a = dict(params0=tree(layers), eps_inner=tree(e_in), eps_outer=tree(e_out), u=t(x[iu]),
+             z=t(y[iu], torch.int32), xb=t(x[ib]), yb=t(y[ib], torch.int32), v=t(v),
+             alpha=t([0.1 if cfg.use_alpha else 0.0]), lr=1e-3)
+    a.update(p0=FN.pack_params(a["params0"]), e_in=FN.pack_eps(a["eps_inner"], lead=(T,)),
+             e_out=FN.pack_eps(a["eps_outer"]))
+    return a
+
+
+def composed_step(FN, cfg, a, backend):
+    """``fused_nested_outer`` on the natural layouts; paramsT comes back flat."""
+    loss, il, pT, g_u, g_v, g_a = FN.fused_nested_outer(
+        a["params0"], a["u"], a["v"], a["alpha"], a["z"], a["xb"], a["yb"], a["eps_inner"],
+        a["eps_outer"], a["lr"], cfg, backend=backend)
+    return loss, il, FN.pack_params(pT), g_u, g_v, g_a
+
+
+def compare_steps(chk, tag, cfg, k, r):
+    """The composed step's outputs ``k`` against the reference's ``r``."""
+    out = {
+        "loss": chk.allclose(tag, "loss", k[0], r[0], RTOL_LOSS),
+        "inner_losses": chk.allclose(tag, "inner_losses", k[1], r[1], RTOL_LOSS),
+        "paramsT": chk.allclose(tag, "paramsT", k[2], r[2], RTOL_P, ATOL_P),
+        "g_u": chk.grad(tag, "g_u", k[3], r[3]),
+        "g_v": chk.grad(tag, "g_v", k[4], r[4]),
+    }
+    if cfg.use_alpha:
+        out["g_alpha"] = chk.allclose(tag, "g_alpha", k[5], r[5], RTOL_ALPHA, ATOL_P)
+    return out
+
+
+def check_kernels(FN, chk, name, cfg, a):
+    p0, u, z, xb, yb, v, al, e_in, e_out, lr = (a[k] for k in (
+        "p0", "u", "z", "xb", "yb", "v", "alpha", "e_in", "e_out", "lr"))
+    rep = {"phase": "kernels", "config": name, "widths": list(cfg.widths), "M": cfg.M}
+    # nested_fwd
+    l_k, h_k, cw_k = FN._nested_fwd_cuda(p0, u, z, v, al, e_in, lr, cfg)
+    l_t, h_t, cw_t = FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)
+    torch.cuda.synchronize()
+    rep["fwd"] = {
+        "losses": chk.allclose("nested_fwd", "losses", l_k, l_t, RTOL_LOSS),
+        "paramsT": chk.allclose("nested_fwd", "paramsT", h_k[:, 0], h_t[:, 0], RTOL_P, ATOL_P),
+        "m": chk.grad("nested_fwd", "m", h_k[:, 1], h_t[:, 1]),
+        "n": chk.grad("nested_fwd", "n", h_k[:, 2], h_t[:, 2]),
+        "cw": chk.allclose("nested_fwd", "cw", cw_k, cw_t, RTOL_LOSS),
+    }
+    # nested_outer on the plain version's paramsT and core weights
+    pT = h_t[cfg.T, 0].contiguous()
+    o_k = FN._nested_outer_cuda(pT, u, z, cw_t, xb, yb, e_out, cfg)
+    o_t = FN.nested_outer_torch(pT, u, z, cw_t, xb, yb, e_out, cfg)
+    torch.cuda.synchronize()
+    rep["outer"] = {
+        "loss": chk.allclose("nested_outer", "loss", o_k[0], o_t[0], RTOL_LOSS),
+        "pbar": chk.grad("nested_outer", "pbar", o_k[1], o_t[1]),
+        "ubar": chk.grad("nested_outer", "ubar", o_k[2], o_t[2]),
+        "cwbar": chk.grad("nested_outer", "cwbar", o_k[3], o_t[3]),
+    }
+    # nested_rev on the plain versions' history and cotangents
+    r_k = FN._nested_rev_cuda(h_t, o_t[1].contiguous(), o_t[2].contiguous(),
+                              o_t[3].contiguous(), u, z, cw_t, v, al, e_in, lr, cfg)
+    r_t = FN.nested_rev_torch(h_t, o_t[1], o_t[2], o_t[3], u, z, cw_t, v, al, e_in, lr, cfg)
+    torch.cuda.synchronize()
+    rep["rev"] = {"g_u": chk.grad("nested_rev", "g_u", r_k[0], r_t[0]),
+                  "g_v": chk.grad("nested_rev", "g_v", r_k[1], r_t[1])}
+    if cfg.use_alpha:
+        rep["rev"]["g_alpha"] = chk.allclose("nested_rev", "g_alpha", r_k[2], r_t[2],
+                                             RTOL_ALPHA, ATOL_P)
+    # the composed step: cuda against torch and against the autograd oracle
+    outs = {b: composed_step(FN, cfg, a, b) for b in ("cuda", "torch", "autograd")}
+    torch.cuda.synchronize()
+    rep["step"] = {ref: compare_steps(chk, f"step_vs_{ref}", cfg, outs["cuda"], outs[ref])
+                   for ref in ("torch", "autograd")}
+    emit(rep)
+
+
+def synthetic_bundle(DataBundle, D, nc, n=4096, seed=0):
+    """N(0, 1) inputs with uniform labels: enough rows for any cap."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    y = rng.integers(0, nc, n).astype(np.float32)
+    return DataBundle(x, y, x[:256], y[:256], n, D, nc)
+
+
+# Engines at the edges of supports(): the widest layer of the JAX gate at
+# S = 10, S·width = 2048 with S = 32 and M + B = 2048, and L = 8 dense layers.
+CAPS = [
+    ("fn 64-100-10 psvi M=30", 64, 10,
+     dict(method="psvi", architecture="fn", n_hidden=100, num_pseudo=30, mc_samples=10,
+          data_minibatch=128)),
+    ("fn 2-64-4 psvi_alpha_v S=32 M=48 B=2000", 2, 4,
+     dict(method="psvi_alpha_v", architecture="fn", n_hidden=64, num_pseudo=48, mc_samples=32,
+          data_minibatch=2000)),
+    ("fn 2-(40x7)-4 psvi_learn_v L=8 M=48", 2, 4,
+     dict(method="psvi_learn_v", architecture="fn", n_hidden=40, n_layers=7, num_pseudo=48,
+          mc_samples=10, data_minibatch=128)),
+]
+
+
+def check_caps(FN, PSVI, DataBundle, chk, dev):
+    """At each edge of supports(): the engine admits the config, and the
+    composed CUDA step agrees with the plain version run in float64 (the
+    judge of both fp32 versions) within the tolerances above."""
+    for seed, (name, D, nc, kw) in enumerate(CAPS):
+        data = synthetic_bundle(DataBundle, D, nc, seed=seed)
+        eng = PSVI(data, inner_it=10, init_sd=1e-3, seed=seed, **kw)
+        if not FN.supports(eng):
+            raise AssertionError(f"supports() refuses the cap config {name}")
+        cfg = eng._fused_cfg(eng.data_minibatch)
+        k = composed_step(FN, cfg, kernel_inputs(FN, cfg, data.x, data.y, seed, dev), "cuda")
+        r = composed_step(FN, cfg, kernel_inputs(FN, cfg, data.x, data.y, seed, dev,
+                                                 torch.float64), "torch")
+        torch.cuda.synchronize()
+        emit({"phase": "caps", "config": name, "widths": list(cfg.widths), "S": cfg.S,
+              "M": cfg.M, "B": cfg.B, "vs_float64": compare_steps(chk, "caps", cfg, k, r)})
+
+
+def run_engine(FN, PSVI, data, n_launch_expected, **kw):
+    """One run_psvi through the user's entry point; returns (results,
+    launch counts read right after, finite-loss flag, seconds)."""
+    eng = PSVI(data, **kw)
+    losses = []
+    step = eng._step
+
+    def recording_step(state):
+        state, aux = step(state)
+        losses.append(aux["outer_loss"])
+        return state, aux
+
+    eng._step = recording_step
+    eng.step_path = step.__name__
+    torch.cuda.synchronize()
+    FN.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run_psvi()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(FN.LAUNCHES)
+    finite = bool(torch.isfinite(torch.stack(losses)).all())
+    for k, n in launches.items():
+        if n != n_launch_expected:
+            raise AssertionError(f"kernel {k} launched {n} times, expected {n_launch_expected}")
+    if not finite:
+        raise AssertionError("non-finite outer loss on the main path")
+    return eng, res, launches, secs
+
+
+def median_ms(fn, reps=60, warmup=5):
+    """Median per-call time from CUDA events around each call, issued back
+    to back so the card stays busy between calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    for s, e in ev:
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def work(cfg):
+    """Bytes each kernel must move (inputs once, outputs once) and the fp32
+    operations it must do at this config (multiply-adds count 2)."""
+    S, T, M, B, P, E = cfg.S, cfg.T, cfg.M, cfg.B, cfg.n_params, cfg.n_eps
+    D, nc = cfg.D, cfg.nc
+    dims = cfg.layer_dims()
+    W = sum(o * i for i, o in dims)
+    U = sum(o for _, o in dims)
+    Wbp = sum(o * i for i, o in dims[1:])
+    elem = 12 * S * (W + U)  # sampling, the ε-weighted sums, Adam, KL/NKL
+
+    def step_ops(NP):  # forward, head, backprop, per-parameter sums
+        return 2 * S * NP * (W + Wbp + W + U) + 8 * S * NP * nc + elem
+
+    ops = {
+        "nested_fwd": T * step_ops(M),
+        "nested_outer": step_ops(M + B) + 2 * S * M * D * dims[0][1],
+        # recompute + tangent forward, tangent backprop, tangent sums, ū
+        "nested_rev": T * (step_ops(M) + 4 * S * M * W + 4 * S * M * Wbp
+                           + 4 * S * M * (W + U) + 4 * S * M * D * dims[0][1]),
+    }
+    f = 4
+    byts = {
+        "nested_fwd": f * (P + M * D + 2 * M + 1 + T * E) + f * (T + (T + 1) * 3 * P + M),
+        "nested_outer": f * (P + M * D + 2 * M + B * D + B + E) + f * (1 + P + M * D + M),
+        "nested_rev": f * ((T + 1) * 3 * P + P + 2 * M * D + 4 * M + 1 + T * E)
+                      + f * (M * D + M + 1),
+    }
+    return ops, byts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import psvi_torch  # noqa: F401  (fails outside a checkout)
+    from psvi_torch.data import DataBundle, read_dataset
+    from psvi_torch.inference.psvi import PSVI
+    from psvi_torch.ops import _build
+    from psvi_torch.ops import fused_nested as FN
+
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true fp32
+    torch.backends.cudnn.allow_tf32 = False
+    card = nvidia_smi_line()
+    emit({"phase": "device", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    # 2. build every kernel source of the path, one nvcc each, all at once
+    t0 = time.perf_counter()
+    sources = ["fused_nested"]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(_build.build, sources))
+    ptxas = [ln.strip() for _, log in built for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
+          "ptxas": ptxas})
+
+    # 3. kernels against their plain versions on the card
+    halfmoon, blobs = read_dataset("halfmoon"), read_dataset("four_blobs")
+    chk = Checker()
+    configs = [
+        ("halfmoon_logreg_M30", halfmoon, [2, 2], 30, True, False),
+        ("four_blobs_fn_2-40-4_M48", blobs, [2, 40, 4], 48, True, False),
+        ("four_blobs_fn2layer_2-40-40-4_M48_alpha", blobs, [2, 40, 40, 4], 48, True, True),
+    ]
+    for seed, (name, data, widths, M, par, ua) in enumerate(configs):
+        cfg = main_cfg(FN, data, widths, M, par, ua)
+        check_kernels(FN, chk, name, cfg, kernel_inputs(FN, cfg, data.x, data.y, seed, dev))
+    check_caps(FN, PSVI, DataBundle, chk, dev)
+
+    # 4. the main path, through the user's entry point
+    main_kw = dict(method="psvi_learn_v", num_pseudo=48, mc_samples=10, architecture="fn",
+                   n_hidden=40, n_layers=1, inner_it=10, data_minibatch=128, init_sd=1e-3,
+                   num_epochs=101, log_every=50, seed=0, fused_inner="auto")
+    eng, res, launches, secs = run_engine(FN, PSVI, blobs, 101, **main_kw)
+    acc = res["accs"][-1]
+    emit({"phase": "engine", "config": "four_blobs fn 2-40-4 psvi_learn_v M=48", "accs": res["accs"],
+          "nlls": res["nlls"], "launches": launches, "seconds": secs,
+          "step_path": eng.step_path})
+    if not acc >= 0.90:
+        raise AssertionError(f"four_blobs fn final accuracy {acc} < 0.90")
+    _, res_h, launches_h, secs_h = run_engine(
+        FN, PSVI, halfmoon, 101, method="psvi_learn_v", num_pseudo=30, mc_samples=10,
+        architecture="logistic_regression", inner_it=10, data_minibatch=128, init_sd=1e-3,
+        num_epochs=101, log_every=50, seed=0)
+    acc_h = res_h["accs"][-1]
+    emit({"phase": "engine", "config": "halfmoon logreg psvi_learn_v M=30", "accs": res_h["accs"],
+          "nlls": res_h["nlls"], "launches": launches_h, "seconds": secs_h})
+    if not abs(acc_h - 0.797) <= 0.09:
+        raise AssertionError(f"halfmoon logreg final accuracy {acc_h} outside 0.797 ± 0.09")
+
+    # 5. times at the main path's shapes (four_blobs fn 2-40-4, M=48)
+    cfg = main_cfg(FN, blobs, [2, 40, 4], 48, True, False)
+    a = kernel_inputs(FN, cfg, blobs.x, blobs.y, 1, dev)
+    p0, u, z, xb, yb, v, al, e_in, e_out, lr = (a[k] for k in (
+        "p0", "u", "z", "xb", "yb", "v", "alpha", "e_in", "e_out", "lr"))
+    _, h, cw = FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)
+    pT = h[cfg.T, 0].contiguous()
+    _, pbar, ubar, cwbar = FN.nested_outer_torch(pT, u, z, cw, xb, yb, e_out, cfg)
+    pbar, ubar, cwbar = pbar.contiguous(), ubar.contiguous(), cwbar.contiguous()
+    calls = {
+        "nested_fwd": (lambda: FN._nested_fwd_cuda(p0, u, z, v, al, e_in, lr, cfg),
+                       lambda: FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)),
+        "nested_outer": (lambda: FN._nested_outer_cuda(pT, u, z, cw, xb, yb, e_out, cfg),
+                         lambda: FN.nested_outer_torch(pT, u, z, cw, xb, yb, e_out, cfg)),
+        "nested_rev": (lambda: FN._nested_rev_cuda(h, pbar, ubar, cwbar, u, z, cw, v, al,
+                                                   e_in, lr, cfg),
+                       lambda: FN.nested_rev_torch(h, pbar, ubar, cwbar, u, z, cw, v, al,
+                                                   e_in, lr, cfg)),
+    }
+    ops, byts = work(cfg)
+    kernels = []
+    with torch.no_grad():
+        for name, (kern, plain) in calls.items():
+            ms, plain_ms = median_ms(kern), median_ms(plain)
+            t_ops = ops[name] / PEAK_FP32_FLOPS * 1e3
+            t_bytes = byts[name] / PEAK_BYTES * 1e3
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
+                "launches": launches[name], "max_abs_err": chk.max_abs[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None, "ops": ops[name], "bytes": byts[name]})
+    # whole engine steps on the same card: fused kernels vs plain autograd
+    batch = eng._sample_batch()
+    eng_plain = PSVI(blobs, **{**main_kw, "fused_inner": False})
+    st_f, st_p = eng.state, eng_plain.state
+    step_fused_ms = median_ms(lambda: eng._nested_step_fused(st_f, batch), reps=50)
+    step_plain_ms = median_ms(lambda: eng_plain._nested_step(st_p, batch), reps=50)
+    emit({"phase": "times", "card": card, "config": "four_blobs fn 2-40-4 M=48 S=10 T=10 B=128",
+          "kernel_ms": {k["name"]: k["ms"] for k in kernels},
+          "plain_ms": {k["name"]: k["plain_ms"] for k in kernels},
+          "bound_ms": {k["name"]: k["bound_ms"] for k in kernels},
+          "nested_step_fused_ms": step_fused_ms, "nested_step_plain_autograd_ms": step_plain_ms})
+
+    emit({"kernels": kernels})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

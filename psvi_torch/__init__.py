@@ -1,0 +1,26 @@
+"""psvi_torch — black-box coreset variational inference on PyTorch and CUDA.
+
+The PyTorch port of ``psvi_tpu`` (PSVI; Manousakas, Ritter, Karaletsos,
+NeurIPS 2022) for an NVIDIA H100. It mirrors the JAX package's file and
+class names so each counterpart is easy to find; inside it uses PyTorch
+idiom: ``nn.Module`` layers that hold their configuration, functional
+``apply(params, eps, x)`` methods for the differentiable inner unroll, and
+hand-written CUDA kernels behind plain-PyTorch twins.
+
+Entry points take ``device=None``, which means CUDA; without a GPU they
+raise. Pass ``device="cpu"`` to run the plain PyTorch path on the CPU.
+
+Layout:
+  device.py   device resolution, fp32 policy
+  data/       synthetic datasets (halfmoon, four_blobs, synth_lr_<D>)
+  models/     mean-field variational layers and the dense network builders
+  ops/        ELBOs, differentiable Adam, the fused nested-step kernels
+  inference/  the PSVI engine (nested trainer)
+  utils/      method specs, JAX-to-torch conversion, resource logging
+"""
+
+from psvi_torch.device import resolve_device
+
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,38 @@
+"""Device resolution and the float32 policy.
+
+``device=None`` means the CUDA card: the port has no CPU fallback. The CPU
+runs only when the caller asks for it (``device="cpu"``), as the tests do.
+
+Every product on the nested path runs in true float32: a single bf16 or
+TF32 pass in the second-order terms collapses the u-hypergradient (the JAX
+kernel measured cosine 0.29 against its oracle with one bf16 pass). So
+:func:`resolve_device` turns TF32 off for both matmuls and cuDNN.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fp32_exact():
+    """Disable TF32 for CUDA matmuls and cuDNN convolutions (process-wide)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → ``cuda`` (raises without a GPU); otherwise the given device."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "psvi_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run the plain PyTorch path"
+            )
+        dev = torch.device("cuda")
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is unavailable")
+    if dev.type == "cuda":
+        fp32_exact()
+    return dev

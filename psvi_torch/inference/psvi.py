@@ -1,0 +1,469 @@
+"""PSVI inference engine — the dense nested slice of the port.
+
+Counterpart of ``psvi_tpu/inference/psvi.py`` for the nested (bilevel)
+trainer on the dense mean-field nets (logistic regression and the ``fn``
+MLP) with the categorical likelihood:
+
+- ``PSVIState`` — parameters, pseudodata (u, z), weights v, α and the
+  Adam states of the hyperparameters;
+- ``_nested_step`` — the plain path: T differentiable inner Adam steps
+  through ``torch.autograd`` (``create_graph=True``), the outer IW-ELBO,
+  and its gradient w.r.t. (u, v, α) through the unroll (ref
+  ``nested_step`` :541-600);
+- ``_nested_step_fused`` — the same step through the fused kernels of
+  ``ops/fused_nested.py`` (hand-written CUDA on the card);
+- ``_evaluate_fn`` and the ``run_psvi`` loop with the reference's
+  results-dict keys.
+
+Noise, batches and initial parameters come from one ``torch.Generator``
+per engine on its device, seeded from ``seed`` (the JAX engine's
+``trial_key``). The pseudodata init is host-side NumPy and draws the same
+points as the JAX engine for the same seed.
+
+``_nested_step`` and ``_nested_step_fused`` accept an injected batch and
+injected noise; the tests use that seam to line the port up with JAX.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from psvi_torch.data.datasets import DataBundle
+from psvi_torch.device import resolve_device
+from psvi_torch.models.layers import VILinear
+from psvi_torch.models.networks import set_up_model
+from psvi_torch.ops import elbo as E
+from psvi_torch.ops import fused_nested as FN
+from psvi_torch.ops import optim as O
+from psvi_torch.utils.config import METHOD_SPECS, MethodSpec
+from psvi_torch.utils.resource import LogResource
+from psvi_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+class PSVIState(NamedTuple):
+    params: Any  # tuple over net.layers of parameter dicts
+    u: torch.Tensor  # pseudo-inputs (M, D)
+    z: torch.Tensor  # pseudo-labels (M,), float
+    v: torch.Tensor  # raw log-likelihood weights (M,)
+    alpha: torch.Tensor  # global evidence rescaler (1,)
+    opt_u: Any
+    opt_v: Any
+    opt_alpha: Any
+    net_step: int  # StepLR counter
+
+
+def _count_pad(n, b):
+    return (b - n % b) % b
+
+
+def _check_spec(method: str, spec: MethodSpec):
+    unported = {
+        "ablated": spec.ablated, "single_sample_train": spec.single_sample_train,
+        "evaluate_only": spec.evaluate_only, "learn_z": spec.learn_z,
+        "regressor": spec.regressor,
+    }
+    bad = [k for k, on in unported.items() if on]
+    if bad:
+        raise NotImplementedError(
+            f"method {method!r} ({', '.join(bad)}) is not ported yet "
+            "(ROADMAP.md, queue A item 7)"
+        )
+
+
+class PSVI:
+    """Black-box coreset VI engine (classification, nested trainer).
+
+    ``device=None`` means CUDA (raises without a GPU); pass ``device="cpu"``
+    for the plain PyTorch path on the CPU. ``fused_inner``: ``"auto"`` uses
+    the fused kernels on CUDA whenever :func:`ops.fused_nested.supports`
+    holds; ``True`` requires them (on the CPU their plain versions run);
+    ``False`` always takes the plain autograd step.
+    """
+
+    likelihood = "categorical"
+
+    def __init__(
+        self,
+        data: DataBundle,
+        method: str = "psvi_learn_v",
+        num_pseudo: int = 10,
+        seed: int = 0,
+        mc_samples: int = 10,
+        architecture: str = "logistic_regression",
+        n_hidden: int = 40,
+        n_layers: int = 1,
+        init_sd: float = 1e-3,
+        data_minibatch: int = 128,
+        inner_it: int = 10,
+        trainer: str = "nested",
+        lr0net: float = 1e-3,
+        lr0u: float = 1e-4,
+        lr0v: float = 1e-3,
+        lr0alpha: float = 1e-3,
+        gamma: float = 1.0,
+        num_epochs: int = 100,
+        log_every: int = 10,
+        init_args: str = "subsample",
+        compute_weights_entropy: bool = True,
+        fused_inner="auto",
+        device=None,
+        **unported,
+    ):
+        if unported:
+            raise NotImplementedError(
+                f"options {sorted(unported)} are not ported yet (ROADMAP.md, queue A)"
+            )
+        if trainer != "nested":
+            raise NotImplementedError(
+                f"trainer {trainer!r} is not ported yet (ROADMAP.md, queue A item 7)"
+            )
+        if fused_inner not in ("auto", True, False):
+            raise ValueError(f"fused_inner must be 'auto', True or False, got {fused_inner!r}")
+        self.device = resolve_device(device)
+        self.data = data
+        self.method = method
+        self.spec = METHOD_SPECS[method]
+        _check_spec(method, self.spec)
+        self.seed = seed
+        self.N, self.D, self.nc = data.N, data.D, data.nc
+        self.num_pseudo = num_pseudo
+        self.mc_samples = mc_samples
+        self.architecture = architecture
+        self.n_hidden, self.n_layers, self.init_sd = n_hidden, n_layers, init_sd
+        self.inner_it = inner_it
+        self.trainer = trainer
+        self.lrs = dict(net=lr0net, u=lr0u, v=lr0v, alpha=lr0alpha)
+        self.gamma = gamma
+        self.num_epochs = num_epochs
+        self.log_every = log_every
+        self.init_args = init_args
+        self.compute_weights_entropy = compute_weights_entropy
+        self.fused_inner = fused_inner
+        self.elbos: list = []
+        self.results: dict = {}
+        self.chosen_indices: list = []
+
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+
+        dev = self.device
+        self.x_train = torch.as_tensor(data.x, dtype=torch.float32, device=dev)
+        self.y_train = torch.as_tensor(data.y, dtype=torch.float32, device=dev)
+        self.x_test = torch.as_tensor(data.xt, dtype=torch.float32, device=dev)
+        self.y_test = torch.as_tensor(data.yt, dtype=torch.float32, device=dev)
+        self.n_train_now = int(self.x_train.shape[0])
+        self.data_minibatch = min(data_minibatch, self.N, self.n_train_now)
+
+        self.net = set_up_model(architecture, self.D, n_hidden, self.nc, init_sd,
+                                n_layers=n_layers).to(dev)
+        self._init_state()
+        self._step = self._trainer_fn()
+
+    # ------------------------------------------------------------------
+    # construction
+    # ------------------------------------------------------------------
+
+    def _core_weights(self, v, alpha):
+        """N·f(v) and f(v) (ref ``psvi_classes.py:111,1358-1360,1486-1488``)."""
+        fv = torch.softmax(v, dim=0) if self.spec.parameterised else v
+        if self.spec.learn_alpha or self.spec.alpha_fixed:
+            fv = torch.exp(alpha[0]) * fv
+        return self.N * fv, fv
+
+    def _init_pseudodata(self):
+        """Pseudodata init (ref :229-308) on the host with NumPy, the same
+        draws as the JAX engine: 'subsample' = class-balanced random subset;
+        'random' = noisy empirical mean + balanced labels."""
+        M, nc = self.num_pseudo, self.nc
+        x_np, y_np = np.asarray(self.data.x), np.asarray(self.data.y)
+        rng = np.random.default_rng(self.seed)
+        ppc = [M // nc] * nc
+        ppc[-1] = M - sum(ppc[:-1])
+        if self.init_args == "subsample":
+            us, zs, idcs = [], [], []
+            for c in range(nc):
+                cls_idx = np.where(y_np == c)[0]
+                take = rng.choice(cls_idx, size=ppc[c], replace=len(cls_idx) < ppc[c])
+                us.append(x_np[take])
+                zs.append(np.full(ppc[c], c, dtype=np.float32))
+                idcs.extend(take.tolist())
+            u, z = np.concatenate(us), np.concatenate(zs)
+            self.chosen_indices = idcs
+        elif self.init_args == "random":
+            mean = x_np.mean(axis=0, keepdims=True)
+            u = mean + 1.0 * rng.standard_normal((M,) + x_np.shape[1:]).astype(np.float32)
+            z = np.concatenate([np.full(p, c, dtype=np.float32) for c, p in enumerate(ppc)])
+        else:
+            raise ValueError(f"unknown or unported init_args {self.init_args!r}")
+        dev = self.device
+        return (torch.as_tensor(u, dtype=torch.float32, device=dev),
+                torch.as_tensor(z, dtype=torch.float32, device=dev))
+
+    def _init_v(self):
+        M = self.num_pseudo
+        if self.spec.parameterised:
+            return torch.zeros(M, device=self.device)  # PSVILearnV (:1353-1357)
+        v = torch.full((M,), 1.0 / M, device=self.device)
+        if self.spec.no_rescaling:
+            v = v / self.N  # PSVI_No_Rescaling (:1371-1373)
+        return v
+
+    def _init_state(self):
+        params = self.net.init(self.gen)
+        u, z = self._init_pseudodata()
+        v = self._init_v()
+        alpha = torch.zeros(1, device=self.device)
+        self.opt_u = O.adam(self.lrs["u"])
+        self.opt_v = O.adam(self.lrs["v"])
+        self.opt_alpha = O.adam(self.lrs["alpha"])
+        self.inner_opt = O.adam(self.lrs["net"])
+        # StepLR schedule for the net lr (ref :803-807,864-866)
+        epoch_quarter = (self.N // self.data_minibatch) // 4
+        self.lr_net_sched = O.step_lr(
+            self.lrs["net"], epoch_quarter if epoch_quarter > 0 else 10000, self.gamma)
+        self.state = PSVIState(
+            params=params, u=u, z=z, v=v, alpha=alpha,
+            opt_u=self.opt_u.init(u), opt_v=self.opt_v.init(v),
+            opt_alpha=self.opt_alpha.init(alpha), net_step=0,
+        )
+
+    # ------------------------------------------------------------------
+    # objectives
+    # ------------------------------------------------------------------
+
+    def _inner_loss(self, params, eps, u, z, v, alpha):
+        cw, _ = self._core_weights(v, alpha)
+        return E.inner_elbo(self.net, params, eps, u, z, cw, nc=self.nc)
+
+    def _outer_loss(self, params, eps, u, z, v, alpha, xb, yb):
+        cw, _ = self._core_weights(v, alpha)
+        return E.psvi_elbo(self.net, params, eps, u, z, cw, xb, yb, self.N, nc=self.nc)
+
+    def _sample_eps(self, S):
+        return self.net.sample_eps(self.gen, S)
+
+    def _sample_batch(self):
+        idx = torch.randperm(self.n_train_now, generator=self.gen,
+                             device=self.device)[:self.data_minibatch]
+        return self.x_train[idx], self.y_train[idx]
+
+    def _run_inner(self, params0, u, z, v, alpha, lr_now, eps=None):
+        """T differentiable inner Adam steps with a fresh optimizer state
+        (ref nested_step :549-555). All T noise draws are made before the
+        loop, as the JAX engine pre-draws them outside its scan."""
+        T = self.inner_it
+        eps_stack = eps if eps is not None else [
+            self._sample_eps(self.mc_samples) for _ in range(T)]
+        params, ostate = params0, self.inner_opt.init(params0)
+        losses = []
+        for t in range(T):
+            loss = self._inner_loss(params, eps_stack[t], u, z, v, alpha)
+            g = torch.autograd.grad(loss, tree_leaves(params), create_graph=True)
+            params, ostate = self.inner_opt.step(
+                params, tree_unflatten(params, g), ostate, lr_now)
+            losses.append(loss.detach())
+        return params, torch.stack(losses)
+
+    # ------------------------------------------------------------------
+    # trainers
+    # ------------------------------------------------------------------
+
+    def _hyper_names(self):
+        names = []
+        if self.spec.learn_u:
+            names.append("u")
+        if self.spec.learn_v:
+            names.append("v")
+        if self.spec.learn_alpha:
+            names.append("alpha")
+        return names
+
+    def _apply_hyper_updates(self, state: PSVIState, grads):
+        u, v, alpha = state.u, state.v, state.alpha
+        opt_u, opt_v, opt_alpha = state.opt_u, state.opt_v, state.opt_alpha
+        if "u" in grads:
+            u, opt_u = self.opt_u.step(u, grads["u"], opt_u)
+        if "v" in grads:
+            v, opt_v = self.opt_v.step(v, grads["v"], opt_v)
+            if not self.spec.parameterised:
+                v = O.clip_nonnegative(v)  # clamp (ref :585-591)
+        if "alpha" in grads:
+            alpha, opt_alpha = self.opt_alpha.step(alpha, grads["alpha"], opt_alpha)
+        return state._replace(u=u, v=v, alpha=alpha, opt_u=opt_u, opt_v=opt_v,
+                              opt_alpha=opt_alpha)
+
+    def _nested_step(self, state: PSVIState, batch=None, eps=None):
+        """Bilevel step through torch.autograd: differentiate the outer
+        IW-ELBO through the unrolled inner loop (ref ``nested_step``
+        :541-600). ``eps = (list of T inner noise trees, outer noise tree)``."""
+        xb, yb = batch if batch is not None else self._sample_batch()
+        if eps is None:
+            eps_inner = [self._sample_eps(self.mc_samples) for _ in range(self.inner_it)]
+            eps_outer = self._sample_eps(self.mc_samples)
+        else:
+            eps_inner, eps_outer = eps
+        lr_now = self.lr_net_sched(state.net_step)
+        names = self._hyper_names()
+        with torch.enable_grad():
+            hyper = {k: getattr(state, k).detach().clone().requires_grad_(True) for k in names}
+            u = hyper.get("u", state.u)
+            v = hyper.get("v", state.v)
+            alpha = hyper.get("alpha", state.alpha)
+            params0 = tree_map(lambda x: x.detach().requires_grad_(True), state.params)
+            paramsT, inner_losses = self._run_inner(params0, u, state.z, v, alpha, lr_now,
+                                                    eps_inner)
+            loss = self._outer_loss(paramsT, eps_outer, u, state.z, v, alpha, xb, yb)
+            grads = dict(zip(names, torch.autograd.grad(loss, list(hyper.values())))) if names else {}
+        state = self._apply_hyper_updates(state, grads)
+        state = state._replace(params=tree_map(lambda x: x.detach(), paramsT),
+                               net_step=state.net_step + 1)
+        return state, {"outer_loss": loss.detach(), "inner_losses": inner_losses}
+
+    def _fused_dense_idx(self):
+        return [i for i, l in enumerate(self.net.layers) if isinstance(l, VILinear)]
+
+    def _fused_cfg(self, B: int) -> FN.FusedCfg:
+        dense = [self.net.layers[i] for i in self._fused_dense_idx()]
+        return FN.FusedCfg(
+            T=self.inner_it, S=self.mc_samples,
+            widths=tuple([dense[0].in_dim] + [l.out_dim for l in dense]),
+            M=self.num_pseudo, B=B, N=float(self.N),
+            parameterised=self.spec.parameterised,
+            use_alpha=self.spec.learn_alpha or self.spec.alpha_fixed,
+            prior_sd=float(dense[0].prior_sd),
+        )
+
+    def _nested_step_fused(self, state: PSVIState, batch=None, eps=None):
+        """The nested step through the fused kernels: the CUDA kernels on
+        the card, their plain versions on the CPU. The noise is drawn in
+        the kernels' flat layout in one call per step; injected noise
+        (``eps`` as for ``_nested_step``) is packed into it."""
+        xb, yb = batch if batch is not None else self._sample_batch()
+        didx = self._fused_dense_idx()
+        cfg = self._fused_cfg(xb.shape[0])
+        if eps is None:
+            e_in = torch.randn((cfg.T, cfg.n_eps), generator=self.gen, device=self.device)
+            e_out = torch.randn((cfg.n_eps,), generator=self.gen, device=self.device)
+        else:
+            eps_inner, eps_outer = eps
+            e_in = torch.stack([FN.pack_eps([e[i] for i in didx]) for e in eps_inner])
+            e_out = FN.pack_eps([eps_outer[i] for i in didx])
+        p0 = FN.pack_params([state.params[i] for i in didx])
+        lr_now = self.lr_net_sched(state.net_step)
+        loss, inner_losses, pT, g_u, g_v, g_a = FN.fused_nested_flat(
+            p0, state.u, state.v, state.alpha, state.z, xb, yb, e_in, e_out, lr_now, cfg)
+        all_grads = {"u": g_u, "v": g_v, "alpha": g_a}
+        grads = {k: all_grads[k] for k in self._hyper_names()}
+        state = self._apply_hyper_updates(state, grads)
+        params = list(state.params)
+        for k, p in zip(didx, FN.unpack_params(pT.clone(), cfg)):
+            params[k] = p
+        state = state._replace(params=tuple(params), net_step=state.net_step + 1)
+        return state, {"outer_loss": loss, "inner_losses": inner_losses}
+
+    def _use_fused_inner(self) -> bool:
+        if self.fused_inner is False:
+            return False
+        ok = FN.supports(self)
+        if self.fused_inner is True:
+            if not ok:
+                raise ValueError(
+                    "fused_inner=True requires a configuration the fused kernels "
+                    "support (see psvi_torch.ops.fused_nested.supports)")
+            return True
+        return ok and self.device.type == "cuda"
+
+    def _trainer_fn(self):
+        return self._nested_step_fused if self._use_fused_inner() else self._nested_step
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _evaluate_fn(self, state: PSVIState, correction: bool = True):
+        """Importance-weighted predictive accuracy and NLL over padded test
+        batches, and the IW diagnostics of the last batch (ref ``evaluate``
+        :1031-1108)."""
+        S = self.mc_samples
+        n_test = int(self.x_test.shape[0])
+        B = min(self.data_minibatch, n_test)
+        pad = _count_pad(n_test, B)
+        xt = torch.cat([self.x_test, self.x_test[:pad]]) if pad else self.x_test
+        yt = torch.cat([self.y_test, self.y_test[:pad]]) if pad else self.y_test
+        mask = torch.cat([torch.ones(n_test, device=self.device),
+                          torch.zeros(pad, device=self.device)])
+        cw, fv = self._core_weights(state.v, state.alpha)
+        M = state.u.shape[0]
+        corrects = nll_sum = total = 0.0
+        weights = None
+        for b0 in range(0, n_test + pad, B):
+            xb, yb, m = xt[b0:b0 + B], yt[b0:b0 + B], mask[b0:b0 + B]
+            eps = self._sample_eps(S)
+            all_logits = self.net.apply(state.params, eps, torch.cat([state.u, xb]))
+            lw = E.importance_log_weights(self.net, state.params, eps, state.u, state.z, cw,
+                                          nc=self.nc, pseudo_out=all_logits[:, :M])
+            probs, weights = E.predictive_mixture(all_logits[:, M:], lw, correction=correction)
+            pred = torch.argmax(probs, dim=-1).to(torch.float32)
+            corrects = corrects + torch.sum((pred == yb) * m)
+            p_true = torch.gather(probs, 1, yb.long()[:, None])[:, 0]
+            nll_sum = nll_sum - torch.sum(torch.log(torch.clamp_min(p_true, 1e-38)) * m)
+            total = total + torch.sum(m)
+        iw_ent, ness, vent = E.iw_diagnostics(weights, fv, self.num_pseudo)
+        return corrects / total, nll_sum / total, iw_ent, ness, vent
+
+    # ------------------------------------------------------------------
+    # run loop
+    # ------------------------------------------------------------------
+
+    def run_psvi(self) -> dict:
+        """Train for ``num_epochs`` outer steps, evaluating every
+        ``log_every``; returns the reference's results dict (JAX engine
+        ``psvi.py:1713-1720``)."""
+        nlls, accs, csizes, iws_ent, nesses, vs_ent, vs, times = [], [], [], [], [], [], [], [0.0]
+        if self.spec.learn_alpha:
+            self.results.setdefault("alpha", [])
+        log_resource = LogResource(self.device)
+        t_start = time.time()
+        for it in range(self.num_epochs):
+            if it % self.log_every == 0:
+                acc, nll, iw_ent, ness, vent = self._evaluate_fn(self.state)
+                accs.append(float(acc))
+                nlls.append(float(nll))
+                csizes.append(self.num_pseudo)
+                times.append(times[-1] + time.time() - t_start)
+                vs.append(self.state.v.cpu().numpy())
+                if self.compute_weights_entropy:
+                    iws_ent.append(float(iw_ent))
+                    vs_ent.append(float(vent))
+                nesses.append(float(ness))
+                if self.spec.learn_alpha:
+                    self.results["alpha"].append(self.state.alpha.cpu().numpy())
+            self.state, _ = self._step(self.state)
+            log_resource.update()
+        resources = log_resource.get_resources()
+        self.results.update(
+            accs=accs, nlls=nlls, csizes=csizes, times=times[1:], elbos=self.elbos,
+            went=iws_ent, ness=nesses, vent=vs_ent, vs=vs,
+            avg_epoch_time=resources["time"], gpu_memory=resources["memory"],
+            chosen_indices=self.chosen_indices,
+        )
+        return self.results
+
+
+def make_psvi_engine(data: DataBundle, method: str = "psvi_learn_v", **kwargs):
+    """Build the engine for ``method`` (the regressor family is not ported yet)."""
+    spec = METHOD_SPECS[method]
+    if spec.regressor:
+        raise NotImplementedError(
+            "PSVIRegressor is not ported yet (ROADMAP.md, queue A item 7)")
+    return PSVI(data, method=method, **kwargs)
+
+
+def run_psvi(data: DataBundle, method: str = "psvi_learn_v", **kwargs) -> dict:
+    """Functional entry: build the engine for ``method`` and run it."""
+    return make_psvi_engine(data, method=method, **kwargs).run_psvi()

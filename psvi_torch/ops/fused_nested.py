@@ -1,0 +1,722 @@
+"""The fused nested PSVI step for the dense mean-field family.
+
+Port of ``psvi_tpu/ops/fused_nested.py::fused_nested_outer``: one whole
+bilevel outer step of a ``VILinear (ReLU VILinear)*`` net with a
+categorical likelihood —
+
+- T differentiable inner Adam iterations on the inner ELBO
+  ``Σ_s Σ_m cw_m·NLL(u_m, z_m; θ_s) + KL(q‖p)``, cw = N·f(v);
+- the outer importance-weighted PSVI-ELBO on (u, minibatch) from paramsT;
+- the hypergradients w.r.t. u, v and α through the whole unroll.
+
+The JAX package got the reverse sweep by tracing ``jax.value_and_grad``
+into one Mosaic kernel. CUDA has no tracer, so here the reverse sweep is
+derived by hand and split into three kernels, each with a plain-PyTorch
+twin of the same math in this module:
+
+``nested_fwd``   for t = 1..T: θ = μ + softplus(ρ)·ε_t, forward on u for all
+                 S samples, NLL and KL, the first-order gradient by hand
+                 backprop, the torch-exact Adam step. Stores (p, m, n) for
+                 every t and emits the T inner losses.
+``nested_outer`` from paramsT and the outer noise: the forward on (u, xb),
+                 the pseudo and data NLLs, the per-sample NKL, the
+                 self-normalized IW weights and the loss; its backward to
+                 p̄_T and the direct ū and c̄w.
+``nested_rev``   for t = T..1: the Adam VJP (``_sqrt_safe`` rule: zero
+                 derivative at n = 0) to ḡ_t, then the VJP of
+                 g_t = ∇_p L_inner(p_{t−1}; u, cw, ε_t) applied to ḡ_t as
+                 forward-over-reverse — a tangent pass in direction ḡ_t
+                 through the forward and the backprop — accumulating
+                 p̄_{t−1}, ū and c̄w. Finally c̄w → v̄, ᾱ.
+
+The layouts are the engine's natural ones: a flat parameter vector
+(per layer ``mu_w (o,i), rho_w (o,i), mu_b (o), rho_b (o)``) and a flat
+noise draw (per layer ``w (S,o,i), b (S,o)``). The TPU kernel's
+sample-major/class-major rank-2 layouts and 0/1 mask matmuls were Mosaic
+workarounds and are not carried over.
+
+Backends of :func:`fused_nested_outer`: ``"cuda"`` (the hand-written
+kernels, CUDA tensors only), ``"torch"`` (the plain versions),
+``"autograd"`` (the ``_nested_core`` math through ``torch.autograd`` with
+``create_graph=True`` — the oracle both are held against). Everything is
+float32; the plain versions run with TF32 off (see ``psvi_torch.device``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from psvi_torch.models.layers import ReLU, Sequential, VILinear, softplus
+from psvi_torch.models.networks import make_dense
+from psvi_torch.ops import elbo
+from psvi_torch.ops.optim import _sqrt_safe
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+# Caps of the CUDA design (enforced by supports()): one thread block of
+# 1024 threads runs a whole step; per-sample reductions use one warp per
+# sample and shared arrays of MAX_SAMPLES; the net struct holds MAX_LAYERS.
+MAX_LAYERS = 8
+MAX_SAMPLES = 32
+MAX_WIDTH_X_S = 2048  # S·max(width), as the JAX gate
+MAX_POINTS = 2048  # M + B, as the JAX gate
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedCfg:
+    """Static configuration of the fused nested step."""
+
+    T: int  # inner iterations
+    S: int  # MC samples
+    widths: Tuple[int, ...]  # dense stack (D, h, ..., nc); ReLU between
+    M: int  # coreset size
+    B: int  # outer minibatch rows
+    N: float  # dataset-size rescaler
+    parameterised: bool  # f(v) = softmax(v)
+    use_alpha: bool  # f(v) *= exp(alpha)
+    prior_sd: float
+    b1: float = 0.9
+    b2: float = 0.999
+    adam_eps: float = 1e-8
+
+    @property
+    def L(self):
+        return len(self.widths) - 1
+
+    @property
+    def D(self):
+        return self.widths[0]
+
+    @property
+    def nc(self):
+        return self.widths[-1]
+
+    def layer_dims(self):
+        return [(self.widths[l], self.widths[l + 1]) for l in range(self.L)]
+
+    @property
+    def n_params(self):  # P: flat parameter vector length
+        return sum(2 * (o * i + o) for i, o in self.layer_dims())
+
+    @property
+    def n_eps(self):  # E: one flat noise draw
+        return self.S * sum(o * i + o for i, o in self.layer_dims())
+
+    @property
+    def n_units(self):  # Σ_l out_l: activation units per (sample, point)
+        return sum(self.widths[1:])
+
+    def bias_corrections(self, t: int):
+        """(1 − β₁ᵗ, √(1 − β₂ᵗ)) in double, as the JAX core computes them."""
+        return 1.0 - self.b1 ** t, math.sqrt(1.0 - self.b2 ** t)
+
+
+# ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
+
+
+def pack_params(layers) -> torch.Tensor:
+    """Per-layer dicts ``mu_w, rho_w (o,i), mu_b, rho_b (o,)`` → flat (P,)."""
+    return torch.cat([
+        torch.cat([p["mu_w"].reshape(-1), p["rho_w"].reshape(-1),
+                   p["mu_b"].reshape(-1), p["rho_b"].reshape(-1)])
+        for p in layers
+    ])
+
+
+def unpack_params(flat: torch.Tensor, cfg: FusedCfg):
+    """Flat (P,) → per-layer dicts of views."""
+    out, off = [], 0
+    for i, o in cfg.layer_dims():
+        nw = o * i
+        out.append({
+            "mu_w": flat[off:off + nw].view(o, i),
+            "rho_w": flat[off + nw:off + 2 * nw].view(o, i),
+            "mu_b": flat[off + 2 * nw:off + 2 * nw + o],
+            "rho_b": flat[off + 2 * nw + o:off + 2 * nw + 2 * o],
+        })
+        off += 2 * (nw + o)
+    return out
+
+
+def pack_eps(layers, lead=()) -> torch.Tensor:
+    """Per-layer noise dicts ``w (*lead, S, o, i), b (*lead, S, o)`` → (*lead, E)."""
+    n = len(lead)
+    return torch.cat(
+        [torch.cat([e["w"].reshape(*lead, -1), e["b"].reshape(*lead, -1)], dim=n)
+         for e in layers], dim=n)
+
+
+def unpack_eps(flat: torch.Tensor, cfg: FusedCfg):
+    """One flat draw (E,) → per-layer ``(w (S,o,i), b (S,o))`` views."""
+    out, off, S = [], 0, cfg.S
+    for i, o in cfg.layer_dims():
+        nw = S * o * i
+        out.append((flat[off:off + nw].view(S, o, i),
+                    flat[off + nw:off + nw + S * o].view(S, o)))
+        off += nw + S * o
+    return out
+
+
+def _mu_rho(flat, cfg):
+    return [(p["mu_w"], p["rho_w"], p["mu_b"], p["rho_b"]) for p in unpack_params(flat, cfg)]
+
+
+def _pack4(parts):
+    return torch.cat([x.reshape(-1) for quad in parts for x in quad])
+
+
+def core_weights(v, alpha, cfg: FusedCfg):
+    """cw = N·f(v) (ref ``psvi_classes.py:111,1358-1360,1486-1488``)."""
+    if cfg.parameterised:
+        e = torch.exp(v - torch.max(v))
+        f = e / torch.sum(e)
+    else:
+        f = v
+    if cfg.use_alpha:
+        f = torch.exp(alpha[0]) * f
+    return cfg.N * f
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the three kernels (hand-derived math)
+# ---------------------------------------------------------------------------
+
+
+def _forward(Ws, bs, X):
+    """Pre-activations z^l (S, P, out_l) of every layer for input X (P, D)."""
+    zs = []
+    for l, (W, b) in enumerate(zip(Ws, bs)):
+        if l == 0:
+            z = torch.einsum("pi,soi->spo", X, W)
+        else:
+            z = torch.matmul(torch.relu(zs[-1]), W.transpose(1, 2))
+        zs.append(z + b[:, None, :])
+    return zs
+
+
+def _backward(Ws, zs, delta_top):
+    """δ^l = ∂/∂z^l for every layer, from δ at the logits."""
+    deltas = [None] * len(Ws)
+    deltas[-1] = delta_top
+    for l in range(len(Ws) - 1, 0, -1):
+        deltas[l - 1] = torch.matmul(deltas[l], Ws[l]) * (zs[l - 1] > 0)
+    return deltas
+
+
+def _layer_input(zs, X, l):
+    return X if l == 0 else torch.relu(zs[l - 1])
+
+
+def _sample_grads(delta, a_prev):
+    """Per-sample ∂/∂W (S,o,i) and ∂/∂b (S,o) from δ (S,P,o) and the input."""
+    if a_prev.dim() == 2:
+        GW = torch.einsum("spo,pi->soi", delta, a_prev)
+    else:
+        GW = torch.einsum("spo,spi->soi", delta, a_prev)
+    return GW, delta.sum(1)
+
+
+def _top(Z, Y):
+    """Categorical head: (lse (S,P), softmax (S,P,nc), nll (S,P))."""
+    lse = torch.logsumexp(Z, dim=-1)
+    return lse, torch.exp(Z - lse[..., None]), lse - (Z * Y).sum(-1)
+
+
+def _inner_value_grad(p, eps_t, u, Y, cw, cfg: FusedCfg):
+    """L_inner(p) and ∇_p L_inner by hand backprop, with the residuals the
+    reverse sweep needs."""
+    sp = cfg.prior_sd
+    sp2 = sp * sp
+    prm = _mu_rho(p, cfg)
+    eps = unpack_eps(eps_t, cfg)
+    sds = [(softplus(rw), softplus(rb)) for _, rw, _, rb in prm]
+    Ws = [mw + sw * ew for (mw, _, _, _), (sw, _), (ew, _) in zip(prm, sds, eps)]
+    bs = [mb + sb * eb for (_, _, mb, _), (_, sb), (_, eb) in zip(prm, sds, eps)]
+    zs = _forward(Ws, bs, u)
+    _, Pz, nll = _top(zs[-1], Y)
+    kl = sum(
+        torch.sum(torch.log(sp / s) + (torch.square(s) + torch.square(m)) / (2.0 * sp2) - 0.5)
+        for (mw, _, mb, _), (sw, sb) in zip(prm, sds) for m, s in ((mw, sw), (mb, sb))
+    )
+    loss = torch.sum(nll @ cw) + kl
+    deltas = _backward(Ws, zs, cw[None, :, None] * (Pz - Y))
+    grads, hs = [], []
+    for l, ((mw, rw, mb, rb), (sw, sb), (ew, eb)) in enumerate(zip(prm, sds, eps)):
+        GW, Gb = _sample_grads(deltas[l], _layer_input(zs, u, l))
+        # h = ∂L/∂σ; ∂L/∂ρ = sigmoid(ρ)·h
+        hw = (GW * ew).sum(0) - 1.0 / sw + sw / sp2
+        hb = (Gb * eb).sum(0) - 1.0 / sb + sb / sp2
+        grads.append((GW.sum(0) + mw / sp2, torch.sigmoid(rw) * hw,
+                      Gb.sum(0) + mb / sp2, torch.sigmoid(rb) * hb))
+        hs.append((hw, hb))
+    cache = dict(prm=prm, sds=sds, eps=eps, Ws=Ws, zs=zs, Pz=Pz, deltas=deltas, hs=hs)
+    return loss, _pack4(grads), cache
+
+
+def _adam(p, m, n, g, t, lr, cfg: FusedCfg):
+    bc1, bc2s = cfg.bias_corrections(t)
+    m = cfg.b1 * m + (1.0 - cfg.b1) * g
+    n = cfg.b2 * n + (1.0 - cfg.b2) * torch.square(g)
+    p = p - lr * (m / bc1) / (_sqrt_safe(n) / bc2s + cfg.adam_eps)
+    return p, m, n
+
+
+def _one_hot(y, nc):
+    return F.one_hot(y.long(), nc).to(torch.float32)
+
+
+def nested_fwd_torch(p0, u, y, v, alpha, eps_in, lr: float, cfg: FusedCfg):
+    """T inner Adam iterations. Returns ``(losses (T,), hist (T+1, 3, P),
+    cw (M,))``; ``hist[t] = (p_t, m_t, n_t)``, ``hist[T, 0]`` is paramsT."""
+    cw = core_weights(v, alpha, cfg)
+    Y = _one_hot(y, cfg.nc)
+    p, m, n = p0, torch.zeros_like(p0), torch.zeros_like(p0)
+    hist, losses = [torch.stack([p, m, n])], []
+    for t in range(1, cfg.T + 1):
+        loss, g, _ = _inner_value_grad(p, eps_in[t - 1], u, Y, cw, cfg)
+        p, m, n = _adam(p, m, n, g, t, lr, cfg)
+        hist.append(torch.stack([p, m, n]))
+        losses.append(loss)
+    return torch.stack(losses), torch.stack(hist), cw
+
+
+def nested_outer_torch(pT, u, y, cw, xb, yb, eps_out, cfg: FusedCfg):
+    """Outer IW-ELBO from paramsT and its first-order backward. Returns
+    ``(loss (), p̄_T (P,), ū (M, D), c̄w (M,))``."""
+    S, M, B = cfg.S, cfg.M, cfg.B
+    sp = cfg.prior_sd
+    sp2 = sp * sp
+    X = torch.cat([u, xb], dim=0)
+    Y = torch.cat([_one_hot(y, cfg.nc), _one_hot(yb, cfg.nc)], dim=0)
+    prm = _mu_rho(pT, cfg)
+    eps = unpack_eps(eps_out, cfg)
+    sds = [(softplus(rw), softplus(rb)) for _, rw, _, rb in prm]
+    Ws = [mw + sw * ew for (mw, _, _, _), (sw, _), (ew, _) in zip(prm, sds, eps)]
+    bs = [mb + sb * eb for (_, _, mb, _), (_, sb), (_, eb) in zip(prm, sds, eps)]
+    zs = _forward(Ws, bs, X)
+    _, Pz, nll = _top(zs[-1], Y)
+    pseudo = nll[:, :M] @ cw
+    data = (cfg.N / B) * nll[:, M:].sum(1)
+    spt = torch.tensor(sp, dtype=pT.dtype, device=pT.device)
+
+    def logpdf(x, mu, sd):
+        return -0.5 * torch.square((x - mu) / sd) - torch.log(sd) - _HALF_LOG_2PI
+
+    nkl = 0.0
+    for (mw, _, mb, _), (sw, sb), W, b in zip(prm, sds, Ws, bs):
+        nkl = nkl + (logpdf(W, 0.0, spt) - logpdf(W, mw, sw)).sum((1, 2))
+        nkl = nkl + (logpdf(b, 0.0, spt) - logpdf(b, mb, sb)).sum(1)
+    log_w = -pseudo + nkl
+    w = torch.softmax(log_w, dim=0)
+    # d centred at its weighted mean in two passes, so that the coefficients
+    # c_ps below sum to zero in fp32 as they do exactly (|d| ~ 10²)
+    d = data - pseudo
+    d_ref = torch.sum(w * d)
+    dc = d - d_ref
+    dcbar = torch.sum(w * dc)
+    loss = d_ref + dcbar - torch.mean(log_w)
+    # ∂loss/∂log_w, ∂loss/∂pseudo, ∂loss/∂data
+    q = w * (dc - dcbar) - 1.0 / S
+    c_ps = -w - q
+    coef = torch.cat([c_ps[:, None] * cw[None, :],
+                      (w * (cfg.N / B))[:, None].expand(S, B)], dim=1)
+    deltas = _backward(Ws, zs, coef[..., None] * (Pz - Y))
+    bars = []
+    for l, ((mw, rw, mb, rb), (sw, sb), (ew, eb), W, b) in enumerate(
+            zip(prm, sds, eps, Ws, bs)):
+        GW, Gb = _sample_grads(deltas[l], _layer_input(zs, X, l))
+        quad = []
+        for G, th, mu, sd, rho, e, qs in ((GW, W, mw, sw, rw, ew, q[:, None, None]),
+                                          (Gb, b, mb, sb, rb, eb, q[:, None])):
+            r = (th - mu) / sd
+            # nkl: ∂/∂θ = −θ/sp² + r/σ; direct ∂/∂μ = −r/σ, ∂/∂σ = (1 − r²)/σ
+            thbar = G + qs * (-th / sp2 + r / sd)
+            mubar = thbar.sum(0) - (qs * r / sd).sum(0)
+            sdbar = (e * thbar).sum(0) + (qs * (1.0 - r * r) / sd).sum(0)
+            quad.append((mubar, sdbar * torch.sigmoid(rho)))
+        bars.append((quad[0][0], quad[0][1], quad[1][0], quad[1][1]))
+    ubar = torch.einsum("spo,soi->pi", deltas[0][:, :M], Ws[0])
+    cwbar = (c_ps[:, None] * nll[:, :M]).sum(0)
+    return loss, _pack4(bars), ubar, cwbar
+
+
+def rev_iter_torch(t: int, p_prev, m_t, n_t, pbar, mbar, nbar, u, Y, cw, eps_t,
+                   lr: float, cfg: FusedCfg):
+    """VJP of inner iteration t, ``(p_{t−1}, m_{t−1}, n_{t−1}, u, cw) →
+    (p_t, m_t, n_t)``, at the cotangent ``(p̄_t, m̄_t, n̄_t)``. Returns
+    ``(p̄_{t−1}, m̄_{t−1}, n̄_{t−1}, ū, c̄w)``."""
+    sp2 = cfg.prior_sd * cfg.prior_sd
+    _, g, c = _inner_value_grad(p_prev, eps_t, u, Y, cw, cfg)
+    # Adam VJP (_sqrt_safe: zero derivative at n = 0)
+    bc1, bc2s = cfg.bias_corrections(t)
+    den = _sqrt_safe(n_t) / bc2s + cfg.adam_eps
+    mbar_t = mbar - pbar * lr / (bc1 * den)
+    pos = n_t > 0
+    dsqrt = torch.where(pos, 0.5 / torch.sqrt(torch.where(pos, n_t, 1.0)), 0.0)
+    nbar_t = nbar + pbar * lr * (m_t / bc1) / (den * den) * dsqrt / bc2s
+    gbar = (1.0 - cfg.b1) * mbar_t + 2.0 * (1.0 - cfg.b2) * g * nbar_t
+
+    # forward-over-reverse: tangent of (forward, backprop) in direction ḡ
+    prm, sds, eps, Ws, zs = c["prm"], c["sds"], c["eps"], c["Ws"], c["zs"]
+    Pz, deltas, hs = c["Pz"], c["deltas"], c["hs"]
+    dirs = _mu_rho(gbar, cfg)
+    Wd = [gmw + torch.sigmoid(rw) * grw * ew
+          for (gmw, grw, _, _), (_, rw, _, _), (ew, _) in zip(dirs, prm, eps)]
+    bd = [gmb + torch.sigmoid(rb) * grb * eb
+          for (_, _, gmb, grb), (_, _, _, rb), (_, eb) in zip(dirs, prm, eps)]
+    zd = []
+    for l in range(cfg.L):
+        if l == 0:
+            z = torch.einsum("pi,soi->spo", u, Wd[0])
+        else:
+            ad_prev = zd[-1] * (zs[l - 1] > 0)
+            z = (torch.matmul(ad_prev, Ws[l].transpose(1, 2))
+                 + torch.matmul(torch.relu(zs[l - 1]), Wd[l].transpose(1, 2)))
+        zd.append(z + bd[l][:, None, :])
+    Zd = zd[-1]
+    pzd = (Pz * Zd).sum(-1, keepdim=True)
+    cwbar = ((Pz - Y) * Zd).sum(-1).sum(0)
+    dd = [None] * cfg.L
+    dd[-1] = cw[None, :, None] * Pz * (Zd - pzd)
+    for l in range(cfg.L - 1, 0, -1):
+        dd[l - 1] = (torch.matmul(dd[l], Ws[l]) + torch.matmul(deltas[l], Wd[l])) * (zs[l - 1] > 0)
+    ubar = (torch.einsum("spo,soi->pi", dd[0], Ws[0])
+            + torch.einsum("spo,soi->pi", deltas[0], Wd[0]))
+    hvp = []
+    for l, ((gmw, grw, gmb, grb), (mw, rw, mb, rb), (sw, sb), (ew, eb), (hw, hb)) in enumerate(
+            zip(dirs, prm, sds, eps, hs)):
+        GWd, Gbd = _sample_grads(dd[l], _layer_input(zs, u, l))
+        if l > 0:
+            GWd = GWd + torch.einsum("spo,spi->soi", deltas[l], zd[l - 1] * (zs[l - 1] > 0))
+        quad = []
+        for G, gm, gr, rho, sd, e, h in ((GWd, gmw, grw, rw, sw, ew, hw),
+                                         (Gbd, gmb, grb, rb, sb, eb, hb)):
+            sg = torch.sigmoid(rho)
+            quad.append(G.sum(0) + gm / sp2)
+            quad.append(sg * (1.0 - sg) * gr * h
+                        + sg * ((G * e).sum(0) + (1.0 / (sd * sd) + 1.0 / sp2) * sg * gr))
+        hvp.append((quad[0], quad[1], quad[2], quad[3]))
+    return pbar + _pack4(hvp), cfg.b1 * mbar_t, cfg.b2 * nbar_t, ubar, cwbar
+
+
+def _cw_vjp(cwbar, cw, v, alpha, cfg: FusedCfg):
+    """c̄w → (v̄ (M,), ᾱ (1,)) through cw = N·[exp(α)·] f(v)."""
+    scale = cfg.N * (torch.exp(alpha[0]) if cfg.use_alpha else 1.0)
+    if cfg.parameterised:
+        e = torch.exp(v - torch.max(v))
+        f = e / torch.sum(e)
+        fbar = scale * cwbar
+        g_v = f * (fbar - torch.sum(f * fbar))
+    else:
+        g_v = scale * cwbar
+    if cfg.use_alpha:
+        g_a = torch.sum(cwbar * cw).reshape(1)
+    else:
+        g_a = torch.zeros(1, dtype=cw.dtype, device=cw.device)
+    return g_v, g_a
+
+
+def nested_rev_torch(hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in,
+                     lr: float, cfg: FusedCfg):
+    """Reverse sweep t = T..1. Returns ``(g_u (M, D), g_v (M,), g_alpha (1,))``."""
+    Y = _one_hot(y, cfg.nc)
+    mbar, nbar = torch.zeros_like(pbar), torch.zeros_like(pbar)
+    for t in range(cfg.T, 0, -1):
+        pbar, mbar, nbar, du, dcw = rev_iter_torch(
+            t, hist[t - 1, 0], hist[t, 1], hist[t, 2], pbar, mbar, nbar,
+            u, Y, cw, eps_in[t - 1], lr, cfg)
+        ubar = ubar + du
+        cwbar = cwbar + dcw
+    g_v, g_a = _cw_vjp(cwbar, cw, v, alpha, cfg)
+    return ubar, g_v, g_a
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (psvi_torch/ops/csrc/fused_nested.cu)
+# ---------------------------------------------------------------------------
+
+#: Launch count of each kernel: its wrapper adds one where it launches it.
+LAUNCHES = {"nested_fwd": 0, "nested_outer": 0, "nested_rev": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # p0 u y v alpha eps | losses hist cw | theta z delta
+    "psvi_nested_fwd": [_P] * 12,
+    # pT u y cw xb yb eps | loss pbar ubar cwbar | theta z delta nll
+    "psvi_nested_outer": [_P] * 15,
+    # hist pbar ubar cwbar u y cw v alpha eps | g_u g_v g_alpha |
+    # theta thetad z delta zd deltad nlld h gbar pbar mbar nbar cwbar
+    "psvi_nested_rev": [_P] * 26,
+}
+
+
+def _lib():
+    from psvi_torch.ops._build import load_library
+
+    lib = load_library("fused_nested")
+    if not getattr(lib, "_psvi_typed", False):
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args + [ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib._psvi_typed = True
+    return lib
+
+
+def _dims(cfg: FusedCfg):
+    vals = [cfg.L, cfg.S, cfg.T, cfg.M, cfg.B, int(cfg.parameterised),
+            int(cfg.use_alpha), *cfg.widths]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _hyper(cfg: FusedCfg, lr: float):
+    vals = [cfg.N, cfg.prior_sd, cfg.b1, cfg.b2, cfg.adam_eps, float(lr)]
+    return (ctypes.c_double * len(vals))(*vals)
+
+
+def _check(args):
+    """Validate ``(name, tensor, dtype, shape)`` before the pointers reach the
+    kernel, which reads exactly these extents: shape, dtype, contiguity, and
+    one CUDA device for all."""
+    dev = args[0][1].device
+    for name, t, dt, shape in args:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+        if t.dtype != dt:
+            raise ValueError(f"{name}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+    for name, t, _, _ in args:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: the CUDA kernel takes tensors on one CUDA device")
+    return dev
+
+
+def _launch(name, dev, args, cfg, lr):
+    fn = getattr(_lib(), "psvi_" + name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*[_P(a.data_ptr()) for a in args], _dims(cfg), _hyper(cfg, lr), _P(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+_F, _I = torch.float32, torch.int32
+
+
+def _empty(dev, *shape):
+    return torch.empty(shape, dtype=_F, device=dev)
+
+
+def _inner_args(cfg, u, y, v, alpha, eps_in):
+    M = cfg.M
+    return [("u", u, _F, (M, cfg.D)), ("y", y, _I, (M,)), ("v", v, _F, (M,)),
+            ("alpha", alpha, _F, (1,)), ("eps_in", eps_in, _F, (cfg.T, cfg.n_eps))]
+
+
+def _nested_fwd_cuda(p0, u, y, v, alpha, eps_in, lr, cfg):
+    dev = _check([("p0", p0, _F, (cfg.n_params,))] + _inner_args(cfg, u, y, v, alpha, eps_in))
+    T, P, M, S = cfg.T, cfg.n_params, cfg.M, cfg.S
+    out = (_empty(dev, T), _empty(dev, T + 1, 3, P), _empty(dev, M))
+    scratch = (_empty(dev, cfg.n_eps), _empty(dev, S * M * cfg.n_units),
+               _empty(dev, S * M * cfg.n_units))
+    _launch("nested_fwd", dev, (p0, u, y, v, alpha, eps_in) + out + scratch, cfg, lr)
+    return out
+
+
+def _nested_outer_cuda(pT, u, y, cw, xb, yb, eps_out, cfg):
+    M, B, D = cfg.M, cfg.B, cfg.D
+    dev = _check([("pT", pT, _F, (cfg.n_params,)), ("u", u, _F, (M, D)), ("y", y, _I, (M,)),
+                  ("cw", cw, _F, (M,)), ("xb", xb, _F, (B, D)), ("yb", yb, _I, (B,)),
+                  ("eps_out", eps_out, _F, (cfg.n_eps,))])
+    S, NP = cfg.S, M + B
+    out = (_empty(dev), _empty(dev, cfg.n_params), _empty(dev, cfg.M, cfg.D),
+           _empty(dev, cfg.M))
+    scratch = (_empty(dev, cfg.n_eps), _empty(dev, S * NP * cfg.n_units),
+               _empty(dev, S * NP * cfg.n_units), _empty(dev, S * NP))
+    _launch("nested_outer", dev, (pT, u, y, cw, xb, yb, eps_out) + out + scratch, cfg, 0.0)
+    return out
+
+
+def _nested_rev_cuda(hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in, lr, cfg):
+    S, M, P, E = cfg.S, cfg.M, cfg.n_params, cfg.n_eps
+    dev = _check([("hist", hist, _F, (cfg.T + 1, 3, P)), ("pbar", pbar, _F, (P,)),
+                  ("ubar", ubar, _F, (M, cfg.D)), ("cwbar", cwbar, _F, (M,)),
+                  ("cw", cw, _F, (M,))] + _inner_args(cfg, u, y, v, alpha, eps_in))
+    Z = S * M * cfg.n_units
+    out = (_empty(dev, M, cfg.D), _empty(dev, M), _empty(dev, 1))
+    scratch = (_empty(dev, E), _empty(dev, E), _empty(dev, Z), _empty(dev, Z),
+               _empty(dev, Z), _empty(dev, Z), _empty(dev, S * M),
+               _empty(dev, P), _empty(dev, P), _empty(dev, P), _empty(dev, P),
+               _empty(dev, P), _empty(dev, M))
+    _launch("nested_rev", dev,
+            (hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in) + out + scratch, cfg, lr)
+    return out
+
+
+def _labels(y):
+    return y if y.dtype == _I else y.to(_I)
+
+
+def nested_fwd(p0, u, y, v, alpha, eps_in, lr: float, cfg: FusedCfg):
+    """Kernel 1 wrapper: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if p0.is_cuda:
+        return _nested_fwd_cuda(p0, u, _labels(y), v, alpha, eps_in, lr, cfg)
+    return nested_fwd_torch(p0, u, y, v, alpha, eps_in, lr, cfg)
+
+
+def nested_outer(pT, u, y, cw, xb, yb, eps_out, cfg: FusedCfg):
+    """Kernel 2 wrapper (CUDA kernel for CUDA tensors, plain version on CPU)."""
+    if pT.is_cuda:
+        return _nested_outer_cuda(pT, u, _labels(y), cw, xb, _labels(yb), eps_out, cfg)
+    return nested_outer_torch(pT, u, y, cw, xb, yb, eps_out, cfg)
+
+
+def nested_rev(hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in, lr: float,
+               cfg: FusedCfg):
+    """Kernel 3 wrapper (CUDA kernel for CUDA tensors, plain version on CPU)."""
+    if hist.is_cuda:
+        return _nested_rev_cuda(hist, pbar, ubar, cwbar, u, _labels(y), cw, v, alpha,
+                                eps_in, lr, cfg)
+    return nested_rev_torch(hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in, lr, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the composed step
+# ---------------------------------------------------------------------------
+
+
+def _autograd_flat(p0, u, y, v, alpha, xb, yb, eps_in, eps_out, lr, cfg):
+    """The oracle: ``_nested_core`` through torch.autograd (create_graph)."""
+    net = make_dense(cfg.widths, prior_sd=cfg.prior_sd).to(p0.device)
+    didx = [i for i, l in enumerate(net.layers) if isinstance(l, VILinear)]
+
+    def full(dense):
+        tree = [{} for _ in net.layers]
+        for k, i in enumerate(didx):
+            tree[i] = dense[k]
+        return tuple(tree)
+
+    def eps_tree(flat):
+        return full([{"w": w, "b": b} for w, b in unpack_eps(flat, cfg)])
+
+    with torch.enable_grad():
+        u_ = u.detach().clone().requires_grad_(True)
+        v_ = v.detach().clone().requires_grad_(True)
+        a_ = alpha.detach().clone().requires_grad_(True)
+        cw = core_weights(v_, a_, cfg)
+        p = p0.detach().clone().requires_grad_(True)
+        m, n = torch.zeros_like(p), torch.zeros_like(p)
+        losses = []
+        for t in range(1, cfg.T + 1):
+            params = full(unpack_params(p, cfg))
+            loss_t = elbo.inner_elbo(net, params, eps_tree(eps_in[t - 1]), u_, y, cw)
+            (g,) = torch.autograd.grad(loss_t, p, create_graph=True)
+            p, m, n = _adam(p, m, n, g, t, lr, cfg)
+            losses.append(loss_t.detach())
+        loss = elbo.psvi_elbo(net, full(unpack_params(p, cfg)), eps_tree(eps_out),
+                           u_, y, cw, xb, yb, cfg.N)
+        g_u, g_v, g_a = torch.autograd.grad(loss, [u_, v_, a_], allow_unused=True)
+    if g_a is None:
+        g_a = torch.zeros_like(alpha)
+    return loss.detach(), torch.stack(losses), p.detach(), g_u, g_v, g_a
+
+
+def fused_nested_flat(p0, u, v, alpha, z, xb, yb, eps_in, eps_out, lr: float,
+                      cfg: FusedCfg, backend=None):
+    """The fused step on flat parameters ``p0 (P,)`` and flat noise
+    ``eps_in (T, E)``, ``eps_out (E,)``. ``z``/``yb`` are labels (M,)/(B,).
+    Returns ``(loss, inner_losses (T,), pT (P,), g_u (M, D), g_v (M,),
+    g_alpha (1,))``."""
+    if backend is None:
+        backend = "cuda" if p0.is_cuda else "torch"
+    if backend == "autograd":
+        return _autograd_flat(p0, u, z, v, alpha, xb, yb, eps_in, eps_out, lr, cfg)
+    if backend == "torch":
+        fwd, outer, rev = nested_fwd_torch, nested_outer_torch, nested_rev_torch
+    elif backend == "cuda":
+        if not p0.is_cuda:
+            raise ValueError("backend='cuda' needs CUDA tensors")
+        fwd, outer, rev = nested_fwd, nested_outer, nested_rev
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    with torch.no_grad():
+        losses, hist, cw = fwd(p0, u, z, v, alpha, eps_in, lr, cfg)
+        pT = hist[cfg.T, 0]
+        loss, pbar, ubar, cwbar = outer(pT, u, z, cw, xb, yb, eps_out, cfg)
+        g_u, g_v, g_a = rev(hist, pbar, ubar, cwbar, u, z, cw, v, alpha, eps_in, lr, cfg)
+    return loss, losses, pT, g_u, g_v, g_a
+
+
+def fused_nested_outer(params0, u, v, alpha, z, xb, yb, eps_inner, eps_outer, lr: float,
+                       cfg: FusedCfg, backend=None):
+    """Run the fused nested outer step on the engine's natural layouts.
+
+    params0: L dicts ``mu_w, rho_w (out, in), mu_b, rho_b (out,)``;
+    eps_inner: L dicts ``w (T, S, out, in), b (T, S, out)``; eps_outer: L
+    dicts ``w (S, out, in), b (S, out)``; z (M,), yb (B,) integer labels;
+    v (M,), alpha (1,). ``backend``: ``None`` (CUDA kernels for CUDA
+    tensors, the plain versions for CPU tensors), ``"cuda"``, ``"torch"``
+    or ``"autograd"``. Returns ``(loss, inner_losses (T,), paramsT (L
+    dicts), g_u (M, D), g_v (M,), g_alpha (1,))``.
+    """
+    p0 = pack_params(params0)
+    e_in = pack_eps(eps_inner, lead=(cfg.T,))
+    e_out = pack_eps(eps_outer)
+    loss, losses, pT, g_u, g_v, g_a = fused_nested_flat(
+        p0, u, v, alpha, z, xb, yb, e_in, e_out, lr, cfg, backend=backend)
+    return loss, losses, unpack_params(pT, cfg), g_u, g_v, g_a
+
+
+def supports(engine) -> bool:
+    """True when the engine's nested step can run as the fused kernels: an
+    all-dense ``VILinear (ReLU VILinear)*`` net with biases, KL counted and
+    one prior_sd; categorical likelihood with hard labels; the plain nested
+    trainer with inner Adam; and the CUDA design's caps (L ≤ 8, 2 ≤ S ≤ 32,
+    S·max(width) ≤ 2048, M + B ≤ 2048)."""
+    net = engine.net
+    if not isinstance(net, Sequential) or not len(net.layers):
+        return False
+    layers = list(net.layers)
+    for k, layer in enumerate(layers):  # VILinear (ReLU VILinear)*
+        if type(layer) is not (VILinear if k % 2 == 0 else ReLU):
+            return False
+    if type(layers[-1]) is not VILinear:
+        return False
+    dense = layers[0::2]
+    if not all(l.use_bias and l.count_kl for l in dense):
+        return False
+    if not all(l.prior_sd == dense[0].prior_sd for l in dense):
+        return False
+    widths = [dense[0].in_dim] + [l.out_dim for l in dense]
+    S = engine.mc_samples
+    return (
+        len(dense) <= MAX_LAYERS
+        and 2 <= S <= MAX_SAMPLES
+        and max(widths) * S <= MAX_WIDTH_X_S
+        and engine.num_pseudo + engine.data_minibatch <= MAX_POINTS
+        and engine.num_pseudo > 0
+        and engine.inner_it >= 1
+        and engine.trainer == "nested"
+        and engine.likelihood == "categorical"
+        and not engine.spec.learn_z
+        and not engine.spec.ablated
+        and not engine.spec.evaluate_only
+    )

@@ -1,0 +1,58 @@
+"""Carry the JAX engine's parameters and state across to the port.
+
+The tests hand both sides the same numbers: they take the JAX engine's
+parameters or ``PSVIState`` as NumPy arrays (``np.asarray`` of each leaf)
+and turn them into the port's tensors here, so that both compute the same
+function. Nothing here imports JAX; the caller does the conversion to
+NumPy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from psvi_torch.ops.optim import AdamState
+
+
+def _to_tensor(x, device):
+    a = np.asarray(x)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def params_from_jax(tree, device="cpu"):
+    """A nested tuple/list/dict of NumPy arrays → the same tree of float32
+    tensors (lists become tuples, as ``Sequential.init`` returns them)."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(conv(v) for v in t)
+        return _to_tensor(t, device)
+
+    return conv(tree)
+
+
+def _adam_from_jax(opt, device):
+    return AdamState(int(np.asarray(opt.count)),
+                     params_from_jax(opt.mu, device), params_from_jax(opt.nu, device))
+
+
+def state_from_jax(jstate, device="cpu"):
+    """The JAX ``PSVIState`` (leaves as NumPy arrays or anything
+    ``np.asarray`` accepts) → the port's :class:`PSVIState`."""
+    from psvi_torch.inference.psvi import PSVIState
+
+    return PSVIState(
+        params=params_from_jax(jstate.params, device),
+        u=_to_tensor(jstate.u, device),
+        z=_to_tensor(jstate.z, device),
+        v=_to_tensor(jstate.v, device),
+        alpha=_to_tensor(jstate.alpha, device),
+        opt_u=_adam_from_jax(jstate.opt_u, device),
+        opt_v=_adam_from_jax(jstate.opt_v, device),
+        opt_alpha=_adam_from_jax(jstate.opt_alpha, device),
+        net_step=int(np.asarray(jstate.net_step)),
+    )

@@ -1,0 +1,108 @@
+"""The port's engine against the JAX engine.
+
+- One ``_nested_step`` (plain autograd path) and one ``_nested_step_fused``
+  (the fused path; on the CPU its plain versions) of the port, started
+  from the JAX engine's state (``state_from_jax``) with the JAX step's
+  batch and noise injected, match the JAX ``_nested_step`` on the loss,
+  u, v, α and the parameters.
+- ``run_psvi`` on halfmoon logistic regression (M=30, 101 outer steps)
+  lands in the documented accuracy band and returns the JAX engine's
+  results-dict keys.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from psvi_torch.data import read_dataset
+from psvi_torch.inference.psvi import PSVI, run_psvi
+from psvi_torch.utils.convert import params_from_jax, state_from_jax
+from psvi_tpu.data import read_dataset as jax_read_dataset
+from psvi_tpu.inference.psvi import PSVI as JPSVI
+
+KW = dict(num_pseudo=20, mc_samples=6, inner_it=5, data_minibatch=64, init_sd=1e-3,
+          num_epochs=1, log_every=1000, seed=0)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("method,dataset,arch", [
+    ("psvi_alpha_v", "halfmoon", "logistic_regression"),
+    ("psvi_learn_v", "four_blobs", "fn"),
+])
+def test_engine_step_matches_jax(method, dataset, arch):
+    jeng = JPSVI(jax_read_dataset(dataset), method=method, architecture=arch,
+                 fused_inner=False, **KW)
+    key = jax.random.PRNGKey(3)
+    # the batch and the noise the JAX step draws from this key
+    k_batch, k_inner, k_outer = jax.random.split(key, 3)
+    xb, yb = jeng._sample_batch(k_batch)
+    keys = jax.random.split(k_inner, jeng.inner_it)
+    eps_inner = [_np_tree(jeng._sample_eps(k, jeng.mc_samples)) for k in keys]
+    eps_outer = _np_tree(jeng._sample_eps(k_outer, jeng.mc_samples))
+    jstate0 = _np_tree(jeng.state)
+    jstate1, jaux = jeng._nested_step(jeng.state, key, batch=(xb, yb))
+
+    peng = PSVI(read_dataset(dataset), method=method, architecture=arch, device="cpu", **KW)
+    batch = (torch.tensor(np.asarray(xb)), torch.tensor(np.asarray(yb)))
+    eps = ([params_from_jax(e) for e in eps_inner], params_from_jax(eps_outer))
+    for step in (peng._nested_step, peng._nested_step_fused):
+        s1, aux = step(state_from_jax(jstate0), batch=batch, eps=eps)
+        # outer loss and inner losses: fp32 sums in another order
+        np.testing.assert_allclose(float(aux["outer_loss"]), float(jaux["outer_loss"]), rtol=1e-5)
+        np.testing.assert_allclose(aux["inner_losses"].numpy(),
+                                   np.asarray(jaux["inner_losses"]), rtol=2e-5)
+        # one hyper-Adam step of size ~lr from identical starts: u, v, α
+        # agree to well under the step (lr0u = 1e-4, lr0v = lr0alpha = 1e-3)
+        np.testing.assert_allclose(s1.u.numpy(), np.asarray(jstate1.u), atol=1e-6)
+        np.testing.assert_allclose(s1.v.numpy(), np.asarray(jstate1.v), atol=1e-5)
+        np.testing.assert_allclose(s1.alpha.numpy(), np.asarray(jstate1.alpha), atol=1e-5)
+        # paramsT: tolerances of tests/test_fused_nested.py
+        for tp, jp in zip(s1.params, jstate1.params):
+            for k in tp:
+                np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                           rtol=2e-4, atol=1e-6)
+        assert s1.net_step == int(jstate1.net_step) == 1
+
+
+def test_state_from_jax_roundtrip():
+    jeng = JPSVI(jax_read_dataset("halfmoon"), method="psvi_learn_v", fused_inner=False, **KW)
+    st = state_from_jax(_np_tree(jeng.state))
+    np.testing.assert_array_equal(st.u.numpy(), np.asarray(jeng.state.u))
+    np.testing.assert_array_equal(st.params[0]["mu_w"].numpy(),
+                                  np.asarray(jeng.state.params[0]["mu_w"]))
+    assert st.opt_u.count == 0 and st.net_step == 0
+    # the port's own init draws the same pseudodata as the JAX engine
+    peng = PSVI(read_dataset("halfmoon"), method="psvi_learn_v", device="cpu", **KW)
+    np.testing.assert_array_equal(peng.state.u.numpy(), np.asarray(jeng.state.u))
+    np.testing.assert_array_equal(peng.state.z.numpy(), np.asarray(jeng.state.z))
+    assert peng.chosen_indices == jeng.chosen_indices
+
+
+# the results-dict keys of the JAX engine's run_psvi (psvi_tpu/inference/
+# psvi.py:1713-1720), plus 'alpha' for the learn_alpha methods
+JAX_RESULT_KEYS = {"accs", "nlls", "csizes", "times", "elbos", "went", "ness", "vent",
+                   "vs", "avg_epoch_time", "gpu_memory", "chosen_indices"}
+
+
+def test_run_psvi_halfmoon_logreg_accuracy_band():
+    res = run_psvi(read_dataset("halfmoon"), method="psvi_learn_v", num_pseudo=30,
+                   mc_samples=10, architecture="logistic_regression", inner_it=10,
+                   data_minibatch=128, init_sd=1e-3, num_epochs=101, log_every=50,
+                   seed=0, device="cpu")
+    assert set(res) == JAX_RESULT_KEYS
+    assert len(res["accs"]) == 3 and len(res["vs"]) == 3
+    # BENCHMARKS.md: psvi_learn_v M=30 0.797 ± 0.030 (3 trials); 3 sd band
+    assert abs(res["accs"][-1] - 0.797) <= 0.09
+    assert all(np.isfinite(res["nlls"]))
+
+
+def test_run_psvi_alpha_keys():
+    res = run_psvi(read_dataset("halfmoon"), method="psvi_alpha_v", num_pseudo=8,
+                   mc_samples=4, inner_it=2, data_minibatch=32, num_epochs=3,
+                   log_every=2, seed=1, device="cpu", fused_inner=True)
+    assert set(res) == JAX_RESULT_KEYS | {"alpha"}
+    assert len(res["alpha"]) == 2

@@ -1,0 +1,280 @@
+"""The port's fused nested step against the JAX package's.
+
+- ``fused_nested_outer(backend="torch")`` (the plain versions of the three
+  CUDA kernels, hand-derived math) and ``backend="autograd"`` (the oracle)
+  each match JAX ``fused_nested_outer(..., backend="xla")`` on the six
+  configs of ``tests/test_fused_nested.py``, from the same NumPy inputs,
+  with that file's tolerances;
+- one inner iteration's hand-derived VJP (``rev_iter_torch``) matches
+  ``jax.vjp`` of the same one-iteration body and ``torch.autograd``;
+- ``supports()`` gates what the CUDA design can run.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from psvi_torch.data import read_dataset
+from psvi_torch.inference.psvi import PSVI
+from psvi_torch.models.networks import make_dense
+from psvi_torch.ops import elbo as TE
+from psvi_torch.ops import fused_nested as FN
+from psvi_tpu.models import networks as JN
+from psvi_tpu.ops import elbo as JE
+from psvi_tpu.ops import fused_nested as JFN
+from psvi_tpu.ops import optim as JO
+
+# the six configs of tests/test_fused_nested.py:130-141, at its sizes
+T, S, M, B = 5, 6, 20, 64
+CONFIGS = [
+    ("psvi_learn_v", "halfmoon", "logistic_regression"),
+    ("psvi", "halfmoon", "logistic_regression"),
+    ("psvi_alpha_v", "halfmoon", "logistic_regression"),
+    ("psvi_learn_v", "four_blobs", "logistic_regression"),
+    ("psvi_learn_v", "halfmoon", "fn"),
+    ("psvi_learn_v", "four_blobs", "fn"),
+]
+
+
+def _cos(a, b):
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
+
+
+def _inputs(method, dataset, arch, seed=0):
+    data = read_dataset(dataset)
+    widths = (data.D, data.nc) if arch == "logistic_regression" else (data.D, 40, data.nc)
+    parameterised = method != "psvi"
+    cfg = FN.FusedCfg(T=T, S=S, widths=widths, M=M, B=B, N=float(data.N),
+                      parameterised=parameterised, use_alpha=method == "psvi_alpha_v",
+                      prior_sd=1.0)
+    rng = np.random.default_rng(seed)
+    rho0 = math.log(math.expm1(1e-3))
+    f32 = np.float32
+    layers, eps_in, eps_out = [], [], []
+    for i, o in cfg.layer_dims():
+        b = 1.0 / math.sqrt(i)
+        layers.append({"mu_w": rng.uniform(-b, b, (o, i)).astype(f32),
+                       "rho_w": (rho0 + 0.1 * rng.standard_normal((o, i))).astype(f32),
+                       "mu_b": rng.uniform(-b, b, o).astype(f32),
+                       "rho_b": (rho0 + 0.1 * rng.standard_normal(o)).astype(f32)})
+        eps_in.append({"w": rng.standard_normal((T, S, o, i)).astype(f32),
+                       "b": rng.standard_normal((T, S, o)).astype(f32)})
+        eps_out.append({"w": rng.standard_normal((S, o, i)).astype(f32),
+                        "b": rng.standard_normal((S, o)).astype(f32)})
+    iu, ib = rng.choice(data.N, M, replace=False), rng.choice(data.N, B, replace=False)
+    v = (0.1 * rng.standard_normal(M)).astype(f32) if parameterised else np.full(M, 1 / M, f32)
+    arrays = dict(layers=layers, eps_in=eps_in, eps_out=eps_out, u=data.x[iu],
+                  z=data.y[iu], xb=data.x[ib], yb=data.y[ib], v=v,
+                  alpha=np.array([0.1 if cfg.use_alpha else 0.0], f32), lr=1e-3)
+    return cfg, arrays
+
+
+def _jax_fused(cfg, a):
+    """JAX fused_nested_outer(backend='xla') on the same numbers, with the
+    flat eps layout of tests/test_fused_nested.py::_fused_args."""
+    L = cfg.L
+    jcfg = JFN.FusedCfg(T=cfg.T, S=cfg.S, widths=cfg.widths, M=cfg.M, B=cfg.B, N=cfg.N,
+                        parameterised=cfg.parameterised, use_alpha=cfg.use_alpha,
+                        prior_sd=cfg.prior_sd)
+
+    def flat_w(e, lyr, lead=()):
+        n = int(np.prod(lead, dtype=int)) if lead else 1
+        if lyr == L - 1:
+            e = np.transpose(e, tuple(range(len(lead))) + (len(lead) + 1, len(lead), len(lead) + 2))
+        return jnp.asarray(e.reshape(n * cfg.S * cfg.widths[lyr + 1], cfg.widths[lyr]))
+
+    def flat_b(e, lyr, lead=()):
+        n = int(np.prod(lead, dtype=int)) if lead else 1
+        if lyr == L - 1:
+            e = np.transpose(e, tuple(range(len(lead))) + (len(lead) + 1, len(lead)))
+        return jnp.asarray(e.reshape(n * cfg.S * cfg.widths[lyr + 1], 1))
+
+    params0 = []
+    for p in a["layers"]:
+        o = p["mu_b"].shape[0]
+        params0 += [p["mu_w"], p["rho_w"], p["mu_b"].reshape(o, 1), p["rho_b"].reshape(o, 1)]
+    out = JFN.fused_nested_outer(
+        tuple(jnp.asarray(x) for x in params0), jnp.asarray(a["u"]),
+        jnp.asarray(a["v"]).reshape(1, cfg.M), jnp.asarray(a["alpha"]).reshape(1, 1),
+        jax.nn.one_hot(a["z"].astype(np.int32), cfg.nc).T,
+        jax.nn.one_hot(a["yb"].astype(np.int32), cfg.nc).T,
+        tuple(flat_w(e["w"], l, (cfg.T,)) for l, e in enumerate(a["eps_in"])),
+        tuple(flat_b(e["b"], l, (cfg.T,)) for l, e in enumerate(a["eps_in"])),
+        tuple(flat_w(e["w"], l) for l, e in enumerate(a["eps_out"])),
+        tuple(flat_b(e["b"], l) for l, e in enumerate(a["eps_out"])),
+        jnp.asarray(a["xb"]), jnp.asarray([[a["lr"]]], jnp.float32), jcfg, backend="xla")
+    return [np.asarray(x) if not isinstance(x, tuple) else [np.asarray(y) for y in x]
+            for x in out]
+
+
+def _port_fused(cfg, a, backend):
+    t = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
+    tree = lambda ls: [{k: t(v) for k, v in d.items()} for d in ls]  # noqa: E731
+    return FN.fused_nested_outer(
+        tree(a["layers"]), t(a["u"]), t(a["v"]), t(a["alpha"]), t(a["z"]), t(a["xb"]),
+        t(a["yb"]), tree(a["eps_in"]), tree(a["eps_out"]), a["lr"], cfg, backend=backend)
+
+
+@pytest.mark.parametrize("backend", ["torch", "autograd"])
+@pytest.mark.parametrize("method,dataset,arch", CONFIGS)
+def test_fused_matches_jax(method, dataset, arch, backend):
+    cfg, a = _inputs(method, dataset, arch)
+    j_loss, j_il, j_pT, j_gu, j_gv, j_ga, _ = _jax_fused(cfg, a)
+    loss, il, pT, g_u, g_v, g_a = _port_fused(cfg, a, backend)
+    # tolerances of tests/test_fused_nested.py:156-183
+    assert np.isclose(float(loss), float(j_loss), rtol=1e-5)
+    np.testing.assert_allclose(il.numpy(), j_il, rtol=2e-5)
+    for l, p in enumerate(pT):
+        np.testing.assert_allclose(p["mu_w"].numpy(), j_pT[4 * l], rtol=2e-4, atol=1e-6)
+        np.testing.assert_allclose(p["mu_b"].numpy(), j_pT[4 * l + 2].ravel(), rtol=2e-4, atol=1e-6)
+        np.testing.assert_allclose(p["rho_w"].numpy(), j_pT[4 * l + 1], rtol=2e-4, atol=1e-6)
+    assert _cos(g_u, j_gu) > 0.999
+    np.testing.assert_allclose(g_u.numpy(), j_gu, atol=2e-5 * float(1.0 + np.abs(j_gu).max()))
+    assert _cos(g_v, j_gv) > 0.999
+    if cfg.use_alpha:
+        # ∂/∂α sums N-scaled terms with heavy cancellation: a few % in f32
+        assert np.isclose(float(g_a[0]), float(j_ga.ravel()[0]), rtol=0.05, atol=1e-6)
+
+
+def _one_iter_inputs(seed=1):
+    """fn 2-8-4 on four_blobs-like shapes: one iteration t=3 with nonzero
+    incoming Adam moments and random output cotangents."""
+    cfg = FN.FusedCfg(T=1, S=4, widths=(2, 8, 4), M=6, B=1, N=800.0, parameterised=True,
+                      use_alpha=False, prior_sd=1.0)
+    rng = np.random.default_rng(seed)
+    P, E = cfg.n_params, cfg.n_eps
+    f32 = np.float32
+    p = torch.tensor(rng.standard_normal(P).astype(f32) * 0.5)
+    for q in FN.unpack_params(p, cfg):  # ρ near softplus⁻¹(1e-2)
+        q["rho_w"].mul_(0.1).add_(-4.6)
+        q["rho_b"].mul_(0.1).add_(-4.6)
+    return cfg, dict(
+        p=p.numpy(), m=(0.1 * rng.standard_normal(P)).astype(f32),
+        n=(0.01 * rng.random(P)).astype(f32), eps=rng.standard_normal(E).astype(f32),
+        u=rng.standard_normal((6, 2)).astype(f32), z=rng.integers(0, 4, 6).astype(f32),
+        cw=(800 * rng.dirichlet(np.ones(6))).astype(f32),
+        pbar=rng.standard_normal(P).astype(f32), mbar=rng.standard_normal(P).astype(f32),
+        nbar=rng.standard_normal(P).astype(f32), t=3, lr=1e-2)
+
+
+def _split(flat, cfg):
+    """Flat (P,) → the JAX net's params tuple (dense dicts, {} for ReLU)."""
+    dense = [{k: jnp.asarray(v.numpy()) for k, v in d.items()}
+             for d in FN.unpack_params(torch.tensor(np.asarray(flat)), cfg)]
+    out = []
+    for l, d in enumerate(dense):
+        if l:
+            out.append({})
+        out.append(d)
+    return tuple(out)
+
+
+def _join(tree):
+    return np.concatenate([np.concatenate([np.ravel(d[k]) for k in ("mu_w", "rho_w", "mu_b", "rho_b")])
+                           for d in tree if d])
+
+
+def test_one_iteration_vjp_matches_jax_and_autograd():
+    cfg, a = _one_iter_inputs()
+    t, lr, b1, b2, ae = a["t"], a["lr"], cfg.b1, cfg.b2, cfg.adam_eps
+    bc1, bc2s = cfg.bias_corrections(t)
+    eps_layers = FN.unpack_eps(torch.tensor(a["eps"]), cfg)
+    jnet = JN.make_fcnet(2, 8, 4, n_layers=1)
+    jeps = []
+    for l, (w, b) in enumerate(eps_layers):
+        if l:
+            jeps.append({})
+        jeps.append({"w": jnp.asarray(w.numpy()), "b": jnp.asarray(b.numpy())})
+    jeps = tuple(jeps)
+
+    def body(params, m, n, u, cw):
+        g = jax.grad(lambda q: JE.inner_elbo(jnet, q, jeps, u, a["z"], cw, nc=4))(params)
+        tm = jax.tree_util.tree_map
+        m = tm(lambda mm, gg: b1 * mm + (1.0 - b1) * gg, m, g)
+        n = tm(lambda nn, gg: b2 * nn + (1.0 - b2) * jnp.square(gg), n, g)
+        p = tm(lambda pp, mm, nn: pp - lr * (mm / bc1) / (JO._sqrt_safe(nn) / bc2s + ae),
+               params, m, n)
+        return p, m, n
+
+    (p1, m1, n1), vjp = jax.vjp(body, _split(a["p"], cfg), _split(a["m"], cfg),
+                                _split(a["n"], cfg), jnp.asarray(a["u"]), jnp.asarray(a["cw"]))
+    jp0, jm0, jn0, ju, jcw = vjp((_split(a["pbar"], cfg), _split(a["mbar"], cfg),
+                                  _split(a["nbar"], cfg)))
+    jax_out = [_join(jp0), _join(jm0), _join(jn0), np.asarray(ju), np.asarray(jcw)]
+
+    tt = lambda k: torch.tensor(np.asarray(a[k]))  # noqa: E731
+    Y = FN._one_hot(tt("z"), cfg.nc)
+    port = FN.rev_iter_torch(t, tt("p"), torch.tensor(_join(m1)), torch.tensor(_join(n1)),
+                             tt("pbar"), tt("mbar"), tt("nbar"), tt("u"), Y, tt("cw"),
+                             tt("eps"), lr, cfg)
+
+    # torch.autograd of the same body (port's own ELBO and Adam)
+    net = make_dense(cfg.widths)
+    leaves = [tt(k).requires_grad_(True) for k in ("p", "m", "n", "u", "cw")]
+    p, m, n, u, cw = leaves
+
+    def tree(flat):
+        out = []
+        for l, d in enumerate(FN.unpack_params(flat, cfg)):
+            if l:
+                out.append({})
+            out.append(d)
+        return tuple(out)
+
+    teps = []
+    for l, (w, b) in enumerate(eps_layers):
+        if l:
+            teps.append({})
+        teps.append({"w": w, "b": b})
+    loss = TE.inner_elbo(net, tree(p), tuple(teps), u, tt("z"), cw, nc=4)
+    (g,) = torch.autograd.grad(loss, p, create_graph=True)
+    p1t, m1t, n1t = FN._adam(p, m, n, g, t, lr, cfg)
+    dot = (p1t * tt("pbar")).sum() + (m1t * tt("mbar")).sum() + (n1t * tt("nbar")).sum()
+    auto = torch.autograd.grad(dot, leaves)
+
+    names = ["pbar", "mbar", "nbar", "ubar", "cwbar"]
+    for name, x, j, au in zip(names, port, jax_out, auto):
+        x, au = x.detach().numpy(), au.numpy()
+        # one iteration in fp32: cosine and max error relative to the largest entry
+        for ref in (j, au):
+            assert _cos(x, ref) > 0.99999, name
+            assert np.abs(x - ref).max() <= 1e-4 * np.abs(ref).max(), name
+
+
+ENGINE_KW = dict(num_pseudo=20, mc_samples=6, inner_it=5, data_minibatch=64,
+                 init_sd=1e-3, seed=0, num_epochs=1, device="cpu")
+
+
+def test_supports_gating():
+    data = read_dataset("halfmoon")
+    for arch in ("logistic_regression", "fn"):
+        assert FN.supports(PSVI(data, architecture=arch, **ENGINE_KW))
+    assert FN.supports(PSVI(data, architecture="fn", n_layers=2, **ENGINE_KW))
+    assert not FN.supports(PSVI(data, **{**ENGINE_KW, "mc_samples": 1}))
+    assert not FN.supports(PSVI(data, **{**ENGINE_KW, "mc_samples": 33}))
+    assert not FN.supports(PSVI(data, architecture="fn", n_hidden=400, **ENGINE_KW))
+    assert not FN.supports(PSVI(data, **{**ENGINE_KW, "num_pseudo": 1990}))
+    eng = PSVI(data, architecture="fn", **ENGINE_KW)
+    last = eng.net.layers[-1]
+    last.prior_sd = 2.0
+    assert not FN.supports(eng)
+    with pytest.raises(ValueError):
+        PSVI(data, fused_inner=True, **{**ENGINE_KW, "mc_samples": 1})
+    # 'auto' on the CPU takes the plain path; True takes the fused one
+    assert PSVI(data, **ENGINE_KW)._step.__name__ == "_nested_step"
+    assert PSVI(data, fused_inner=True, **ENGINE_KW)._step.__name__ == "_nested_step_fused"
+
+
+def test_unported_options_raise():
+    data = read_dataset("halfmoon")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PSVI(data, trainer="hyper", **ENGINE_KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PSVI(data, method="psvi_ablated", **ENGINE_KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PSVI(data, prune=True, **ENGINE_KW)
