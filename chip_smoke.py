@@ -6,21 +6,33 @@ CUDA card and ``nvcc``; it exits non-zero, before printing any result, when
 there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
 
 1. device  — the card's name and power limit (nvidia-smi), versions;
-2. build   — nvcc builds every kernel of the main path from the sources in
-             the checkout (``psvi_torch/ops/csrc``), all sources at once;
-3. kernels — each CUDA kernel against its plain PyTorch version on the same
-             CUDA inputs, and the composed step against the plain and the
-             autograd-oracle backends, on three configs (TF32 off);
-   caps    — at each edge of ``supports()`` (widest layer, S = 32 with
-             M + B = 2048, eight layers) the composed CUDA step against the
-             plain version run in float64;
-4. engine  — the main path: ``run_psvi`` on four_blobs with the fn BNN
+2. build   — nvcc builds every kernel of the main paths from the sources in
+             the checkout (``psvi_torch/ops/csrc``), one nvcc per source, all
+             started at once;
+3. kernels — each dense CUDA kernel against its plain PyTorch version on the
+             same CUDA inputs, and the composed step against the plain and
+             the autograd-oracle backends, on three configs (TF32 off);
+   caps    — at each edge of the dense ``supports()`` (widest layer, S = 32
+             with M + B = 2048, eight layers) the composed CUDA step against
+             the plain version run in float64;
+   lenet   — ``lenet_fwd`` and ``lenet_rev`` against their plain versions
+             (and against a rerun of themselves, bit for bit) on three
+             configs: the flagship psvi_learn_v (S=10, M=100, T=20),
+             psvi_alpha_v (S=4, M=16, T=5) and psvi (S=3, M=8, T=3); on the
+             last two also the composed ``LeNetUnroll`` against the autograd
+             oracle; and at the caps of the LeNet ``supports()`` (S = 64,
+             M = 1024, T = 2);
+4. engine  — the dense main path: ``run_psvi`` on four_blobs with the fn BNN
              2-40-4 (psvi_learn_v, M=48, S=10, inner_it=10, B=128,
              init_sd 1e-3, 101 outer steps) through the kernels, with every
              launch counter set to 0 just before and read just after; then
-             halfmoon logistic regression (M=30, 101 steps);
+             halfmoon logistic regression (M=30, 101 steps); then the LeNet
+             main path: synth_mnist LeNet psvi_learn_v (M=100, S=10,
+             inner_it=20, B=256, init_sd 1e-3, 31 outer steps);
 5. times   — CUDA-event medians of each kernel, its plain version, the
-             fused engine step and the plain autograd engine step.
+             fused engine steps and the plain autograd engine steps;
+   profile — torch.profiler's device time by CUDA kernel over one call of
+             each LeNet kernel and one fused LeNet engine step.
 
 Then, as its last three lines: the ``kernels`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Any failed check
@@ -57,6 +69,9 @@ PEAK_BYTES = 3.35e12
 
 TPU_KERNEL = "psvi_tpu/ops/fused_nested.py:448"
 SOURCE = "psvi_torch/ops/csrc/fused_nested.cu"
+LENET_SOURCE = "psvi_torch/ops/csrc/fused_lenet.cu"
+LENET_REPLACES = {"lenet_fwd": "psvi_tpu/ops/fused_lenet.py:973",
+                  "lenet_rev": "psvi_tpu/ops/fused_lenet.py:997"}
 
 
 def emit(obj):
@@ -253,9 +268,11 @@ def check_caps(FN, PSVI, DataBundle, chk, dev):
               "M": cfg.M, "B": cfg.B, "vs_float64": compare_steps(chk, "caps", cfg, k, r)})
 
 
-def run_engine(FN, PSVI, data, n_launch_expected, **kw):
-    """One run_psvi through the user's entry point; returns (results,
-    launch counts read right after, finite-loss flag, seconds)."""
+def run_engine(mods, PSVI, data, expected, **kw):
+    """One run_psvi through the user's entry point, with the launch counters
+    of every kernel module (``mods``) set to 0 just before and read just
+    after; each kernel must have launched ``expected[name]`` times. Returns
+    (engine, results, launch counts, seconds)."""
     eng = PSVI(data, **kw)
     losses = []
     step = eng._step
@@ -268,16 +285,17 @@ def run_engine(FN, PSVI, data, n_launch_expected, **kw):
     eng._step = recording_step
     eng.step_path = step.__name__
     torch.cuda.synchronize()
-    FN.reset_launches()
+    for mod in mods:
+        mod.reset_launches()
     t0 = time.perf_counter()
     res = eng.run_psvi()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(FN.LAUNCHES)
+    launches = {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
     finite = bool(torch.isfinite(torch.stack(losses)).all())
     for k, n in launches.items():
-        if n != n_launch_expected:
-            raise AssertionError(f"kernel {k} launched {n} times, expected {n_launch_expected}")
+        if n != expected[k]:
+            raise AssertionError(f"kernel {k} launched {n} times, expected {expected[k]}")
     if not finite:
         raise AssertionError("non-finite outer loss on the main path")
     return eng, res, launches, secs
@@ -330,6 +348,196 @@ def work(cfg):
     return ops, byts
 
 
+def lenet_cfg(FL, data, S, M, T, parameterised, use_alpha):
+    return FL.LeNetCfg(T=T, S=S, M=M, nc=data.nc, N=float(data.N), parameterised=parameterised,
+                       use_alpha=use_alpha, prior_sd=1.0)
+
+
+def lenet_inputs(FL, cfg, data, seed, dev):
+    """Engine-like inputs of the LeNet unroll from numpy.random.default_rng:
+    U(±1/√fan_in) means, ρ = softplus⁻¹(1e-3) plus a small spread, a coreset
+    of synth_mnist images, N(0, 1) noise, and random cotangents of paramsT
+    and of the inner losses for the reverse sweep."""
+    rng = np.random.default_rng(seed)
+    rho0 = math.log(math.expm1(1e-3))
+    layers = []
+    for wshape, o in cfg.layer_shapes():
+        b = 1.0 / math.sqrt(math.prod(wshape[1:]))
+        layers.append({"mu_w": rng.uniform(-b, b, wshape),
+                       "rho_w": rho0 + 0.1 * rng.standard_normal(wshape),
+                       "mu_b": rng.uniform(-b, b, o), "rho_b": rho0 + 0.1 * rng.standard_normal(o)})
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    iu = rng.choice(len(data.x), cfg.M, replace=False)
+    v = 0.3 * rng.standard_normal(cfg.M) if cfg.parameterised else np.full(cfg.M, 1.0 / cfg.M)
+    return dict(p0=FL.pack_params([{k: t(x) for k, x in d.items()} for d in layers]),
+                e_in=t(rng.standard_normal((cfg.T, cfg.n_eps))), u=t(data.x[iu]),
+                z=t(data.y[iu], torch.int32), v=t(v), alpha=t([0.1 if cfg.use_alpha else 0.0]),
+                pbar=t(rng.standard_normal(cfg.n_params)), dlosses=t(rng.standard_normal(cfg.T)),
+                lr=1e-3)
+
+
+def lenet_unroll_grads(FL, cfg, a, backend):
+    """pT, the inner losses and the gradients of ⟨p̄, pT⟩ + ⟨dl, losses⟩ with
+    respect to (p0, u, v, α) through ``lenet_unroll``."""
+    leaves = [a[k].detach().clone().requires_grad_(True) for k in ("p0", "u", "v", "alpha")]
+    p0, u, v, al = leaves
+    with torch.enable_grad():
+        pT, losses = FL.lenet_unroll(p0, u, v, al, a["z"], a["e_in"], a["lr"], cfg,
+                                     backend=backend)
+        obj = (pT * a["pbar"]).sum() + (losses * a["dlosses"]).sum()
+        grads = torch.autograd.grad(obj, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+    return [pT.detach(), losses.detach()] + grads
+
+
+def same_bits(outs, ref, kernel):
+    """A second launch on the same inputs gives the same bits: the kernels
+    reduce in a fixed order and use no float atomics."""
+    if not all(torch.equal(x, y) for x, y in zip(outs, ref)):
+        raise AssertionError(f"{kernel}: a rerun on the same inputs changed the result")
+
+
+def check_lenet(FL, chk, name, cfg, a, composed):
+    """lenet_fwd and lenet_rev against their plain versions on the same CUDA
+    inputs (the reverse sweep on the plain forward's history), each rerun
+    bit for bit, and with ``composed`` the whole LeNetUnroll (CUDA) against
+    the autograd oracle."""
+    p0, u, z, v, al, e_in, lr = (a[k] for k in ("p0", "u", "z", "v", "alpha", "e_in", "lr"))
+    rep = {"phase": "lenet", "config": name, "S": cfg.S, "M": cfg.M, "T": cfg.T,
+           "parameterised": cfg.parameterised, "use_alpha": cfg.use_alpha}
+    l_k, h_k, cw_k = FL._lenet_fwd_cuda(p0, u, z, v, al, e_in, lr, cfg)
+    same_bits(FL._lenet_fwd_cuda(p0, u, z, v, al, e_in, lr, cfg), (l_k, h_k, cw_k), "lenet_fwd")
+    l_t, h_t, cw_t = FL.lenet_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)
+    torch.cuda.synchronize()
+    rep["fwd"] = {
+        "losses": chk.allclose("lenet_fwd", "losses", l_k, l_t, RTOL_LOSS),
+        "paramsT": chk.allclose("lenet_fwd", "paramsT", h_k[:, 0], h_t[:, 0], RTOL_P, ATOL_P),
+        "m": chk.grad("lenet_fwd", "m", h_k[:, 1], h_t[:, 1]),
+        "n": chk.grad("lenet_fwd", "n", h_k[:, 2], h_t[:, 2]),
+        "cw": chk.allclose("lenet_fwd", "cw", cw_k, cw_t, RTOL_LOSS),
+    }
+    r_k = FL._lenet_rev_cuda(h_t, a["pbar"], a["dlosses"], u, z, v, al, e_in, lr, cfg)
+    same_bits(FL._lenet_rev_cuda(h_t, a["pbar"], a["dlosses"], u, z, v, al, e_in, lr, cfg), r_k,
+              "lenet_rev")
+    r_t = FL.lenet_rev_torch(h_t, a["pbar"], a["dlosses"], u, z, v, al, e_in, lr, cfg)
+    torch.cuda.synchronize()
+    rep["rev"] = {nm: chk.grad("lenet_rev", nm, x, y)
+                  for nm, x, y in zip(("p0bar", "ubar", "vbar"), r_k, r_t)}
+    if cfg.use_alpha:
+        rep["rev"]["abar"] = chk.allclose("lenet_rev", "abar", r_k[3], r_t[3], RTOL_ALPHA, ATOL_P)
+    if composed:
+        k, r = (lenet_unroll_grads(FL, cfg, a, b) for b in ("cuda", "autograd"))
+        torch.cuda.synchronize()
+        tag = "lenet_step_vs_autograd"
+        rep["step_vs_autograd"] = {
+            "paramsT": chk.allclose(tag, "paramsT", k[0], r[0], RTOL_P, ATOL_P),
+            "inner_losses": chk.allclose(tag, "inner_losses", k[1], r[1], RTOL_LOSS),
+            "p0bar": chk.grad(tag, "p0bar", k[2], r[2]),
+            "ubar": chk.grad(tag, "ubar", k[3], r[3]),
+            "vbar": chk.grad(tag, "vbar", k[4], r[4]),
+        }
+        if cfg.use_alpha:
+            rep["step_vs_autograd"]["abar"] = chk.allclose(tag, "abar", k[5], r[5], RTOL_ALPHA,
+                                                           ATOL_P)
+    emit(rep)
+    return h_t
+
+
+def check_lenet_caps(FL, PSVI, mnist, chk, dev):
+    """At the caps of the LeNet ``supports()`` (S = 64, M = 1024): the engine
+    admits the config and refuses one more sample or point, and both
+    kernels agree with their plain versions (T = 2)."""
+    kw = dict(method="psvi_learn_v", architecture="lenet", inner_it=2, data_minibatch=256,
+              init_sd=1e-3, seed=0)
+    eng = PSVI(mnist, num_pseudo=FL.MAX_POINTS, mc_samples=FL.MAX_SAMPLES, **kw)
+    if not FL.supports(eng) or eng._step.__name__ != "_nested_step_fused_lenet":
+        raise AssertionError("the LeNet supports() refuses its own caps")
+    for over in (dict(num_pseudo=FL.MAX_POINTS + 1, mc_samples=FL.MAX_SAMPLES),
+                 dict(num_pseudo=FL.MAX_POINTS, mc_samples=FL.MAX_SAMPLES + 1)):
+        if FL.supports(PSVI(mnist, **over, **kw)):
+            raise AssertionError(f"the LeNet supports() admits {over}")
+    cfg = FL.cfg_from_engine(eng)
+    check_lenet(FL, chk, f"caps S={cfg.S} M={cfg.M} T={cfg.T}", cfg,
+                lenet_inputs(FL, cfg, mnist, 11, dev), False)
+
+
+def lenet_work(cfg):
+    """Operations (multiply-adds count 2) and bytes of lenet_fwd and
+    lenet_rev at this config. The pool keeps one of four conv outputs, so
+    every pass after the pooled forward (the backprop, the weight gradients,
+    the tangent pass at the stored winners, ū) counts the winners only; the
+    forward computes all four parities for the max."""
+    S, M, T, K1, K2, q, nc = cfg.S, cfg.M, cfg.T, cfg.K1, cfg.K2, cfg.q, cfg.nc
+    F0, F1, F2 = cfg.fc[:3]
+    SM = S * M
+    conv1 = 2 * SM * K1 * cfg.H * cfg.H * q
+    conv2 = 2 * SM * K2 * cfg.H2 * cfg.H2 * K1 * q
+    conv1_win, conv2_win = conv1 // 4, conv2 // 4
+    fc = 2 * SM * (F0 * F1 + F1 * F2 + F2 * nc)
+    head = 8 * SM * nc
+    elem = 12 * S * cfg.n_theta  # sampling, the ε-weighted sums, Adam, KL
+    # forward; backprop (fc data, conv2 data) and weight gradients
+    fwd_iter = conv1 + conv2 + fc + head + (2 * fc + 2 * conv2_win + conv1_win) + elem
+    # tangent forward (conv1, both conv2 terms, both fc terms), tangent backprop and
+    # weight gradients (two terms each, one for conv1), ū (two terms)
+    tangent = (conv1_win + 2 * conv2_win + 2 * fc + head + 2 * fc + 2 * conv2_win
+               + 2 * fc + 2 * conv2_win + conv1_win + 2 * conv1_win + elem)
+    ops = {"lenet_fwd": T * fwd_iter, "lenet_rev": T * (fwd_iter + tangent)}
+    P, E, U = cfg.n_params, cfg.n_eps, M * cfg.H * cfg.H
+    f = 4
+    byts = {
+        "lenet_fwd": f * (P + U + 3 * M + 1 + T * E) + f * (T + (T + 1) * 3 * P + M),
+        "lenet_rev": f * ((T + 1) * 3 * P + P + T + U + 3 * M + 1 + T * E)
+                     + f * (P + U + M + 1),
+    }
+    return ops, byts
+
+
+def timed_kernel(name, kern, plain, ops, byts, launches, chk, source, replaces, reps):
+    """The kernels-line entry of one kernel: its median time and its plain
+    version's on the same inputs, beside the bound from ops and bytes."""
+    ms, plain_ms = median_ms(kern, reps=reps, warmup=2), median_ms(plain, reps=reps, warmup=2)
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": chk.max_abs[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "ops": ops, "bytes": byts}
+
+
+def profile_calls(calls):
+    """Device time by CUDA kernel over one call of each function, from
+    torch.profiler: the device events' own time summed by name (ms; host
+    ranges such as an autograd Function's are left out, so nothing counts
+    twice), the launch counts, and the host wall time of the call.
+    ``device_ms`` is None where the profiler saw no device time (not
+    measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((e.key.split("(")[0], e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        device_ms = sum(r[1] for r in rows) or None
+        out[name] = {"wall_ms_profiled": wall_ms, "device_ms": device_ms,
+                     "top": [{"kernel": k, "ms": ms, "launches": c} for k, ms, c in rows[:14]]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -339,6 +547,7 @@ def main() -> int:
     from psvi_torch.data import DataBundle, read_dataset
     from psvi_torch.inference.psvi import PSVI
     from psvi_torch.ops import _build
+    from psvi_torch.ops import fused_lenet as FL
     from psvi_torch.ops import fused_nested as FN
 
     dev = torch.device("cuda:0")
@@ -349,18 +558,19 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
-    # 2. build every kernel source of the path, one nvcc each, all at once
+    # 2. build every kernel source of the paths, one nvcc each, all at once
     t0 = time.perf_counter()
-    sources = ["fused_nested"]
+    sources = ["fused_nested", "fused_lenet"]
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
-    ptxas = [ln.strip() for _, log in built for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+             for src, (_, log) in zip(sources, built)}
     emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
 
     # 3. kernels against their plain versions on the card
     halfmoon, blobs = read_dataset("halfmoon"), read_dataset("four_blobs")
+    mnist = read_dataset("synth_mnist")
     chk = Checker()
     configs = [
         ("halfmoon_logreg_M30", halfmoon, [2, 2], 30, True, False),
@@ -371,12 +581,24 @@ def main() -> int:
         cfg = main_cfg(FN, data, widths, M, par, ua)
         check_kernels(FN, chk, name, cfg, kernel_inputs(FN, cfg, data.x, data.y, seed, dev))
     check_caps(FN, PSVI, DataBundle, chk, dev)
+    lenet_configs = [  # name, S, M, T, parameterised, use_alpha, composed check
+        ("psvi_learn_v S=10 M=100 T=20", 10, 100, 20, True, False, False),
+        ("psvi_alpha_v S=4 M=16 T=5", 4, 16, 5, True, True, True),
+        ("psvi S=3 M=8 T=3", 3, 8, 3, False, False, True),
+    ]
+    for seed, (name, S, M, T, par, ua, composed) in enumerate(lenet_configs):
+        cfg = lenet_cfg(FL, mnist, S, M, T, par, ua)
+        check_lenet(FL, chk, name, cfg, lenet_inputs(FL, cfg, mnist, seed, dev), composed)
+    check_lenet_caps(FL, PSVI, mnist, chk, dev)
 
-    # 4. the main path, through the user's entry point
+    # 4. the main paths, through the user's entry point
+    mods = (FN, FL)
+    dense_only = {"nested_fwd": 101, "nested_outer": 101, "nested_rev": 101,
+                  "lenet_fwd": 0, "lenet_rev": 0}
     main_kw = dict(method="psvi_learn_v", num_pseudo=48, mc_samples=10, architecture="fn",
                    n_hidden=40, n_layers=1, inner_it=10, data_minibatch=128, init_sd=1e-3,
                    num_epochs=101, log_every=50, seed=0, fused_inner="auto")
-    eng, res, launches, secs = run_engine(FN, PSVI, blobs, 101, **main_kw)
+    eng, res, launches, secs = run_engine(mods, PSVI, blobs, dense_only, **main_kw)
     acc = res["accs"][-1]
     emit({"phase": "engine", "config": "four_blobs fn 2-40-4 psvi_learn_v M=48", "accs": res["accs"],
           "nlls": res["nlls"], "launches": launches, "seconds": secs,
@@ -384,7 +606,7 @@ def main() -> int:
     if not acc >= 0.90:
         raise AssertionError(f"four_blobs fn final accuracy {acc} < 0.90")
     _, res_h, launches_h, secs_h = run_engine(
-        FN, PSVI, halfmoon, 101, method="psvi_learn_v", num_pseudo=30, mc_samples=10,
+        mods, PSVI, halfmoon, dense_only, method="psvi_learn_v", num_pseudo=30, mc_samples=10,
         architecture="logistic_regression", inner_it=10, data_minibatch=128, init_sd=1e-3,
         num_epochs=101, log_every=50, seed=0)
     acc_h = res_h["accs"][-1]
@@ -392,8 +614,20 @@ def main() -> int:
           "nlls": res_h["nlls"], "launches": launches_h, "seconds": secs_h})
     if not abs(acc_h - 0.797) <= 0.09:
         raise AssertionError(f"halfmoon logreg final accuracy {acc_h} outside 0.797 ± 0.09")
+    lenet_kw = dict(method="psvi_learn_v", architecture="lenet", num_pseudo=100, mc_samples=10,
+                    inner_it=20, data_minibatch=256, init_sd=1e-3, num_epochs=31, log_every=10,
+                    seed=0, fused_inner="auto")
+    lenet_only = {"nested_fwd": 0, "nested_outer": 0, "nested_rev": 0,
+                  "lenet_fwd": 31, "lenet_rev": 31}
+    eng_l, res_l, launches_l, secs_l = run_engine(mods, PSVI, mnist, lenet_only, **lenet_kw)
+    acc_l = res_l["accs"][-1]
+    emit({"phase": "engine", "config": "synth_mnist lenet psvi_learn_v M=100 S=10 T=20 B=256",
+          "accs": res_l["accs"], "nlls": res_l["nlls"], "launches": launches_l,
+          "seconds": secs_l, "step_path": eng_l.step_path})
+    if not acc_l >= 0.99:
+        raise AssertionError(f"synth_mnist LeNet final accuracy {acc_l} < 0.99")
 
-    # 5. times at the main path's shapes (four_blobs fn 2-40-4, M=48)
+    # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; LeNet flagship)
     cfg = main_cfg(FN, blobs, [2, 40, 4], 48, True, False)
     a = kernel_inputs(FN, cfg, blobs.x, blobs.y, 1, dev)
     p0, u, z, xb, yb, v, al, e_in, e_out, lr = (a[k] for k in (
@@ -413,29 +647,53 @@ def main() -> int:
                                                    e_in, lr, cfg)),
     }
     ops, byts = work(cfg)
-    kernels = []
+    lcfg = lenet_cfg(FL, mnist, 10, 100, 20, True, False)
+    la = lenet_inputs(FL, lcfg, mnist, 7, dev)
+    _, lh, _ = FL.lenet_fwd_torch(la["p0"], la["u"], la["z"], la["v"], la["alpha"], la["e_in"],
+                                  la["lr"], lcfg)
+    largs = (la["u"], la["z"], la["v"], la["alpha"], la["e_in"], la["lr"], lcfg)
+    lcalls = {
+        "lenet_fwd": (lambda: FL._lenet_fwd_cuda(la["p0"], *largs),
+                      lambda: FL.lenet_fwd_torch(la["p0"], *largs)),
+        "lenet_rev": (lambda: FL._lenet_rev_cuda(lh, la["pbar"], la["dlosses"], *largs),
+                      lambda: FL.lenet_rev_torch(lh, la["pbar"], la["dlosses"], *largs)),
+    }
+    lops, lbyts = lenet_work(lcfg)
     with torch.no_grad():
-        for name, (kern, plain) in calls.items():
-            ms, plain_ms = median_ms(kern), median_ms(plain)
-            t_ops = ops[name] / PEAK_FP32_FLOPS * 1e3
-            t_bytes = byts[name] / PEAK_BYTES * 1e3
-            kernels.append({
-                "name": name, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
-                "launches": launches[name], "max_abs_err": chk.max_abs[name],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None, "ops": ops[name], "bytes": byts[name]})
+        kernels = [timed_kernel(name, kern, plain, ops[name], byts[name], launches, chk, SOURCE,
+                                TPU_KERNEL, 60)
+                   for name, (kern, plain) in calls.items()]
+        kernels += [timed_kernel(name, kern, plain, lops[name], lbyts[name], launches_l, chk,
+                                 LENET_SOURCE, LENET_REPLACES[name], 10)
+                    for name, (kern, plain) in lcalls.items()]
     # whole engine steps on the same card: fused kernels vs plain autograd
     batch = eng._sample_batch()
     eng_plain = PSVI(blobs, **{**main_kw, "fused_inner": False})
     st_f, st_p = eng.state, eng_plain.state
     step_fused_ms = median_ms(lambda: eng._nested_step_fused(st_f, batch), reps=50)
     step_plain_ms = median_ms(lambda: eng_plain._nested_step(st_p, batch), reps=50)
-    emit({"phase": "times", "card": card, "config": "four_blobs fn 2-40-4 M=48 S=10 T=10 B=128",
+    batch_l = eng_l._sample_batch()
+    eng_lp = PSVI(mnist, **{**lenet_kw, "fused_inner": False})
+    st_lf, st_lp = eng_l.state, eng_lp.state
+    lenet_fused_ms = median_ms(lambda: eng_l._nested_step_fused_lenet(st_lf, batch_l), reps=10,
+                               warmup=2)
+    lenet_plain_ms = median_ms(lambda: eng_lp._nested_step(st_lp, batch_l), reps=3, warmup=1)
+    emit({"phase": "times", "card": card,
+          "config": {"dense": "four_blobs fn 2-40-4 M=48 S=10 T=10 B=128",
+                     "lenet": "synth_mnist LeNet M=100 S=10 T=20 B=256"},
           "kernel_ms": {k["name"]: k["ms"] for k in kernels},
           "plain_ms": {k["name"]: k["plain_ms"] for k in kernels},
           "bound_ms": {k["name"]: k["bound_ms"] for k in kernels},
-          "nested_step_fused_ms": step_fused_ms, "nested_step_plain_autograd_ms": step_plain_ms})
+          "nested_step_fused_ms": step_fused_ms, "nested_step_plain_autograd_ms": step_plain_ms,
+          "lenet_step_fused_ms": lenet_fused_ms,
+          "lenet_step_plain_autograd_ms": lenet_plain_ms})
+    # where the LeNet time goes, by kernel (torch.profiler)
+    with torch.no_grad():
+        prof = profile_calls({name: kern for name, (kern, _) in lcalls.items()})
+    prof.update(profile_calls(
+        {"lenet_step_fused": lambda: eng_l._nested_step_fused_lenet(st_lf, batch_l)}))
+    emit({"phase": "profile", "card": card, "config": "synth_mnist LeNet M=100 S=10 T=20 B=256",
+          **prof})
 
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -3,7 +3,8 @@
 Counterpart of ``psvi_tpu/data/datasets.py``: full datasets live in host
 NumPy arrays; the engine moves them to its device once and draws one
 minibatch per outer step there. The port reads the synthetic datasets of
-the dense slice; every other name raises and points to ROADMAP.md.
+the dense slice and synth_mnist (LeNet slice); every other name raises and
+points to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,6 +15,11 @@ import numpy as np
 
 from psvi_torch.data import synthetic
 
+# channels, side, classes, n_train (ref experiments_utils.py:42-78)
+DATASET_STATS = {
+    "synth_mnist": (1, 28, 10, 6000),
+}
+
 
 @dataclasses.dataclass
 class DataBundle:
@@ -22,8 +28,9 @@ class DataBundle:
     xt: np.ndarray  # test inputs
     yt: np.ndarray
     N: int
-    D: int
+    D: int  # flat feature dim (vision: side*side, as the JAX package)
     nc: int
+    channels: int = 0  # >0 for image data (x is (N, C, H, W))
 
 
 def _split_train_test(X, Y, test_ratio):
@@ -31,6 +38,13 @@ def _split_train_test(X, Y, test_ratio):
     Y = np.where(Y == -1, 0, Y)
     test_size = int(test_ratio * X.shape[0])
     return X[:-test_size], Y[:-test_size], X[-test_size:], Y[-test_size:]
+
+
+def _read_vision(dnm, rng):
+    channels, side, nc, n_train = DATASET_STATS[dnm]
+    x, y, xt, yt = synthetic.make_synth_images(
+        n_per_class=n_train // nc, nc=nc, side=side, channels=channels, rng=rng)
+    return DataBundle(x, y, xt, yt, len(x), side * side, nc, channels=channels)
 
 
 def read_dataset(dnm: str, test_ratio: float = 0.2, seed: int = 0) -> DataBundle:
@@ -44,10 +58,12 @@ def read_dataset(dnm: str, test_ratio: float = 0.2, seed: int = 0) -> DataBundle
     elif dnm.startswith("synth_lr_"):
         X, Y = synthetic.make_synthetic(1000, D=int(dnm.split("_")[-1]), rng=rng)
         nc = 2
+    elif dnm in DATASET_STATS:
+        return _read_vision(dnm, rng)
     else:
         raise ValueError(
             f"dataset {dnm!r} is not ported yet: psvi_torch reads halfmoon, "
-            "four_blobs and synth_lr_<D> (see ROADMAP.md, queue A)"
+            "four_blobs, synth_lr_<D> and synth_mnist (see ROADMAP.md, queue A)"
         )
     x, y, xt, yt = _split_train_test(X, Y, test_ratio)
     N, D = x.shape

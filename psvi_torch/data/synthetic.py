@@ -1,7 +1,8 @@
 """Synthetic dataset generators (host-side NumPy).
 
 The port's own copies of ``psvi_tpu/data/synthetic.py``'s generators for
-the datasets of the dense slice. ``make_halfmoon`` reproduces
+the datasets of the dense and LeNet slices (``make_synth_images`` makes
+synth_mnist). ``make_halfmoon`` reproduces
 ``sklearn.datasets.make_moons`` bit for bit without scikit-learn: the same
 ``RandomState`` generator, half-circles, index shuffle and additive noise,
 in the same order.
@@ -70,3 +71,28 @@ def make_moons(n_samples: int = 100, noise: float = 0.0, random_state: int = 0):
 def make_halfmoon(n_samples: int = 1000, noise: float = 0.1, random_state: int = 42):
     X, Y = make_moons(n_samples=n_samples, noise=noise, random_state=random_state)
     return X.astype(np.float32), Y.astype(np.float32)
+
+
+def make_synth_images(n_per_class: int = 600, n_test_per_class: int = 100, nc: int = 10,
+                      side: int = 28, channels: int = 1, rng=None):
+    """Class-structured images: each class is a fixed random low-frequency
+    template (side/4 squared, upsampled 4×) plus N(0, 0.6²) pixel noise.
+    Returns ``(x (n, C, side, side), y, xt, yt)``, shuffled per split."""
+    rng = rng or np.random.default_rng(7)
+    f = side // 4
+    templates = rng.standard_normal((nc, channels, f, f)).astype(np.float32)
+    templates = templates.repeat(4, axis=2).repeat(4, axis=3)
+
+    def gen(n_pc):
+        xs, ys = [], []
+        for c in range(nc):
+            noise = 0.6 * rng.standard_normal((n_pc, channels, side, side)).astype(np.float32)
+            xs.append(templates[c][None] + noise)
+            ys.append(np.full(n_pc, c, dtype=np.float32))
+        X, Y = np.concatenate(xs), np.concatenate(ys)
+        perm = rng.permutation(len(X))
+        return X[perm], Y[perm]
+
+    xtr, ytr = gen(n_per_class)
+    xte, yte = gen(n_test_per_class)
+    return xtr, ytr, xte, yte

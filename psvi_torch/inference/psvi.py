@@ -1,8 +1,8 @@
-"""PSVI inference engine — the dense nested slice of the port.
+"""PSVI inference engine — the nested slices of the port.
 
 Counterpart of ``psvi_tpu/inference/psvi.py`` for the nested (bilevel)
 trainer on the dense mean-field nets (logistic regression and the ``fn``
-MLP) with the categorical likelihood:
+MLP) and on LeNet, with the categorical likelihood:
 
 - ``PSVIState`` — parameters, pseudodata (u, z), weights v, α and the
   Adam states of the hyperparameters;
@@ -12,6 +12,9 @@ MLP) with the categorical likelihood:
   ``nested_step`` :541-600);
 - ``_nested_step_fused`` — the same step through the fused kernels of
   ``ops/fused_nested.py`` (hand-written CUDA on the card);
+- ``_nested_step_fused_lenet`` — the LeNet step with its inner unroll
+  through the kernel pair of ``ops/fused_lenet.py`` and the outer IW-ELBO
+  through autograd;
 - ``_evaluate_fn`` and the ``run_psvi`` loop with the reference's
   results-dict keys.
 
@@ -20,8 +23,8 @@ per engine on its device, seeded from ``seed`` (the JAX engine's
 ``trial_key``). The pseudodata init is host-side NumPy and draws the same
 points as the JAX engine for the same seed.
 
-``_nested_step`` and ``_nested_step_fused`` accept an injected batch and
-injected noise; the tests use that seam to line the port up with JAX.
+The nested steps accept an injected batch and injected noise; the tests
+use that seam to line the port up with JAX.
 """
 
 from __future__ import annotations
@@ -34,9 +37,10 @@ import torch
 
 from psvi_torch.data.datasets import DataBundle
 from psvi_torch.device import resolve_device
-from psvi_torch.models.layers import VILinear
+from psvi_torch.models.layers import VILinear, fuse_conv_pool
 from psvi_torch.models.networks import set_up_model
 from psvi_torch.ops import elbo as E
+from psvi_torch.ops import fused_lenet as FL
 from psvi_torch.ops import fused_nested as FN
 from psvi_torch.ops import optim as O
 from psvi_torch.utils.config import METHOD_SPECS, MethodSpec
@@ -46,7 +50,7 @@ from psvi_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 class PSVIState(NamedTuple):
     params: Any  # tuple over net.layers of parameter dicts
-    u: torch.Tensor  # pseudo-inputs (M, D)
+    u: torch.Tensor  # pseudo-inputs (M, D), or (M, C, H, W) for images
     z: torch.Tensor  # pseudo-labels (M,), float
     v: torch.Tensor  # raw log-likelihood weights (M,)
     alpha: torch.Tensor  # global evidence rescaler (1,)
@@ -80,8 +84,14 @@ class PSVI:
     ``device=None`` means CUDA (raises without a GPU); pass ``device="cpu"``
     for the plain PyTorch path on the CPU. ``fused_inner``: ``"auto"`` uses
     the fused kernels on CUDA whenever :func:`ops.fused_nested.supports`
-    holds; ``True`` requires them (on the CPU their plain versions run);
-    ``False`` always takes the plain autograd step.
+    (the dense step) or :func:`ops.fused_lenet.supports` (the LeNet inner
+    unroll) holds; ``True`` requires them (on the CPU their plain versions
+    run); ``False`` always takes the plain autograd step.
+
+    One deliberate difference from the JAX engine: ``"auto"`` selects the
+    LeNet kernel pair on CUDA. The JAX engine never auto-selected its
+    Pallas pair because of the Mosaic compile envelope (S ≤ 4, M·P1² ≤
+    4096); the CUDA kernels have no such envelope.
     """
 
     likelihood = "categorical"
@@ -158,8 +168,11 @@ class PSVI:
         self.n_train_now = int(self.x_train.shape[0])
         self.data_minibatch = min(data_minibatch, self.N, self.n_train_now)
 
-        self.net = set_up_model(architecture, self.D, n_hidden, self.nc, init_sd,
-                                n_layers=n_layers).to(dev)
+        # conv + max-pool pairs fold into the parity-split pooled conv, as
+        # the JAX engine's default fuse_convpool
+        self.net = fuse_conv_pool(set_up_model(
+            architecture, self.D, n_hidden, self.nc, init_sd, n_layers=n_layers,
+            n_channels=data.channels or 1)).to(dev)
         self._init_state()
         self._step = self._trainer_fn()
 
@@ -314,8 +327,10 @@ class PSVI:
             v = hyper.get("v", state.v)
             alpha = hyper.get("alpha", state.alpha)
             params0 = tree_map(lambda x: x.detach().requires_grad_(True), state.params)
-            paramsT, inner_losses = self._run_inner(params0, u, state.z, v, alpha, lr_now,
-                                                    eps_inner)
+            # patch-extract u once, outside the inner loop (a no-op for
+            # dense nets; layers.PrePatched)
+            paramsT, inner_losses = self._run_inner(params0, self.net.prep_input(u), state.z,
+                                                    v, alpha, lr_now, eps_inner)
             loss = self._outer_loss(paramsT, eps_outer, u, state.z, v, alpha, xb, yb)
             grads = dict(zip(names, torch.autograd.grad(loss, list(hyper.values())))) if names else {}
         state = self._apply_hyper_updates(state, grads)
@@ -365,20 +380,62 @@ class PSVI:
         state = state._replace(params=tuple(params), net_step=state.net_step + 1)
         return state, {"outer_loss": loss, "inner_losses": inner_losses}
 
-    def _use_fused_inner(self) -> bool:
+    def _nested_step_fused_lenet(self, state: PSVIState, batch=None, eps=None):
+        """The LeNet nested step with the T-iteration inner unroll through
+        the kernel pair (``ops/fused_lenet.py``: the CUDA kernels on the
+        card, their plain versions on the CPU) and the outer IW-ELBO and
+        its gradient through autograd, as ``_nested_step``. The inner noise
+        is drawn in the kernels' flat layout in one call per step; injected
+        noise (``eps`` as for ``_nested_step``) is packed into it."""
+        xb, yb = batch if batch is not None else self._sample_batch()
+        cfg = FL.cfg_from_engine(self)
+        didx = self.net.variational_layers
+        if eps is None:
+            e_in = torch.randn((cfg.T, cfg.n_eps), generator=self.gen, device=self.device)
+            eps_outer = self._sample_eps(self.mc_samples)
+        else:
+            eps_inner, eps_outer = eps
+            e_in = torch.stack([FL.pack_eps([e[i] for i in didx]) for e in eps_inner])
+        lr_now = self.lr_net_sched(state.net_step)
+        names = self._hyper_names()
+        p0 = FL.pack_params([state.params[i] for i in didx])
+        with torch.enable_grad():
+            hyper = {k: getattr(state, k).detach().clone().requires_grad_(True) for k in names}
+            u = hyper.get("u", state.u)
+            v = hyper.get("v", state.v)
+            alpha = hyper.get("alpha", state.alpha)
+            pT, inner_losses = FL.lenet_unroll(p0, u, v, alpha, state.z, e_in, lr_now, cfg)
+            paramsT = list(state.params)
+            for i, layer in zip(didx, FL.unpack_params(pT, cfg)):
+                paramsT[i] = layer
+            loss = self._outer_loss(tuple(paramsT), eps_outer, u, state.z, v, alpha, xb, yb)
+            grads = dict(zip(names, torch.autograd.grad(loss, list(hyper.values())))) if names else {}
+        state = self._apply_hyper_updates(state, grads)
+        state = state._replace(params=tree_map(lambda x: x.detach(), tuple(paramsT)),
+                               net_step=state.net_step + 1)
+        return state, {"outer_loss": loss.detach(), "inner_losses": inner_losses.detach()}
+
+    def _use_fused_inner(self):
+        """Which fused path serves this config: ``'dense'``
+        (ops/fused_nested), ``'lenet'`` (ops/fused_lenet) or ``None``."""
         if self.fused_inner is False:
-            return False
-        ok = FN.supports(self)
+            return None
+        which = "dense" if FN.supports(self) else ("lenet" if FL.supports(self) else None)
         if self.fused_inner is True:
-            if not ok:
+            if which is None:
                 raise ValueError(
-                    "fused_inner=True requires a configuration the fused kernels "
-                    "support (see psvi_torch.ops.fused_nested.supports)")
-            return True
-        return ok and self.device.type == "cuda"
+                    "fused_inner=True requires a configuration the fused kernels support "
+                    "(see psvi_torch.ops.fused_nested.supports and fused_lenet.supports)")
+            return which
+        return which if self.device.type == "cuda" else None
 
     def _trainer_fn(self):
-        return self._nested_step_fused if self._use_fused_inner() else self._nested_step
+        which = self._use_fused_inner()
+        if which == "dense":
+            return self._nested_step_fused
+        if which == "lenet":
+            return self._nested_step_fused_lenet
+        return self._nested_step
 
     # ------------------------------------------------------------------
     # evaluation

@@ -1,6 +1,9 @@
-"""Mean-field variational dense layers.
+"""Mean-field variational layers: dense, conv and the LeNet glue.
 
-Counterpart of the dense part of ``psvi_tpu/models/layers.py``. Each layer
+Counterpart of ``psvi_tpu/models/layers.py``'s ``VILinear``, ``VIConv2d``,
+``VIConvPool2d`` (with ``PrePatched`` and ``fuse_conv_pool``),
+``MaxPool2d`` (reshape backend), ``Flatten``, ``ReLU``, ``Identity`` and
+``Sequential``. Each layer
 is an ``nn.Module`` that holds its configuration; the computation is
 functional so that ``torch.autograd`` can differentiate through the inner
 unroll:
@@ -24,6 +27,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -76,7 +80,46 @@ class Layer(nn.Module):
         return False
 
 
-class VILinear(Layer):
+class _MeanField(Layer):
+    """θ = μ + softplus(ρ)·ε for a weight of any shape and an optional bias;
+    the analytic KL to N(0, prior_sd²) and the per-sample log p − log q.
+    Subclasses set ``prior_sd`` and ``use_bias``."""
+
+    def _theta(self, params, eps):
+        w = params["mu_w"] + softplus(params["rho_w"]) * eps["w"]
+        b = None
+        if self.use_bias:
+            b = params["mu_b"] + softplus(params["rho_b"]) * eps["b"]
+        return w, b
+
+    def kl(self, params):
+        sd_w = softplus(params["rho_w"])
+        total = torch.sum(_gaussian_kl(params["mu_w"], sd_w, self.prior_sd))
+        if self.use_bias:
+            sd_b = softplus(params["rho_b"])
+            total = total + torch.sum(_gaussian_kl(params["mu_b"], sd_b, self.prior_sd))
+        return total
+
+    def nkl(self, params, eps):
+        # per-sample log p(θ_s) − log q(θ_s), shape (S,) (ref neural_net.py:110-115)
+        w, b = self._theta(params, eps)
+        sp = torch.tensor(self.prior_sd, dtype=w.dtype, device=w.device)
+        sd_w = softplus(params["rho_w"])
+        axes = tuple(range(1, w.dim()))
+        out = (torch.sum(_normal_logpdf(w, 0.0, sp), dim=axes)
+               - torch.sum(_normal_logpdf(w, params["mu_w"], sd_w), dim=axes))
+        if self.use_bias:
+            sd_b = softplus(params["rho_b"])
+            out = out + (torch.sum(_normal_logpdf(b, 0.0, sp), dim=-1)
+                         - torch.sum(_normal_logpdf(b, params["mu_b"], sd_b), dim=-1))
+        return out
+
+    @property
+    def is_variational(self) -> bool:
+        return True
+
+
+class VILinear(_MeanField):
     """Mean-field Gaussian variational dense layer, ``y = x @ W_sᵀ + b_s``
     (ref ``psvi/models/neural_net.py:176-179``)."""
 
@@ -118,13 +161,6 @@ class VILinear(Layer):
             e["b"] = torch.randn((mc_samples, self.out_dim), generator=generator, device=dev)
         return e
 
-    def _theta(self, params, eps):
-        w = params["mu_w"] + softplus(params["rho_w"]) * eps["w"]
-        b = None
-        if self.use_bias:
-            b = params["mu_b"] + softplus(params["rho_b"]) * eps["b"]
-        return w, b
-
     def apply(self, params, eps, x):
         # x: (N, in) unbatched or (S, N, in); w: (S, out, in); b: (S, out)
         w, b = self._theta(params, eps)
@@ -136,32 +172,175 @@ class VILinear(Layer):
             y = y + b[:, None, :]
         return y
 
-    def kl(self, params):
-        sd_w = softplus(params["rho_w"])
-        total = torch.sum(_gaussian_kl(params["mu_w"], sd_w, self.prior_sd))
-        if self.use_bias:
-            sd_b = softplus(params["rho_b"])
-            total = total + torch.sum(_gaussian_kl(params["mu_b"], sd_b, self.prior_sd))
-        return total
 
-    def nkl(self, params, eps):
-        # per-sample log p(θ_s) − log q(θ_s), shape (S,) (ref neural_net.py:110-115)
-        w, b = self._theta(params, eps)
-        sp = torch.tensor(self.prior_sd, dtype=w.dtype, device=w.device)
-        sd_w = softplus(params["rho_w"])
-        lp = torch.sum(_normal_logpdf(w, 0.0, sp), dim=(-2, -1))
-        lq = torch.sum(_normal_logpdf(w, params["mu_w"], sd_w), dim=(-2, -1))
-        out = lp - lq
+class VIConv2d(_MeanField):
+    """Mean-field Gaussian variational 2-D convolution (ref
+    ``psvi/models/neural_net.py:194-246``), weights (K, C, k, k).
+
+    ``count_kl`` defaults to False: the reference's ELBOs skip conv-layer KL
+    terms (``psvi_classes.py:479-483,506-510``). An unbatched (N, C, H, W)
+    input with C·k² ≤ 256 takes the im2col form (``_apply_patches``); a
+    batched (S, N, C, H, W) input runs one grouped convolution over the S
+    samples.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, init_sd: float = 0.01, prior_sd: float = 1.0,
+                 use_bias: bool = True, count_kl: bool = False):
+        super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.init_sd, self.prior_sd = init_sd, prior_sd
+        self.use_bias, self.count_kl = use_bias, count_kl
+
+    def config(self) -> dict:
+        return dict(in_channels=self.in_channels, out_channels=self.out_channels,
+                    kernel_size=self.kernel_size, stride=self.stride, padding=self.padding,
+                    init_sd=self.init_sd, prior_sd=self.prior_sd, use_bias=self.use_bias,
+                    count_kl=self.count_kl)
+
+    def extra_repr(self):
+        return ", ".join(f"{k}={v}" for k, v in self.config().items())
+
+    def _out_hw(self, H, W):
+        k, st, p = self.kernel_size, self.stride, self.padding
+        return (H + 2 * p - k) // st + 1, (W + 2 * p - k) // st + 1
+
+    def init(self, generator):
+        dev = generator.device
+        k = self.kernel_size
+        bound = 1.0 / math.sqrt(self.in_channels * k * k)
+        rho = float(inverse_softplus(self.init_sd))
+        shape = (self.out_channels, self.in_channels, k, k)
+
+        def uniform(sh):
+            return (2.0 * torch.rand(sh, generator=generator, device=dev) - 1.0) * bound
+
+        p = {"mu_w": uniform(shape), "rho_w": torch.full(shape, rho, device=dev)}
         if self.use_bias:
-            sd_b = softplus(params["rho_b"])
-            lpb = torch.sum(_normal_logpdf(b, 0.0, sp), dim=-1)
-            lqb = torch.sum(_normal_logpdf(b, params["mu_b"], sd_b), dim=-1)
-            out = out + (lpb - lqb)
-        return out
+            p["mu_b"] = uniform((self.out_channels,))
+            p["rho_b"] = torch.full((self.out_channels,), rho, device=dev)
+        return p
+
+    def sample_eps(self, generator, mc_samples):
+        dev, k = generator.device, self.kernel_size
+        e = {"w": torch.randn((mc_samples, self.out_channels, self.in_channels, k, k),
+                              generator=generator, device=dev)}
+        if self.use_bias:
+            e["b"] = torch.randn((mc_samples, self.out_channels), generator=generator, device=dev)
+        return e
+
+    def apply(self, params, eps, x):
+        w, b = self._theta(params, eps)
+        return self.apply_theta(w, b, x)
+
+    def apply_theta(self, w, b, x):
+        """Forward with explicit samples w (S,K,C,k,k), b (S,K)."""
+        if x.dim() == 4 and self.in_channels * self.kernel_size ** 2 <= 256:
+            return self._apply_patches(w, b, x)
+        if x.dim() == 4:
+            x = x.unsqueeze(0).expand((w.shape[0],) + tuple(x.shape))
+        S, N, C, H, W = x.shape
+        K, k = w.shape[1], self.kernel_size
+        OH, OW = self._out_hw(H, W)
+        xg = x.permute(1, 0, 2, 3, 4).reshape(N, S * C, H, W)
+        y = F.conv2d(xg, w.reshape(S * K, C, k, k), stride=self.stride,
+                     padding=self.padding, groups=S)
+        y = y.reshape(N, S, K, OH, OW).permute(1, 0, 2, 3, 4)
+        if b is not None:
+            y = y + b[:, None, :, None, None]
+        return y
+
+    def _patches(self, x):
+        """Stride-st im2col of an unbatched input: (N, k², C, OH, OW)."""
+        k, st, p = self.kernel_size, self.stride, self.padding
+        N, C, H, W = x.shape
+        OH, OW = self._out_hw(H, W)
+        xp = F.pad(x, (p, p, p, p)) if p else x
+        cols = [xp[:, :, i:i + st * OH:st, j:j + st * OW:st]
+                for i in range(k) for j in range(k)]
+        return torch.stack(cols, dim=1)
+
+    def _apply_patches(self, w, b, x):
+        """im2col formulation for an unbatched input (N, C, H, W)."""
+        S, K, C, k = w.shape[0], w.shape[1], self.in_channels, self.kernel_size
+        y = torch.einsum("nqchw,socq->snohw", self._patches(x), w.reshape(S, K, C, k * k))
+        if b is not None:
+            y = y + b[:, None, :, None, None]
+        return y
+
+
+class PrePatched:
+    """Pre-extracted first-layer conv patches standing in for the raw
+    (N, C, H, W) input of a :class:`VIConvPool2d`-headed net (built by
+    :meth:`Sequential.prep_input` once per outer step)."""
+
+    def __init__(self, pr, x_shape):
+        self.pr = pr  # (N, q, C, PH, pk, PW, pk)
+        self.x_shape = tuple(x_shape)
+
+    def dim(self):
+        return len(self.x_shape)
 
     @property
-    def is_variational(self) -> bool:
-        return True
+    def shape(self):
+        return self.x_shape
+
+
+class VIConvPool2d(VIConv2d):
+    """Conv + non-overlapping ``pool_k``×``pool_k`` max-pool, fused.
+
+    On an unbatched input the conv output positions are split into the
+    pool_k² pool-window parities, each an im2col einsum, and the pool is an
+    elementwise max over them; the bias is added after the max (exact:
+    rounding is monotone). A batched input, or a conv output that does not
+    tile by pool_k, takes the grouped conv and a crop-and-reshape pool
+    (floor semantics, as ``MaxPool2d``).
+    """
+
+    def __init__(self, *args, pool_k: int = 2, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.pool_k = pool_k
+
+    def supports_parity(self, x_shape) -> bool:
+        """True when ``x_shape`` (N, C, H, W) takes the parity path."""
+        if len(x_shape) != 4:
+            return False
+        OH, OW = self._out_hw(x_shape[-2], x_shape[-1])
+        pk = self.pool_k
+        return OH % pk == 0 and OW % pk == 0 and self.in_channels * self.kernel_size ** 2 <= 256
+
+    def extract_patches(self, x):
+        """Stride-1 im2col patches reshaped for the parity einsums:
+        (N, q, C, PH, pk, PW, pk)."""
+        P = self._patches(x)
+        N, q, C, OH, OW = P.shape
+        pk = self.pool_k
+        return P.reshape(N, q, C, OH // pk, pk, OW // pk, pk)
+
+    def apply_theta(self, w, b, x):
+        if isinstance(x, PrePatched):
+            return self._parity_matmuls(w, b, x.pr)
+        if not self.supports_parity(tuple(x.shape)):
+            y = super().apply_theta(w, b, x)
+            *lead, HH, WW = y.shape
+            pk = self.pool_k
+            y = y[..., :(HH // pk) * pk, :(WW // pk) * pk]
+            y = y.reshape(*lead, HH // pk, pk, WW // pk, pk)
+            return torch.amax(y, dim=(-3, -1))
+        return self._parity_matmuls(w, b, self.extract_patches(x))
+
+    def _parity_matmuls(self, w, b, Pr):
+        S, K, C, k = w.shape[0], w.shape[1], self.in_channels, self.kernel_size
+        wf = w.reshape(S, K, C, k * k)
+        y = None
+        for a_ in range(self.pool_k):
+            for b_ in range(self.pool_k):
+                ya = torch.einsum("nqchw,skcq->snkhw", Pr[:, :, :, :, a_, :, b_], wf)
+                y = ya if y is None else torch.maximum(y, ya)
+        if b is not None:
+            y = y + b[:, None, :, None, None]
+        return y
 
 
 class ReLU(Layer):
@@ -170,11 +349,61 @@ class ReLU(Layer):
 
 
 class Identity(Layer):
-    """Pass-through placeholder (keeps params/eps trees aligned with nets
-    whose pooling was folded away in the JAX package)."""
+    """Pass-through placeholder: stands where :func:`fuse_conv_pool` folded
+    a MaxPool2d into the conv before it, so the params/eps trees keep the
+    unfused net's structure."""
 
     def apply(self, params, eps, x):
         return x
+
+
+class Flatten(Layer):
+    """Flatten trailing (C, H, W) → features (ref ``nn.Flatten(-3, -1)``)."""
+
+    def apply(self, params, eps, x):
+        return x.reshape(*x.shape[:-3], -1)
+
+
+class MaxPool2d(Layer):
+    """Max-pool over (H, W); leading axes pass through (ref
+    ``BatchMaxPool2d``, ``psvi/models/neural_net.py:249-255``). Only the
+    ``"reshape"`` backend is ported."""
+
+    def __init__(self, kernel_size: int, stride: int, padding: int = 0,
+                 backend: str = "reshape"):
+        super().__init__()
+        if backend != "reshape":
+            raise NotImplementedError(
+                f"pool backend {backend!r} is not ported yet (ROADMAP.md, queue A item 8)")
+        self.kernel_size, self.stride, self.padding, self.backend = (
+            kernel_size, stride, padding, backend)
+
+    def apply(self, params, eps, x):
+        k, s, p = self.kernel_size, self.stride, self.padding
+        *lead, H, W = x.shape
+        if k == s and p == 0 and H % k == 0 and W % k == 0:
+            return torch.amax(x.reshape(*lead, H // k, k, W // k, k), dim=(-3, -1))
+        y = F.max_pool2d(x.reshape(1, -1, H, W), k, s, p)
+        return y.reshape(*lead, *y.shape[-2:])
+
+
+def fuse_conv_pool(net: "Sequential") -> "Sequential":
+    """Fold every top-level ``(VIConv2d, MaxPool2d(k == s, p == 0))`` pair
+    into a :class:`VIConvPool2d` + :class:`Identity` pair. Both MaxPool2d
+    and Identity hold empty params, so the params/eps trees keep their
+    structure."""
+    layers, out, i = list(net.layers), [], 0
+    while i < len(layers):
+        l = layers[i]
+        nxt = layers[i + 1] if i + 1 < len(layers) else None
+        if (type(l) is VIConv2d and isinstance(nxt, MaxPool2d)
+                and nxt.kernel_size == nxt.stride and nxt.padding == 0):
+            out += [VIConvPool2d(**l.config(), pool_k=nxt.kernel_size), Identity()]
+            i += 2
+        else:
+            out.append(l)
+            i += 1
+    return Sequential(out)
 
 
 def _infer_mc_samples(eps) -> Optional[int]:
@@ -224,7 +453,17 @@ class Sequential(nn.Module):
             total = torch.zeros((_infer_mc_samples(eps),))
         return total
 
+    @property
+    def variational_layers(self):
+        return tuple(i for i, l in enumerate(self.layers) if l.is_variational)
+
     def prep_input(self, x):
-        """Identity for dense nets (the JAX package pre-extracts conv
-        patches here; that arrives with the LeNet slice)."""
+        """Pre-extract the first layer's conv patches for repeated forwards
+        on the same input (the inner loop on the coreset u): a
+        :class:`PrePatched` when the net starts with a :class:`VIConvPool2d`
+        that takes ``x`` on its parity path, else ``x`` unchanged."""
+        first = self.layers[0] if len(self.layers) else None
+        if (isinstance(first, VIConvPool2d) and not isinstance(x, PrePatched)
+                and first.supports_parity(tuple(x.shape))):
+            return PrePatched(first.extract_patches(x), x.shape)
         return x

@@ -100,6 +100,10 @@ class FusedCfg:
     def layer_dims(self):
         return [(self.widths[l], self.widths[l + 1]) for l in range(self.L)]
 
+    def layer_shapes(self):
+        """(weight shape, bias size) of each layer."""
+        return [((o, i), o) for i, o in self.layer_dims()]
+
     @property
     def n_params(self):  # P: flat parameter vector length
         return sum(2 * (o * i + o) for i, o in self.layer_dims())
@@ -123,44 +127,37 @@ class FusedCfg:
 
 
 def pack_params(layers) -> torch.Tensor:
-    """Per-layer dicts ``mu_w, rho_w (o,i), mu_b, rho_b (o,)`` → flat (P,)."""
-    return torch.cat([
-        torch.cat([p["mu_w"].reshape(-1), p["rho_w"].reshape(-1),
-                   p["mu_b"].reshape(-1), p["rho_b"].reshape(-1)])
-        for p in layers
-    ])
+    """Per-layer dicts ``mu_w, rho_w, mu_b, rho_b`` → flat (P,)."""
+    return torch.cat([p[key].reshape(-1) for p in layers
+                      for key in ("mu_w", "rho_w", "mu_b", "rho_b")])
 
 
-def unpack_params(flat: torch.Tensor, cfg: FusedCfg):
-    """Flat (P,) → per-layer dicts of views."""
+def unpack_params(flat: torch.Tensor, cfg):
+    """Flat (P,) → per-layer dicts of views, at ``cfg.layer_shapes()``."""
     out, off = [], 0
-    for i, o in cfg.layer_dims():
-        nw = o * i
-        out.append({
-            "mu_w": flat[off:off + nw].view(o, i),
-            "rho_w": flat[off + nw:off + 2 * nw].view(o, i),
-            "mu_b": flat[off + 2 * nw:off + 2 * nw + o],
-            "rho_b": flat[off + 2 * nw + o:off + 2 * nw + 2 * o],
-        })
+    for wshape, o in cfg.layer_shapes():
+        nw = math.prod(wshape)
+        out.append({"mu_w": flat[off:off + nw].view(wshape),
+                    "rho_w": flat[off + nw:off + 2 * nw].view(wshape),
+                    "mu_b": flat[off + 2 * nw:off + 2 * nw + o],
+                    "rho_b": flat[off + 2 * nw + o:off + 2 * nw + 2 * o]})
         off += 2 * (nw + o)
     return out
 
 
 def pack_eps(layers, lead=()) -> torch.Tensor:
-    """Per-layer noise dicts ``w (*lead, S, o, i), b (*lead, S, o)`` → (*lead, E)."""
+    """Per-layer noise dicts ``w (*lead, S, ...), b (*lead, S, o)`` → (*lead, E)."""
     n = len(lead)
-    return torch.cat(
-        [torch.cat([e["w"].reshape(*lead, -1), e["b"].reshape(*lead, -1)], dim=n)
-         for e in layers], dim=n)
+    return torch.cat([torch.cat([e["w"].reshape(*lead, -1), e["b"].reshape(*lead, -1)], dim=n)
+                      for e in layers], dim=n)
 
 
-def unpack_eps(flat: torch.Tensor, cfg: FusedCfg):
-    """One flat draw (E,) → per-layer ``(w (S,o,i), b (S,o))`` views."""
+def unpack_eps(flat: torch.Tensor, cfg):
+    """One flat draw (E,) → per-layer ``(w (S, ...), b (S, o))`` views."""
     out, off, S = [], 0, cfg.S
-    for i, o in cfg.layer_dims():
-        nw = S * o * i
-        out.append((flat[off:off + nw].view(S, o, i),
-                    flat[off + nw:off + nw + S * o].view(S, o)))
+    for wshape, o in cfg.layer_shapes():
+        nw = S * math.prod(wshape)
+        out.append((flat[off:off + nw].view(S, *wshape), flat[off + nw:off + nw + S * o].view(S, o)))
         off += nw + S * o
     return out
 

@@ -1,5 +1,5 @@
 """The port's datasets equal the JAX package's bit for bit (halfmoon without
-scikit-learn included)."""
+scikit-learn, and the synth_mnist images, included)."""
 
 import numpy as np
 import pytest
@@ -9,14 +9,15 @@ from psvi_torch.data.synthetic import make_moons
 from psvi_tpu.data import read_dataset as jax_read_dataset
 
 
-@pytest.mark.parametrize("name", ["halfmoon", "four_blobs", "synth_lr_5", "synth_lr_2"])
+@pytest.mark.parametrize("name", ["halfmoon", "four_blobs", "synth_lr_5", "synth_lr_2",
+                                  "synth_mnist"])
 def test_read_dataset_matches_jax_bitwise(name):
     a, b = read_dataset(name), jax_read_dataset(name)
     for k in ("x", "y", "xt", "yt"):
         x, y = getattr(a, k), getattr(b, k)
         assert x.dtype == y.dtype and x.shape == y.shape
         assert np.array_equal(x, y), k
-    assert (a.N, a.D, a.nc) == (b.N, b.D, b.nc)
+    assert (a.N, a.D, a.nc, a.channels) == (b.N, b.D, b.nc, b.channels)
 
 
 @pytest.mark.parametrize("n,noise,seed", [(1000, 0.1, 42), (101, 0.3, 0), (7, 0.0, 3)])
@@ -28,6 +29,13 @@ def test_make_moons_matches_sklearn_bitwise(n, noise, seed):
     assert np.array_equal(X, Xs) and np.array_equal(y, ys)
 
 
+def test_synth_mnist_shapes():
+    d = read_dataset("synth_mnist")
+    assert d.x.shape == (6000, 1, 28, 28) and d.xt.shape == (1000, 1, 28, 28)
+    assert (d.N, d.D, d.nc, d.channels) == (6000, 784, 10, 1)
+
+
 def test_unported_dataset_points_to_roadmap():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        read_dataset("synth_mnist")
+    for name in ("mnist", "fashion_mnist", "cifar10", "synth_cifar"):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            read_dataset(name)

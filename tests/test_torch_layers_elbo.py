@@ -93,7 +93,7 @@ def test_set_up_model_dense_dispatch():
     assert [type(l).__name__ for l in set_up_model("logistic_regression", 2, None, 2, 1e-3).layers] \
         == ["VILinear"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        set_up_model("lenet", 784, None, 10, 1e-3)
+        set_up_model("alexnet", 3072, None, 10, 1e-3)
     with pytest.raises(ValueError):
         set_up_model("nope", 2, 4, 2, 1e-3)
 
