@@ -10,11 +10,18 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              the checkout (``psvi_torch/ops/csrc``), one nvcc per source, all
              started at once;
 3. kernels — each dense CUDA kernel against its plain PyTorch version on the
-             same CUDA inputs, and the composed step against the plain and
-             the autograd-oracle backends, on three configs (TF32 off);
+             same CUDA inputs (the outer step's cotangents also against the
+             plain version in float64), and the composed step against the
+             plain and the autograd-oracle backends (TF32 off): three configs
+             of the categorical head, and three of the Gaussian head on
+             sinus (1-40-1 psvi_learn_v_regressor τ=0.1, the regression main
+             path; 1-40-40-1 with α, τ=1; psvi_regressor, f(v) = v), z̄ and
+             g_z included;
+   centring — at the regression main path, the outer IW-ELBO's gradient in
+             fp32 with and without d centred, each against float64;
    caps    — at each edge of the dense ``supports()`` (widest layer, S = 32
-             with M + B = 2048, eight layers) the composed CUDA step against
-             the plain version run in float64;
+             with M + B = 2048, eight layers), for each head, the composed
+             CUDA step against the plain version run in float64;
    lenet   — ``lenet_fwd`` and ``lenet_rev`` against their plain versions
              (and against a rerun of themselves, bit for bit) on three
              configs: the flagship psvi_learn_v (S=10, M=100, T=20),
@@ -22,15 +29,19 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              last two also the composed ``LeNetUnroll`` against the autograd
              oracle; and at the caps of the LeNet ``supports()`` (S = 64,
              M = 1024, T = 2);
-4. engine  — the dense main path: ``run_psvi`` on four_blobs with the fn BNN
-             2-40-4 (psvi_learn_v, M=48, S=10, inner_it=10, B=128,
-             init_sd 1e-3, 101 outer steps) through the kernels, with every
-             launch counter set to 0 just before and read just after; then
-             halfmoon logistic regression (M=30, 101 steps); then the LeNet
-             main path: synth_mnist LeNet psvi_learn_v (M=100, S=10,
+4. engine  — the main paths through ``run_psvi``'s engine, with every launch
+             counter (by kernel and likelihood branch) set to 0 just before
+             and read just after: four_blobs with the fn BNN 2-40-4
+             (psvi_learn_v, M=48, S=10, inner_it=10, B=128, init_sd 1e-3,
+             101 outer steps); halfmoon logistic regression (M=30, 101
+             steps); the regression path, sinus regressor_net 1-40-1
+             (psvi_learn_v_regressor, M=10, S=10, inner_it=10, B=64, τ=0.1,
+             lr 1e-2 for u, v, z, 101 steps, final test RMSE ≤ 0.30); the
+             LeNet path, synth_mnist LeNet psvi_learn_v (M=100, S=10,
              inner_it=20, B=256, init_sd 1e-3, 31 outer steps);
-5. times   — CUDA-event medians of each kernel, its plain version, the
-             fused engine steps and the plain autograd engine steps;
+5. times   — CUDA-event medians of each kernel (each head at its main
+             path's shapes), its plain version, the fused engine steps and
+             the plain autograd engine steps;
    profile — torch.profiler's device time by CUDA kernel over one call of
              each LeNet kernel and one fused LeNet engine step.
 
@@ -56,8 +67,8 @@ import torch
 # - losses: rtol 1e-5 — the same fp32 terms summed in another order;
 # - paramsT: rtol 2e-4, atol 1e-6 — ten Adam steps divide by √n, which
 #   amplifies last-bit differences in small gradients;
-# - hypergradients g_u, g_v, the cotangents p̄, ū, c̄w and the Adam moments
-#   m, n: cosine > 0.9999 and max |Δ| ≤ 1e-3·max |ref| — sums over S·M
+# - hypergradients g_u, g_v, g_z, the cotangents p̄, ū, c̄w, z̄ and the Adam
+#   moments m, n: cosine > 0.9999 and max |Δ| ≤ 1e-3·max |ref| — sums over S·M
 #   terms with cancellation, so an elementwise rtol is not meaningful;
 # - g_α: rtol 0.05 — ∂/∂α sums N-scaled terms with heavy cancellation (the
 #   JAX reference documents the same f32 spread, tests/test_fused_nested.py).
@@ -120,18 +131,27 @@ class Checker:
         return {"max_abs": e, "cos": c}
 
 
-def main_cfg(FN, data, widths, M, parameterised, use_alpha):
-    """The main path's step shape (S = 10, T = 10, B = 128) for one net."""
-    return FN.FusedCfg(T=10, S=10, widths=tuple(widths), M=M, B=128, N=float(data.N),
-                       parameterised=parameterised, use_alpha=use_alpha, prior_sd=1.0)
+def main_cfg(FN, data, widths, M, parameterised, use_alpha, B=128, tau=None):
+    """The main paths' step shape (S = 10, T = 10) for one net: the
+    categorical head, or with ``tau`` the Gaussian head at that precision
+    with learned targets (the regressors)."""
+    lik = {} if tau is None else dict(likelihood="gaussian", tau=tau, learn_z=True)
+    return FN.FusedCfg(T=10, S=10, widths=tuple(widths), M=M, B=B, N=float(data.N),
+                       parameterised=parameterised, use_alpha=use_alpha, prior_sd=1.0, **lik)
 
 
-def kernel_inputs(FN, cfg, x, y, seed, dev, dtype=torch.float32):
+def branch(cfg, name):
+    """A kernel's name for its likelihood branch, as the launch counters and
+    the ``kernels`` line name it."""
+    return name + ("_gaussian" if cfg.gaussian else "")
+
+
+def kernel_inputs(FN, cfg, x, y, seed, dev, dtype=torch.float32, lr=1e-3):
     """Engine-like inputs for ``cfg`` from numpy.random.default_rng(seed), in
     the engine's natural layouts and flat: U(±1/√in) means, ρ =
     softplus⁻¹(1e-3) plus a small spread, coreset and minibatch rows drawn
-    from (x, y), noise ~ N(0, 1). The same seed gives the same numbers in
-    any ``dtype``."""
+    from (x, y) (int32 labels, or real targets for a Gaussian head), noise
+    ~ N(0, 1). The same seed gives the same numbers in any ``dtype``."""
     rng = np.random.default_rng(seed)
     rho0 = math.log(math.expm1(1e-3))
     T, S = cfg.T, cfg.S
@@ -146,6 +166,8 @@ def kernel_inputs(FN, cfg, x, y, seed, dev, dtype=torch.float32):
     iu = rng.choice(len(x), cfg.M, replace=False)
     ib = rng.choice(len(x), cfg.B, replace=False)
     v = 0.3 * rng.standard_normal(cfg.M) if cfg.parameterised else np.full(cfg.M, 1.0 / cfg.M)
+    y = np.asarray(y).reshape(len(y), -1)[:, 0]
+    ty = dtype if cfg.gaussian else torch.int32
 
     def t(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
@@ -154,8 +176,8 @@ def kernel_inputs(FN, cfg, x, y, seed, dev, dtype=torch.float32):
         return [{k: t(v) for k, v in d.items()} for d in ls]
 
     a = dict(params0=tree(layers), eps_inner=tree(e_in), eps_outer=tree(e_out), u=t(x[iu]),
-             z=t(y[iu], torch.int32), xb=t(x[ib]), yb=t(y[ib], torch.int32), v=t(v),
-             alpha=t([0.1 if cfg.use_alpha else 0.0]), lr=1e-3)
+             z=t(y[iu], ty), xb=t(x[ib]), yb=t(y[ib], ty), v=t(v),
+             alpha=t([0.1 if cfg.use_alpha else 0.0]), lr=lr)
     a.update(p0=FN.pack_params(a["params0"]), e_in=FN.pack_eps(a["eps_inner"], lead=(T,)),
              e_out=FN.pack_eps(a["eps_outer"]))
     return a
@@ -163,10 +185,10 @@ def kernel_inputs(FN, cfg, x, y, seed, dev, dtype=torch.float32):
 
 def composed_step(FN, cfg, a, backend):
     """``fused_nested_outer`` on the natural layouts; paramsT comes back flat."""
-    loss, il, pT, g_u, g_v, g_a = FN.fused_nested_outer(
+    loss, il, pT, g_u, g_v, g_a, g_z = FN.fused_nested_outer(
         a["params0"], a["u"], a["v"], a["alpha"], a["z"], a["xb"], a["yb"], a["eps_inner"],
         a["eps_outer"], a["lr"], cfg, backend=backend)
-    return loss, il, FN.pack_params(pT), g_u, g_v, g_a
+    return loss, il, FN.pack_params(pT), g_u, g_v, g_a, g_z
 
 
 def compare_steps(chk, tag, cfg, k, r):
@@ -180,23 +202,32 @@ def compare_steps(chk, tag, cfg, k, r):
     }
     if cfg.use_alpha:
         out["g_alpha"] = chk.allclose(tag, "g_alpha", k[5], r[5], RTOL_ALPHA, ATOL_P)
+    if cfg.learn_z:
+        out["g_z"] = chk.grad(tag, "g_z", k[6], r[6])
     return out
 
 
 def check_kernels(FN, chk, name, cfg, a):
+    """Each kernel against its plain version on the same CUDA inputs (each
+    fed the plain versions' upstream outputs), then the composed step
+    against the plain and the autograd-oracle backends. For a Gaussian head
+    also z̄: the outer step's, and the reverse sweep's from a zero z̄ input,
+    so that the T iterations' terms are compared on their own."""
     p0, u, z, xb, yb, v, al, e_in, e_out, lr = (a[k] for k in (
         "p0", "u", "z", "xb", "yb", "v", "alpha", "e_in", "e_out", "lr"))
-    rep = {"phase": "kernels", "config": name, "widths": list(cfg.widths), "M": cfg.M}
+    fwd, outer, rev = (branch(cfg, k) for k in ("nested_fwd", "nested_outer", "nested_rev"))
+    rep = {"phase": "kernels", "config": name, "widths": list(cfg.widths), "M": cfg.M,
+           "likelihood": cfg.likelihood}
     # nested_fwd
     l_k, h_k, cw_k = FN._nested_fwd_cuda(p0, u, z, v, al, e_in, lr, cfg)
     l_t, h_t, cw_t = FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)
     torch.cuda.synchronize()
     rep["fwd"] = {
-        "losses": chk.allclose("nested_fwd", "losses", l_k, l_t, RTOL_LOSS),
-        "paramsT": chk.allclose("nested_fwd", "paramsT", h_k[:, 0], h_t[:, 0], RTOL_P, ATOL_P),
-        "m": chk.grad("nested_fwd", "m", h_k[:, 1], h_t[:, 1]),
-        "n": chk.grad("nested_fwd", "n", h_k[:, 2], h_t[:, 2]),
-        "cw": chk.allclose("nested_fwd", "cw", cw_k, cw_t, RTOL_LOSS),
+        "losses": chk.allclose(fwd, "losses", l_k, l_t, RTOL_LOSS),
+        "paramsT": chk.allclose(fwd, "paramsT", h_k[:, 0], h_t[:, 0], RTOL_P, ATOL_P),
+        "m": chk.grad(fwd, "m", h_k[:, 1], h_t[:, 1]),
+        "n": chk.grad(fwd, "n", h_k[:, 2], h_t[:, 2]),
+        "cw": chk.allclose(fwd, "cw", cw_k, cw_t, RTOL_LOSS),
     }
     # nested_outer on the plain version's paramsT and core weights
     pT = h_t[cfg.T, 0].contiguous()
@@ -204,27 +235,87 @@ def check_kernels(FN, chk, name, cfg, a):
     o_t = FN.nested_outer_torch(pT, u, z, cw_t, xb, yb, e_out, cfg)
     torch.cuda.synchronize()
     rep["outer"] = {
-        "loss": chk.allclose("nested_outer", "loss", o_k[0], o_t[0], RTOL_LOSS),
-        "pbar": chk.grad("nested_outer", "pbar", o_k[1], o_t[1]),
-        "ubar": chk.grad("nested_outer", "ubar", o_k[2], o_t[2]),
-        "cwbar": chk.grad("nested_outer", "cwbar", o_k[3], o_t[3]),
+        "loss": chk.allclose(outer, "loss", o_k[0], o_t[0], RTOL_LOSS),
+        "pbar": chk.grad(outer, "pbar", o_k[1], o_t[1]),
+        "ubar": chk.grad(outer, "ubar", o_k[2], o_t[2]),
+        "cwbar": chk.grad(outer, "cwbar", o_k[3], o_t[3]),
     }
+    if cfg.learn_z:
+        rep["outer"]["zbar"] = chk.grad(outer, "zbar", o_k[4], o_t[4])
+    # both fp32 versions against the plain version in float64 on the same
+    # inputs: max |Δ|/max |ref| of each cotangent
+    o_64 = FN.nested_outer_torch(*(x.double() if x.is_floating_point() else x
+                                   for x in (pT, u, z, cw_t, xb, yb, e_out)), cfg)
+    rep["outer"]["vs_float64"] = {
+        nm: {"kernel": _rel(o_k[i].double(), o_64[i]), "plain": _rel(o_t[i].double(), o_64[i])}
+        for i, nm in enumerate(("pbar", "ubar", "cwbar", "zbar"), 1)
+        if i < 4 or cfg.learn_z}
     # nested_rev on the plain versions' history and cotangents
+    zbar0 = torch.zeros_like(o_t[4])
     r_k = FN._nested_rev_cuda(h_t, o_t[1].contiguous(), o_t[2].contiguous(),
-                              o_t[3].contiguous(), u, z, cw_t, v, al, e_in, lr, cfg)
-    r_t = FN.nested_rev_torch(h_t, o_t[1], o_t[2], o_t[3], u, z, cw_t, v, al, e_in, lr, cfg)
+                              o_t[3].contiguous(), zbar0, u, z, cw_t, v, al, e_in, lr, cfg)
+    r_t = FN.nested_rev_torch(h_t, o_t[1], o_t[2], o_t[3], zbar0, u, z, cw_t, v, al, e_in, lr,
+                              cfg)
     torch.cuda.synchronize()
-    rep["rev"] = {"g_u": chk.grad("nested_rev", "g_u", r_k[0], r_t[0]),
-                  "g_v": chk.grad("nested_rev", "g_v", r_k[1], r_t[1])}
+    rep["rev"] = {"g_u": chk.grad(rev, "g_u", r_k[0], r_t[0]),
+                  "g_v": chk.grad(rev, "g_v", r_k[1], r_t[1])}
     if cfg.use_alpha:
-        rep["rev"]["g_alpha"] = chk.allclose("nested_rev", "g_alpha", r_k[2], r_t[2],
-                                             RTOL_ALPHA, ATOL_P)
+        rep["rev"]["g_alpha"] = chk.allclose(rev, "g_alpha", r_k[2], r_t[2], RTOL_ALPHA, ATOL_P)
+    if cfg.learn_z:
+        rep["rev"]["g_z_unroll_terms"] = chk.grad(rev, "g_z", r_k[3], r_t[3])
     # the composed step: cuda against torch and against the autograd oracle
     outs = {b: composed_step(FN, cfg, a, b) for b in ("cuda", "torch", "autograd")}
     torch.cuda.synchronize()
     rep["step"] = {ref: compare_steps(chk, f"step_vs_{ref}", cfg, outs["cuda"], outs[ref])
                    for ref in ("torch", "autograd")}
     emit(rep)
+
+
+def centring_effect(FN, cfg, a):
+    """Does the Gaussian head need the outer IW-ELBO's centring? The outer
+    loss's gradient w.r.t. (u, z, cw) at paramsT in fp32 on the card, written
+    as the JAX package writes it (Σ_s w_s·d_s) and as the port does (d
+    centred at its weighted mean), each against float64; max |Δ|/max |ref|."""
+    from psvi_torch.models.networks import make_dense
+    from psvi_torch.ops import elbo as E
+
+    def grads(dtype, centred):
+        net = make_dense(cfg.widths, prior_sd=cfg.prior_sd)
+        c = {k: (a[k].to(dtype) if torch.is_tensor(a[k]) else a[k]) for k in a}
+        _, h, cw = FN.nested_fwd_torch(c["p0"], c["u"], c["z"], c["v"], c["alpha"], c["e_in"],
+                                       c["lr"], cfg)
+        params = [{} for _ in net.layers]
+        eps = [{} for _ in net.layers]
+        for k, (p, (w, b)) in enumerate(zip(FN.unpack_params(h[cfg.T, 0], cfg),
+                                            FN.unpack_eps(c["e_out"], cfg))):
+            params[2 * k], eps[2 * k] = p, {"w": w, "b": b}
+        with torch.enable_grad():
+            u, z, cw = (x.detach().clone().requires_grad_(True) for x in (c["u"], c["z"], cw))
+            out = net.apply(tuple(params), tuple(eps), torch.cat([u, c["xb"]]))[..., 0]
+            nll = E.gaussian_nll(out, torch.cat([z, c["yb"]]), cfg.tau)
+            pseudo = nll[:, :cfg.M] @ cw
+            lw = -pseudo + net.nkl(tuple(params), tuple(eps))
+            w = torch.softmax(lw, 0)
+            d = (cfg.N / cfg.B) * nll[:, cfg.M:].sum(1) - pseudo
+            ref = (w * d).sum().detach() if centred else 0.0
+            loss = ref + (w * (d - ref)).sum() - lw.mean()
+            return torch.autograd.grad(loss, (u, z, cw)), float(loss.detach())
+
+    truth, loss64 = grads(torch.float64, True)
+    rep = {"phase": "centring", "outer_loss_float64": loss64}
+    for centred in (False, True):
+        got, _ = grads(torch.float32, centred)
+        rep["centred" if centred else "uncentred"] = {
+            k: _rel(g.double(), r) for k, g, r in zip(("ubar", "zbar", "cwbar"), got, truth)}
+    emit(rep)
+
+
+def regression_bundle(DataBundle, D, n=4096, seed=0):
+    """N(0, 1) inputs and normalised targets: enough rows for any cap."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    y = rng.standard_normal((n, 1)).astype(np.float32)
+    return DataBundle(x, y, x[:256], y[:256], n, D, 1)
 
 
 def synthetic_bundle(DataBundle, D, nc, n=4096, seed=0):
@@ -236,7 +327,8 @@ def synthetic_bundle(DataBundle, D, nc, n=4096, seed=0):
 
 
 # Engines at the edges of supports(): the widest layer of the JAX gate at
-# S = 10, S·width = 2048 with S = 32 and M + B = 2048, and L = 8 dense layers.
+# S = 10, S·width = 2048 with S = 32 and M + B = 2048, and L = 8 dense layers;
+# for each head (nc = 1 is the Gaussian one, the regressors).
 CAPS = [
     ("fn 64-100-10 psvi M=30", 64, 10,
      dict(method="psvi", architecture="fn", n_hidden=100, num_pseudo=30, mc_samples=10,
@@ -247,16 +339,26 @@ CAPS = [
     ("fn 2-(40x7)-4 psvi_learn_v L=8 M=48", 2, 4,
      dict(method="psvi_learn_v", architecture="fn", n_hidden=40, n_layers=7, num_pseudo=48,
           mc_samples=10, data_minibatch=128)),
+    ("regressor 64-100-1 psvi_learn_v_regressor M=30", 64, 1,
+     dict(method="psvi_learn_v_regressor", architecture="regressor_net", n_hidden=100,
+          num_pseudo=30, mc_samples=10, data_minibatch=128, tau=0.1)),
+    ("regressor 1-64-1 psvi_alpha_v_regressor S=32 M=48 B=2000", 1, 1,
+     dict(method="psvi_alpha_v_regressor", architecture="regressor_net", n_hidden=64,
+          num_pseudo=48, mc_samples=32, data_minibatch=2000, tau=1.0)),
+    ("regressor 1-(40x7)-1 psvi_regressor L=8 M=48", 1, 1,
+     dict(method="psvi_regressor", architecture="regressor_net", n_hidden=40, n_layers=7,
+          num_pseudo=48, mc_samples=10, data_minibatch=128, tau=0.1)),
 ]
 
 
-def check_caps(FN, PSVI, DataBundle, chk, dev):
+def check_caps(FN, make_psvi_engine, DataBundle, chk, dev):
     """At each edge of supports(): the engine admits the config, and the
     composed CUDA step agrees with the plain version run in float64 (the
     judge of both fp32 versions) within the tolerances above."""
     for seed, (name, D, nc, kw) in enumerate(CAPS):
-        data = synthetic_bundle(DataBundle, D, nc, seed=seed)
-        eng = PSVI(data, inner_it=10, init_sd=1e-3, seed=seed, **kw)
+        data = (regression_bundle(DataBundle, D, seed=seed) if nc == 1
+                else synthetic_bundle(DataBundle, D, nc, seed=seed))
+        eng = make_psvi_engine(data, inner_it=10, init_sd=1e-3, seed=seed, **kw)
         if not FN.supports(eng):
             raise AssertionError(f"supports() refuses the cap config {name}")
         cfg = eng._fused_cfg(eng.data_minibatch)
@@ -265,15 +367,16 @@ def check_caps(FN, PSVI, DataBundle, chk, dev):
                                                  torch.float64), "torch")
         torch.cuda.synchronize()
         emit({"phase": "caps", "config": name, "widths": list(cfg.widths), "S": cfg.S,
-              "M": cfg.M, "B": cfg.B, "vs_float64": compare_steps(chk, "caps", cfg, k, r)})
+              "M": cfg.M, "B": cfg.B, "likelihood": cfg.likelihood,
+              "vs_float64": compare_steps(chk, "caps", cfg, k, r)})
 
 
-def run_engine(mods, PSVI, data, expected, **kw):
+def run_engine(mods, make_psvi_engine, data, expected, **kw):
     """One run_psvi through the user's entry point, with the launch counters
     of every kernel module (``mods``) set to 0 just before and read just
     after; each kernel must have launched ``expected[name]`` times. Returns
     (engine, results, launch counts, seconds)."""
-    eng = PSVI(data, **kw)
+    eng = make_psvi_engine(data, **kw)
     losses = []
     step = eng._step
 
@@ -317,9 +420,31 @@ def median_ms(fn, reps=60, warmup=5):
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
+def dense_calls(FN, cfg, a):
+    """Each dense kernel and its plain version on the inputs ``a``, each fed
+    the plain versions' upstream outputs, ready to time."""
+    p0, u, z, xb, yb, v, al, e_in, e_out, lr = (a[k] for k in (
+        "p0", "u", "z", "xb", "yb", "v", "alpha", "e_in", "e_out", "lr"))
+    _, h, cw = FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)
+    pT = h[cfg.T, 0].contiguous()
+    bars = [x.contiguous() for x in FN.nested_outer_torch(pT, u, z, cw, xb, yb, e_out, cfg)[1:]]
+    rev = (h, *bars, u, z, cw, v, al, e_in, lr, cfg)
+    return {
+        "nested_fwd": (lambda: FN._nested_fwd_cuda(p0, u, z, v, al, e_in, lr, cfg),
+                       lambda: FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)),
+        "nested_outer": (lambda: FN._nested_outer_cuda(pT, u, z, cw, xb, yb, e_out, cfg),
+                         lambda: FN.nested_outer_torch(pT, u, z, cw, xb, yb, e_out, cfg)),
+        "nested_rev": (lambda: FN._nested_rev_cuda(*rev), lambda: FN.nested_rev_torch(*rev)),
+    }
+
+
 def work(cfg):
     """Bytes each kernel must move (inputs once, outputs once) and the fp32
-    operations it must do at this config (multiply-adds count 2)."""
+    operations it must do at this config (multiply-adds count 2). The head
+    counts 8 operations an output for either likelihood; the Gaussian head
+    adds the z̄ sums over samples (S·M adds in the outer step and in each
+    reverse iteration). Every call reads and writes its (M,) z̄ rows: the
+    categorical head's are zeros."""
     S, T, M, B, P, E = cfg.S, cfg.T, cfg.M, cfg.B, cfg.n_params, cfg.n_eps
     D, nc = cfg.D, cfg.nc
     dims = cfg.layer_dims()
@@ -327,23 +452,24 @@ def work(cfg):
     U = sum(o for _, o in dims)
     Wbp = sum(o * i for i, o in dims[1:])
     elem = 12 * S * (W + U)  # sampling, the ε-weighted sums, Adam, KL/NKL
+    zsum = S * M if cfg.gaussian else 0
 
     def step_ops(NP):  # forward, head, backprop, per-parameter sums
         return 2 * S * NP * (W + Wbp + W + U) + 8 * S * NP * nc + elem
 
     ops = {
         "nested_fwd": T * step_ops(M),
-        "nested_outer": step_ops(M + B) + 2 * S * M * D * dims[0][1],
-        # recompute + tangent forward, tangent backprop, tangent sums, ū
+        "nested_outer": step_ops(M + B) + 2 * S * M * D * dims[0][1] + zsum,
+        # recompute + tangent forward, tangent backprop, tangent sums, ū, z̄
         "nested_rev": T * (step_ops(M) + 4 * S * M * W + 4 * S * M * Wbp
-                           + 4 * S * M * (W + U) + 4 * S * M * D * dims[0][1]),
+                           + 4 * S * M * (W + U) + 4 * S * M * D * dims[0][1] + zsum),
     }
     f = 4
     byts = {
         "nested_fwd": f * (P + M * D + 2 * M + 1 + T * E) + f * (T + (T + 1) * 3 * P + M),
-        "nested_outer": f * (P + M * D + 2 * M + B * D + B + E) + f * (1 + P + M * D + M),
-        "nested_rev": f * ((T + 1) * 3 * P + P + 2 * M * D + 4 * M + 1 + T * E)
-                      + f * (M * D + M + 1),
+        "nested_outer": f * (P + M * D + 2 * M + B * D + B + E) + f * (1 + P + M * D + 2 * M),
+        "nested_rev": f * ((T + 1) * 3 * P + P + 2 * M * D + 5 * M + 1 + T * E)
+                      + f * (M * D + 2 * M + 1),
     }
     return ops, byts
 
@@ -544,8 +670,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import psvi_torch  # noqa: F401  (fails outside a checkout)
-    from psvi_torch.data import DataBundle, read_dataset
-    from psvi_torch.inference.psvi import PSVI
+    from psvi_torch.data import DataBundle, read_dataset, read_regression_dataset
+    from psvi_torch.inference.psvi import PSVI, make_psvi_engine
     from psvi_torch.ops import _build
     from psvi_torch.ops import fused_lenet as FL
     from psvi_torch.ops import fused_nested as FN
@@ -570,7 +696,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions on the card
     halfmoon, blobs = read_dataset("halfmoon"), read_dataset("four_blobs")
-    mnist = read_dataset("synth_mnist")
+    mnist, sinus = read_dataset("synth_mnist"), read_regression_dataset("sinus")
     chk = Checker()
     configs = [
         ("halfmoon_logreg_M30", halfmoon, [2, 2], 30, True, False),
@@ -580,7 +706,21 @@ def main() -> int:
     for seed, (name, data, widths, M, par, ua) in enumerate(configs):
         cfg = main_cfg(FN, data, widths, M, par, ua)
         check_kernels(FN, chk, name, cfg, kernel_inputs(FN, cfg, data.x, data.y, seed, dev))
-    check_caps(FN, PSVI, DataBundle, chk, dev)
+    # the Gaussian head on sinus (N = 800, B = 64): the regression main path,
+    # two hidden layers with α, and f(v) = v with hypers (u, z) only
+    reg_configs = [  # name, widths, parameterised, use_alpha, tau, inner lr
+        ("sinus 1-40-1 psvi_learn_v_regressor M=10 tau=0.1", [1, 40, 1], True, False, 0.1, 1e-3),
+        ("sinus 1-40-40-1 psvi_alpha_v_regressor M=10 tau=1", [1, 40, 40, 1], True, True, 1.0,
+         1e-2),
+        ("sinus 1-40-1 psvi_regressor M=10 tau=0.1", [1, 40, 1], False, False, 0.1, 1e-2),
+    ]
+    for seed, (name, widths, par, ua, tau, lr) in enumerate(reg_configs):
+        cfg = main_cfg(FN, sinus, widths, 10, par, ua, B=64, tau=tau)
+        a = kernel_inputs(FN, cfg, sinus.x, sinus.y, seed, dev, lr=lr)
+        check_kernels(FN, chk, name, cfg, a)
+        if seed == 0:
+            centring_effect(FN, cfg, a)
+    check_caps(FN, make_psvi_engine, DataBundle, chk, dev)
     lenet_configs = [  # name, S, M, T, parameterised, use_alpha, composed check
         ("psvi_learn_v S=10 M=100 T=20", 10, 100, 20, True, False, False),
         ("psvi_alpha_v S=4 M=16 T=5", 4, 16, 5, True, True, True),
@@ -593,12 +733,15 @@ def main() -> int:
 
     # 4. the main paths, through the user's entry point
     mods = (FN, FL)
-    dense_only = {"nested_fwd": 101, "nested_outer": 101, "nested_rev": 101,
-                  "lenet_fwd": 0, "lenet_rev": 0}
+
+    def only(**n):  # expected launches: n of the named kernels, none of the rest
+        return {k: n.get(k, 0) for mod in mods for k in mod.LAUNCHES}
+
+    dense_only = only(nested_fwd=101, nested_outer=101, nested_rev=101)
     main_kw = dict(method="psvi_learn_v", num_pseudo=48, mc_samples=10, architecture="fn",
                    n_hidden=40, n_layers=1, inner_it=10, data_minibatch=128, init_sd=1e-3,
                    num_epochs=101, log_every=50, seed=0, fused_inner="auto")
-    eng, res, launches, secs = run_engine(mods, PSVI, blobs, dense_only, **main_kw)
+    eng, res, launches, secs = run_engine(mods, make_psvi_engine, blobs, dense_only, **main_kw)
     acc = res["accs"][-1]
     emit({"phase": "engine", "config": "four_blobs fn 2-40-4 psvi_learn_v M=48", "accs": res["accs"],
           "nlls": res["nlls"], "launches": launches, "seconds": secs,
@@ -606,20 +749,38 @@ def main() -> int:
     if not acc >= 0.90:
         raise AssertionError(f"four_blobs fn final accuracy {acc} < 0.90")
     _, res_h, launches_h, secs_h = run_engine(
-        mods, PSVI, halfmoon, dense_only, method="psvi_learn_v", num_pseudo=30, mc_samples=10,
-        architecture="logistic_regression", inner_it=10, data_minibatch=128, init_sd=1e-3,
-        num_epochs=101, log_every=50, seed=0)
+        mods, make_psvi_engine, halfmoon, dense_only, method="psvi_learn_v", num_pseudo=30,
+        mc_samples=10, architecture="logistic_regression", inner_it=10, data_minibatch=128,
+        init_sd=1e-3, num_epochs=101, log_every=50, seed=0)
     acc_h = res_h["accs"][-1]
     emit({"phase": "engine", "config": "halfmoon logreg psvi_learn_v M=30", "accs": res_h["accs"],
           "nlls": res_h["nlls"], "launches": launches_h, "seconds": secs_h})
     if not abs(acc_h - 0.797) <= 0.09:
         raise AssertionError(f"halfmoon logreg final accuracy {acc_h} outside 0.797 ± 0.09")
+    # the regression main path: the run_psvi call of the regressor parity
+    # study (sinus, regressor_net 1-40-1, 101 steps)
+    reg_kw = dict(method="psvi_learn_v_regressor", architecture="regressor_net", n_hidden=40,
+                  n_layers=1, num_pseudo=10, mc_samples=10, inner_it=10, data_minibatch=64,
+                  tau=0.1, init_sd=1e-3, lr0u=1e-2, lr0v=1e-2, lr0z=1e-2, num_epochs=101,
+                  log_every=25, seed=0)
+    reg_only = only(nested_fwd_gaussian=101, nested_outer_gaussian=101,
+                    nested_rev_gaussian=101)
+    eng_r, res_r, launches_r, secs_r = run_engine(mods, make_psvi_engine, sinus, reg_only,
+                                                  **reg_kw)
+    rmse = res_r["rmses"][-1]
+    emit({"phase": "engine", "config": "sinus regressor_net 1-40-1 psvi_learn_v_regressor M=10 "
+          "S=10 T=10 B=64 tau=0.1", "rmses": res_r["rmses"], "lls": res_r["lls"],
+          "launches": launches_r, "seconds": secs_r, "step_path": eng_r.step_path})
+    if not all(math.isfinite(x) for x in res_r["rmses"] + res_r["lls"]):
+        raise AssertionError("non-finite RMSE or LL on the regression path")
+    if not rmse <= 0.30:
+        raise AssertionError(f"sinus regressor final test RMSE {rmse} > 0.30")
     lenet_kw = dict(method="psvi_learn_v", architecture="lenet", num_pseudo=100, mc_samples=10,
                     inner_it=20, data_minibatch=256, init_sd=1e-3, num_epochs=31, log_every=10,
                     seed=0, fused_inner="auto")
-    lenet_only = {"nested_fwd": 0, "nested_outer": 0, "nested_rev": 0,
-                  "lenet_fwd": 31, "lenet_rev": 31}
-    eng_l, res_l, launches_l, secs_l = run_engine(mods, PSVI, mnist, lenet_only, **lenet_kw)
+    lenet_only = only(lenet_fwd=31, lenet_rev=31)
+    eng_l, res_l, launches_l, secs_l = run_engine(mods, make_psvi_engine, mnist, lenet_only,
+                                                  **lenet_kw)
     acc_l = res_l["accs"][-1]
     emit({"phase": "engine", "config": "synth_mnist lenet psvi_learn_v M=100 S=10 T=20 B=256",
           "accs": res_l["accs"], "nlls": res_l["nlls"], "launches": launches_l,
@@ -627,26 +788,10 @@ def main() -> int:
     if not acc_l >= 0.99:
         raise AssertionError(f"synth_mnist LeNet final accuracy {acc_l} < 0.99")
 
-    # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; LeNet flagship)
+    # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; sinus
+    # regressor 1-40-1, M=10, B=64; LeNet flagship)
     cfg = main_cfg(FN, blobs, [2, 40, 4], 48, True, False)
-    a = kernel_inputs(FN, cfg, blobs.x, blobs.y, 1, dev)
-    p0, u, z, xb, yb, v, al, e_in, e_out, lr = (a[k] for k in (
-        "p0", "u", "z", "xb", "yb", "v", "alpha", "e_in", "e_out", "lr"))
-    _, h, cw = FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)
-    pT = h[cfg.T, 0].contiguous()
-    _, pbar, ubar, cwbar = FN.nested_outer_torch(pT, u, z, cw, xb, yb, e_out, cfg)
-    pbar, ubar, cwbar = pbar.contiguous(), ubar.contiguous(), cwbar.contiguous()
-    calls = {
-        "nested_fwd": (lambda: FN._nested_fwd_cuda(p0, u, z, v, al, e_in, lr, cfg),
-                       lambda: FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)),
-        "nested_outer": (lambda: FN._nested_outer_cuda(pT, u, z, cw, xb, yb, e_out, cfg),
-                         lambda: FN.nested_outer_torch(pT, u, z, cw, xb, yb, e_out, cfg)),
-        "nested_rev": (lambda: FN._nested_rev_cuda(h, pbar, ubar, cwbar, u, z, cw, v, al,
-                                                   e_in, lr, cfg),
-                       lambda: FN.nested_rev_torch(h, pbar, ubar, cwbar, u, z, cw, v, al,
-                                                   e_in, lr, cfg)),
-    }
-    ops, byts = work(cfg)
+    rcfg = main_cfg(FN, sinus, [1, 40, 1], 10, True, False, B=64, tau=0.1)
     lcfg = lenet_cfg(FL, mnist, 10, 100, 20, True, False)
     la = lenet_inputs(FL, lcfg, mnist, 7, dev)
     _, lh, _ = FL.lenet_fwd_torch(la["p0"], la["u"], la["z"], la["v"], la["alpha"], la["e_in"],
@@ -660,18 +805,26 @@ def main() -> int:
     }
     lops, lbyts = lenet_work(lcfg)
     with torch.no_grad():
-        kernels = [timed_kernel(name, kern, plain, ops[name], byts[name], launches, chk, SOURCE,
-                                TPU_KERNEL, 60)
-                   for name, (kern, plain) in calls.items()]
+        kernels = []
+        for c, data, runs in ((cfg, blobs, launches), (rcfg, sinus, launches_r)):
+            ops, byts = work(c)
+            kernels += [timed_kernel(branch(c, name), kern, plain, ops[name], byts[name], runs,
+                                     chk, SOURCE, TPU_KERNEL, 60)
+                        for name, (kern, plain) in dense_calls(
+                            FN, c, kernel_inputs(FN, c, data.x, data.y, 1, dev)).items()]
         kernels += [timed_kernel(name, kern, plain, lops[name], lbyts[name], launches_l, chk,
                                  LENET_SOURCE, LENET_REPLACES[name], 10)
                     for name, (kern, plain) in lcalls.items()]
     # whole engine steps on the same card: fused kernels vs plain autograd
-    batch = eng._sample_batch()
-    eng_plain = PSVI(blobs, **{**main_kw, "fused_inner": False})
-    st_f, st_p = eng.state, eng_plain.state
-    step_fused_ms = median_ms(lambda: eng._nested_step_fused(st_f, batch), reps=50)
-    step_plain_ms = median_ms(lambda: eng_plain._nested_step(st_p, batch), reps=50)
+    steps = {}
+    for key, e, data, kw in (("nested", eng, blobs, main_kw), ("regressor", eng_r, sinus, reg_kw)):
+        batch = e._sample_batch()
+        e_plain = make_psvi_engine(data, **{**kw, "fused_inner": False})
+        st_f, st_p = e.state, e_plain.state
+        steps[f"{key}_step_fused_ms"] = median_ms(lambda: e._nested_step_fused(st_f, batch),
+                                                  reps=50)
+        steps[f"{key}_step_plain_autograd_ms"] = median_ms(
+            lambda: e_plain._nested_step(st_p, batch), reps=50)
     batch_l = eng_l._sample_batch()
     eng_lp = PSVI(mnist, **{**lenet_kw, "fused_inner": False})
     st_lf, st_lp = eng_l.state, eng_lp.state
@@ -680,12 +833,12 @@ def main() -> int:
     lenet_plain_ms = median_ms(lambda: eng_lp._nested_step(st_lp, batch_l), reps=3, warmup=1)
     emit({"phase": "times", "card": card,
           "config": {"dense": "four_blobs fn 2-40-4 M=48 S=10 T=10 B=128",
+                     "regressor": "sinus regressor_net 1-40-1 M=10 S=10 T=10 B=64 tau=0.1",
                      "lenet": "synth_mnist LeNet M=100 S=10 T=20 B=256"},
           "kernel_ms": {k["name"]: k["ms"] for k in kernels},
           "plain_ms": {k["name"]: k["plain_ms"] for k in kernels},
           "bound_ms": {k["name"]: k["bound_ms"] for k in kernels},
-          "nested_step_fused_ms": step_fused_ms, "nested_step_plain_autograd_ms": step_plain_ms,
-          "lenet_step_fused_ms": lenet_fused_ms,
+          **steps, "lenet_step_fused_ms": lenet_fused_ms,
           "lenet_step_plain_autograd_ms": lenet_plain_ms})
     # where the LeNet time goes, by kernel (torch.profiler)
     with torch.no_grad():

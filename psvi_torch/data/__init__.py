@@ -1,4 +1,4 @@
-from psvi_torch.data.datasets import DataBundle, read_dataset
+from psvi_torch.data.datasets import DataBundle, read_dataset, read_regression_dataset
 from psvi_torch.data import synthetic
 
-__all__ = ["read_dataset", "DataBundle", "synthetic"]
+__all__ = ["read_dataset", "read_regression_dataset", "DataBundle", "synthetic"]

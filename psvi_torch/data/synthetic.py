@@ -1,8 +1,9 @@
 """Synthetic dataset generators (host-side NumPy).
 
 The port's own copies of ``psvi_tpu/data/synthetic.py``'s generators for
-the datasets of the dense and LeNet slices (``make_synth_images`` makes
-synth_mnist). ``make_halfmoon`` reproduces
+the datasets of the dense, LeNet and regression slices
+(``make_synth_images`` makes synth_mnist, ``make_sinus`` the sinus
+regression set). ``make_halfmoon`` reproduces
 ``sklearn.datasets.make_moons`` bit for bit without scikit-learn: the same
 ``RandomState`` generator, half-circles, index shuffle and additive noise,
 in the same order.
@@ -71,6 +72,14 @@ def make_moons(n_samples: int = 100, noise: float = 0.0, random_state: int = 0):
 def make_halfmoon(n_samples: int = 1000, noise: float = 0.1, random_state: int = 42):
     X, Y = make_moons(n_samples=n_samples, noise=noise, random_state=random_state)
     return X.astype(np.float32), Y.astype(np.float32)
+
+
+def make_sinus(n: int = 1000, rng=None):
+    """x ~ U(0, 2π), y = sin x, as (n, 1) float32 columns."""
+    rng = rng or np.random.default_rng(111)
+    X = rng.random(n) * 2 * np.pi
+    Y = np.sin(X)
+    return X[:, None].astype(np.float32), Y[:, None].astype(np.float32)
 
 
 def make_synth_images(n_per_class: int = 600, n_test_per_class: int = 100, nc: int = 10,

@@ -2,13 +2,14 @@
 
 Counterpart of ``psvi_tpu/inference/psvi.py`` for the nested (bilevel)
 trainer on the dense mean-field nets (logistic regression and the ``fn``
-MLP) and on LeNet, with the categorical likelihood:
+MLP) and on LeNet with the categorical likelihood, and on the regression
+MLP with the Gaussian likelihood and learned targets (``PSVIRegressor``):
 
 - ``PSVIState`` — parameters, pseudodata (u, z), weights v, α and the
   Adam states of the hyperparameters;
 - ``_nested_step`` — the plain path: T differentiable inner Adam steps
   through ``torch.autograd`` (``create_graph=True``), the outer IW-ELBO,
-  and its gradient w.r.t. (u, v, α) through the unroll (ref
+  and its gradient w.r.t. (u, v, z, α) through the unroll (ref
   ``nested_step`` :541-600);
 - ``_nested_step_fused`` — the same step through the fused kernels of
   ``ops/fused_nested.py`` (hand-written CUDA on the card);
@@ -16,15 +17,18 @@ MLP) and on LeNet, with the categorical likelihood:
   through the kernel pair of ``ops/fused_lenet.py`` and the outer IW-ELBO
   through autograd;
 - ``_evaluate_fn`` and the ``run_psvi`` loop with the reference's
-  results-dict keys.
+  results-dict keys;
+- ``PSVIRegressor`` — the Gaussian likelihood at precision ``tau``, the
+  pseudo-targets z learned with the other hyperparameters, RMSE and
+  predictive-LL evaluation.
 
 Noise, batches and initial parameters come from one ``torch.Generator``
 per engine on its device, seeded from ``seed`` (the JAX engine's
 ``trial_key``). The pseudodata init is host-side NumPy and draws the same
 points as the JAX engine for the same seed.
 
-The nested steps accept an injected batch and injected noise; the tests
-use that seam to line the port up with JAX.
+The nested steps and the regressor's evaluation accept injected batches
+and noise; the tests use that seam to line the port up with JAX.
 """
 
 from __future__ import annotations
@@ -51,11 +55,12 @@ from psvi_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 class PSVIState(NamedTuple):
     params: Any  # tuple over net.layers of parameter dicts
     u: torch.Tensor  # pseudo-inputs (M, D), or (M, C, H, W) for images
-    z: torch.Tensor  # pseudo-labels (M,), float
+    z: torch.Tensor  # pseudo-labels or regression pseudo-targets (M,), float
     v: torch.Tensor  # raw log-likelihood weights (M,)
     alpha: torch.Tensor  # global evidence rescaler (1,)
     opt_u: Any
     opt_v: Any
+    opt_z: Any
     opt_alpha: Any
     net_step: int  # StepLR counter
 
@@ -64,11 +69,15 @@ def _count_pad(n, b):
     return (b - n % b) % b
 
 
-def _check_spec(method: str, spec: MethodSpec):
+def _check_spec(method: str, spec: MethodSpec, likelihood: str):
+    """Refuse what the port does not run yet. Learned targets are ported
+    for the Gaussian likelihood only; the categorical soft labels (KLDiv)
+    are not."""
     unported = {
         "ablated": spec.ablated, "single_sample_train": spec.single_sample_train,
-        "evaluate_only": spec.evaluate_only, "learn_z": spec.learn_z,
-        "regressor": spec.regressor,
+        "evaluate_only": spec.evaluate_only,
+        "learn_z with the categorical likelihood": (spec.learn_z
+                                                     and likelihood == "categorical"),
     }
     bad = [k for k, on in unported.items() if on]
     if bad:
@@ -113,12 +122,14 @@ class PSVI:
         lr0net: float = 1e-3,
         lr0u: float = 1e-4,
         lr0v: float = 1e-3,
+        lr0z: float = 1e-3,
         lr0alpha: float = 1e-3,
         gamma: float = 1.0,
         num_epochs: int = 100,
         log_every: int = 10,
         init_args: str = "subsample",
         compute_weights_entropy: bool = True,
+        tau: float = 0.1,
         fused_inner="auto",
         device=None,
         **unported,
@@ -137,7 +148,7 @@ class PSVI:
         self.data = data
         self.method = method
         self.spec = METHOD_SPECS[method]
-        _check_spec(method, self.spec)
+        _check_spec(method, self.spec, self.likelihood)
         self.seed = seed
         self.N, self.D, self.nc = data.N, data.D, data.nc
         self.num_pseudo = num_pseudo
@@ -146,12 +157,13 @@ class PSVI:
         self.n_hidden, self.n_layers, self.init_sd = n_hidden, n_layers, init_sd
         self.inner_it = inner_it
         self.trainer = trainer
-        self.lrs = dict(net=lr0net, u=lr0u, v=lr0v, alpha=lr0alpha)
+        self.lrs = dict(net=lr0net, u=lr0u, v=lr0v, z=lr0z, alpha=lr0alpha)
         self.gamma = gamma
         self.num_epochs = num_epochs
         self.log_every = log_every
         self.init_args = init_args
         self.compute_weights_entropy = compute_weights_entropy
+        self.tau = tau
         self.fused_inner = fused_inner
         self.elbos: list = []
         self.results: dict = {}
@@ -232,6 +244,7 @@ class PSVI:
         alpha = torch.zeros(1, device=self.device)
         self.opt_u = O.adam(self.lrs["u"])
         self.opt_v = O.adam(self.lrs["v"])
+        self.opt_z = O.adam(self.lrs["z"])
         self.opt_alpha = O.adam(self.lrs["alpha"])
         self.inner_opt = O.adam(self.lrs["net"])
         # StepLR schedule for the net lr (ref :803-807,864-866)
@@ -240,7 +253,7 @@ class PSVI:
             self.lrs["net"], epoch_quarter if epoch_quarter > 0 else 10000, self.gamma)
         self.state = PSVIState(
             params=params, u=u, z=z, v=v, alpha=alpha,
-            opt_u=self.opt_u.init(u), opt_v=self.opt_v.init(v),
+            opt_u=self.opt_u.init(u), opt_v=self.opt_v.init(v), opt_z=self.opt_z.init(z),
             opt_alpha=self.opt_alpha.init(alpha), net_step=0,
         )
 
@@ -250,11 +263,13 @@ class PSVI:
 
     def _inner_loss(self, params, eps, u, z, v, alpha):
         cw, _ = self._core_weights(v, alpha)
-        return E.inner_elbo(self.net, params, eps, u, z, cw, nc=self.nc)
+        return E.inner_elbo(self.net, params, eps, u, z, cw, likelihood=self.likelihood,
+                            nc=self.nc, tau=self.tau)
 
     def _outer_loss(self, params, eps, u, z, v, alpha, xb, yb):
         cw, _ = self._core_weights(v, alpha)
-        return E.psvi_elbo(self.net, params, eps, u, z, cw, xb, yb, self.N, nc=self.nc)
+        return E.psvi_elbo(self.net, params, eps, u, z, cw, xb, yb, self.N,
+                           likelihood=self.likelihood, nc=self.nc, tau=self.tau)
 
     def _sample_eps(self, S):
         return self.net.sample_eps(self.gen, S)
@@ -291,23 +306,27 @@ class PSVI:
             names.append("u")
         if self.spec.learn_v:
             names.append("v")
+        if self.spec.learn_z:
+            names.append("z")
         if self.spec.learn_alpha:
             names.append("alpha")
         return names
 
     def _apply_hyper_updates(self, state: PSVIState, grads):
-        u, v, alpha = state.u, state.v, state.alpha
-        opt_u, opt_v, opt_alpha = state.opt_u, state.opt_v, state.opt_alpha
+        u, v, z, alpha = state.u, state.v, state.z, state.alpha
+        opt_u, opt_v, opt_z, opt_alpha = state.opt_u, state.opt_v, state.opt_z, state.opt_alpha
         if "u" in grads:
             u, opt_u = self.opt_u.step(u, grads["u"], opt_u)
         if "v" in grads:
             v, opt_v = self.opt_v.step(v, grads["v"], opt_v)
             if not self.spec.parameterised:
                 v = O.clip_nonnegative(v)  # clamp (ref :585-591)
+        if "z" in grads:
+            z, opt_z = self.opt_z.step(z, grads["z"], opt_z)
         if "alpha" in grads:
             alpha, opt_alpha = self.opt_alpha.step(alpha, grads["alpha"], opt_alpha)
-        return state._replace(u=u, v=v, alpha=alpha, opt_u=opt_u, opt_v=opt_v,
-                              opt_alpha=opt_alpha)
+        return state._replace(u=u, v=v, z=z, alpha=alpha, opt_u=opt_u, opt_v=opt_v,
+                              opt_z=opt_z, opt_alpha=opt_alpha)
 
     def _nested_step(self, state: PSVIState, batch=None, eps=None):
         """Bilevel step through torch.autograd: differentiate the outer
@@ -325,13 +344,14 @@ class PSVI:
             hyper = {k: getattr(state, k).detach().clone().requires_grad_(True) for k in names}
             u = hyper.get("u", state.u)
             v = hyper.get("v", state.v)
+            z = hyper.get("z", state.z)
             alpha = hyper.get("alpha", state.alpha)
             params0 = tree_map(lambda x: x.detach().requires_grad_(True), state.params)
             # patch-extract u once, outside the inner loop (a no-op for
             # dense nets; layers.PrePatched)
-            paramsT, inner_losses = self._run_inner(params0, self.net.prep_input(u), state.z,
+            paramsT, inner_losses = self._run_inner(params0, self.net.prep_input(u), z,
                                                     v, alpha, lr_now, eps_inner)
-            loss = self._outer_loss(paramsT, eps_outer, u, state.z, v, alpha, xb, yb)
+            loss = self._outer_loss(paramsT, eps_outer, u, z, v, alpha, xb, yb)
             grads = dict(zip(names, torch.autograd.grad(loss, list(hyper.values())))) if names else {}
         state = self._apply_hyper_updates(state, grads)
         state = state._replace(params=tree_map(lambda x: x.detach(), paramsT),
@@ -350,14 +370,20 @@ class PSVI:
             parameterised=self.spec.parameterised,
             use_alpha=self.spec.learn_alpha or self.spec.alpha_fixed,
             prior_sd=float(dense[0].prior_sd),
+            likelihood=self.likelihood, tau=float(self.tau),
+            learn_z=bool(self.spec.learn_z and self.likelihood == "gaussian"),
         )
 
     def _nested_step_fused(self, state: PSVIState, batch=None, eps=None):
         """The nested step through the fused kernels: the CUDA kernels on
         the card, their plain versions on the CPU. The noise is drawn in
         the kernels' flat layout in one call per step; injected noise
-        (``eps`` as for ``_nested_step``) is packed into it."""
+        (``eps`` as for ``_nested_step``) is packed into it. The targets
+        are class labels, or for a Gaussian likelihood the real pseudo- and
+        batch targets as flat (M,) and (B,) rows."""
         xb, yb = batch if batch is not None else self._sample_batch()
+        if self.likelihood == "gaussian":
+            yb = yb.reshape(-1)
         didx = self._fused_dense_idx()
         cfg = self._fused_cfg(xb.shape[0])
         if eps is None:
@@ -369,9 +395,9 @@ class PSVI:
             e_out = FN.pack_eps([eps_outer[i] for i in didx])
         p0 = FN.pack_params([state.params[i] for i in didx])
         lr_now = self.lr_net_sched(state.net_step)
-        loss, inner_losses, pT, g_u, g_v, g_a = FN.fused_nested_flat(
+        loss, inner_losses, pT, g_u, g_v, g_a, g_z = FN.fused_nested_flat(
             p0, state.u, state.v, state.alpha, state.z, xb, yb, e_in, e_out, lr_now, cfg)
-        all_grads = {"u": g_u, "v": g_v, "alpha": g_a}
+        all_grads = {"u": g_u, "v": g_v, "z": g_z, "alpha": g_a}
         grads = {k: all_grads[k] for k in self._hyper_names()}
         state = self._apply_hyper_updates(state, grads)
         params = list(state.params)
@@ -512,13 +538,78 @@ class PSVI:
         return self.results
 
 
+class PSVIRegressor(PSVI):
+    """Regression PSVI (JAX ``PSVIRegressor``; ref ``PSVI_regressor`` and
+    subclasses, ``psvi_classes.py:1940-2335``): Gaussian likelihood with
+    precision ``tau``, pseudodata initialised as a random subsample of (x,
+    y) pairs, the pseudo-targets z learned with u and v, and RMSE /
+    predictive-LL evaluation with de-normalised targets."""
+
+    likelihood = "gaussian"
+
+    def _init_pseudodata(self):
+        """A random subsample of (x, y) pairs (ref :2019-2031), the same
+        draws as the JAX engine for the same seed."""
+        rng = np.random.default_rng(self.seed)
+        idx = torch.as_tensor(rng.choice(self.x_train.shape[0], size=self.num_pseudo,
+                                         replace=False), device=self.device)
+        return self.x_train[idx], self.y_train[idx].reshape(-1)
+
+    @torch.no_grad()
+    def _evaluate_fn(self, state: PSVIState, correction: bool = True, eps=None):
+        """RMSE and predictive LL with de-normalised targets, from one noise
+        draw over u and the whole test set, and the IW diagnostics (ref
+        :2221-2264). ``eps`` injects that draw."""
+        y_mean, y_std = self.data.y_mean, self.data.y_std
+        cw, fv = self._core_weights(state.v, state.alpha)
+        if eps is None:
+            eps = self._sample_eps(self.mc_samples)
+        out = self.net.apply(state.params, eps, torch.cat([state.u, self.x_test])).squeeze(-1)
+        M = state.u.shape[0]
+        lw = E.importance_log_weights(self.net, state.params, eps, state.u, state.z, cw,
+                                      likelihood="gaussian", nc=self.nc, tau=self.tau,
+                                      pseudo_out=out[:, :M])
+        weights = torch.softmax(lw, dim=0)
+        test_out = out[:, M:] * y_std + y_mean  # revert_norm (ref :2226-2227)
+        y_pred = torch.einsum("sn,s->n", test_out, weights)
+        yt = self.y_test.reshape(-1)
+        rmse = torch.sqrt(torch.mean(torch.square(y_pred - yt)))
+        scale = 1.0 / torch.sqrt(torch.tensor(self.tau, dtype=torch.float32))
+        ll = torch.mean(-0.5 * torch.square((yt - y_pred) / scale) - torch.log(scale)
+                        - E.HALF_LOG_2PI)
+        iw_ent, ness, vent = E.iw_diagnostics(weights, fv, self.num_pseudo)
+        return rmse, ll, iw_ent, ness, vent
+
+    def run_psvi(self) -> dict:
+        """Train for ``num_epochs`` outer steps, evaluating every
+        ``log_every``; returns the JAX regressor's results dict
+        (``psvi.py:1895-1919``). ``vs`` holds f(v), not the raw v."""
+        lls, rmses, csizes, vs, times = [], [], [], [], [0.0]
+        if self.spec.learn_alpha:
+            self.results.setdefault("alpha", [])
+        t_start = time.time()
+        for it in range(self.num_epochs):
+            if it % self.log_every == 0:
+                rmse, ll, *_ = self._evaluate_fn(self.state)
+                rmses.append(float(rmse))
+                lls.append(float(ll))
+                csizes.append(self.num_pseudo)
+                times.append(times[-1] + time.time() - t_start)
+                _, fv = self._core_weights(self.state.v, self.state.alpha)
+                vs.append(fv.cpu().numpy())
+                if self.spec.learn_alpha:
+                    self.results["alpha"].append(self.state.alpha.cpu().numpy())
+            self.state, _ = self._step(self.state)
+        self.results.update(rmses=rmses, lls=lls, csizes=csizes, times=times[1:], vs=vs,
+                            went=[], ness=[], vent=[])
+        return self.results
+
+
 def make_psvi_engine(data: DataBundle, method: str = "psvi_learn_v", **kwargs):
-    """Build the engine for ``method`` (the regressor family is not ported yet)."""
-    spec = METHOD_SPECS[method]
-    if spec.regressor:
-        raise NotImplementedError(
-            "PSVIRegressor is not ported yet (ROADMAP.md, queue A item 7)")
-    return PSVI(data, method=method, **kwargs)
+    """Build the engine class for ``method``: ``PSVIRegressor`` for the
+    regressor family, ``PSVI`` otherwise."""
+    cls = PSVIRegressor if METHOD_SPECS[method].regressor else PSVI
+    return cls(data, method=method, **kwargs)
 
 
 def run_psvi(data: DataBundle, method: str = "psvi_learn_v", **kwargs) -> dict:

@@ -1,9 +1,9 @@
-"""Network builders for the dense and LeNet slices.
+"""Network builders for the dense, LeNet and regression slices.
 
 Counterpart of ``psvi_tpu/models/networks.py``'s ``make_logreg``,
-``make_fcnet``, ``make_lenet`` and those branches of ``set_up_model``. The
-other architectures of the JAX model zoo arrive in later slices
-(ROADMAP.md, queue A items 7 and 8).
+``make_fcnet``, ``make_regressor_net``, ``make_lenet`` and those branches of
+``set_up_model``. The other architectures of the JAX model zoo arrive in
+later slices (ROADMAP.md, queue A item 8).
 """
 
 from __future__ import annotations
@@ -29,6 +29,13 @@ def make_fcnet(in_dim: int, h_dim: int, out_dim: int, n_layers: int = 2,
         layers.append(ReLU())
     layers.append(VILinear(h_dim, out_dim, init_sd=init_sd, prior_sd=prior_sd))
     return Sequential(layers)
+
+
+def make_regressor_net(in_dim: int, h_dim: int, out_dim: int = 1, n_layers: int = 2,
+                       init_sd: float = 0.01, prior_sd: float = 1.0):
+    """The regression MLP: the ``fn`` topology, kept apart as the reference
+    keeps it."""
+    return make_fcnet(in_dim, h_dim, out_dim, n_layers, init_sd, prior_sd)
 
 
 def make_dense(widths, init_sd: float = 1e-3, prior_sd: float = 1.0):
@@ -69,7 +76,6 @@ _LATER = {
     "logistic_regression_fullcov": "A.8",
     "fn2": "A.8",
     "alexnet": "A.8",
-    "regressor_net": "A.7",
     "resnet": "A.8",
 }
 
@@ -85,6 +91,9 @@ def set_up_model(architecture: str, D: int, n_hidden: Optional[int], nc: int,
                           prior_sd=prior_sd)
     if architecture == "lenet":
         return make_lenet(init_sd=init_sd, prior_sd=prior_sd, in_channels=n_channels)
+    if architecture == "regressor_net":
+        return make_regressor_net(D, n_hidden, nc, n_layers=n_layers, init_sd=init_sd,
+                                  prior_sd=prior_sd)
     if architecture in _LATER:
         raise NotImplementedError(
             f"architecture {architecture!r} is not ported yet "

@@ -12,12 +12,21 @@
 //                 by hand backprop, the torch-exact Adam step. Stores
 //                 (p, m, n) for every t in a (T+1)·3·P history buffer.
 //   nested_outer  the outer IW-ELBO on (u, minibatch) from paramsT and its
-//                 first-order backward to p̄_T, the direct ū and c̄w.
+//                 first-order backward to p̄_T, the direct ū, c̄w and z̄.
 //   nested_rev    t = T..1: Adam VJP (zero derivative of sqrt at n = 0) to
 //                 ḡ_t, then forward-over-reverse — a tangent pass in
 //                 direction ḡ_t through the forward and the backprop — giving
-//                 the Hessian-vector product and the mixed ∂²/∂p∂u, ∂²/∂p∂cw
-//                 terms; finally c̄w → v̄, ᾱ.
+//                 the Hessian-vector product and the mixed ∂²/∂p∂u, ∂²/∂p∂cw,
+//                 ∂²/∂p∂z terms; finally c̄w → v̄, ᾱ.
+//
+// Two likelihood heads, chosen at run time by Net::gaussian: categorical on
+// nc logits against int32 class labels (δ = c·(softmax − onehot), Hessian
+// the softmax Jacobian), or Gaussian at precision τ on one output against
+// float targets z (NLL ½τ(z − Z)² + log(1/√τ) + ½log 2π, δ = c·τ·(Z − z),
+// Hessian the constant τ). ∂NLL/∂z = −τ·(Z − z), so the target cotangent z̄
+// (regressors learn z) is minus the head's δ summed over samples: from the
+// IW-ELBO's δ in nested_outer, from the tangent δ̇ = cw·τ·Ż in each
+// iteration of nested_rev. Only the head functions below branch on it.
 //
 // The plain PyTorch twins with the same math are nested_fwd_torch,
 // nested_outer_torch and nested_rev_torch in ../fused_nested.py.
@@ -57,13 +66,14 @@
 
 struct Net {
   int L, S, T, M, B, NP;
-  int parameterised, use_alpha;
+  int parameterised, use_alpha, gaussian;
   int in[MAXL], out[MAXL];
   int poff[MAXL];  // layer offset in the flat parameter vector
   int eoff[MAXL];  // layer offset in a flat noise draw / θ
   int zoff[MAXL];  // layer offset in the activation buffers
   int P, E;
   float N, NB, prior_sd, sp2inv, adam_eps, lr;
+  float tau, scale, nll_c;  // Gaussian: precision, 1/√τ, log(1/√τ) + ½log 2π
   double b1, b2;
 };
 
@@ -217,27 +227,76 @@ __device__ void tangent_forward(const Net& n, const float* theta, const float* t
   }
 }
 
-// Inner head: δ^L = cw·(softmax − onehot). Returns this thread's share of
+__device__ __forceinline__ float log_sum_exp(const float* Z, int nc) {
+  float mx = Z[0];
+  for (int c = 1; c < nc; ++c) mx = fmaxf(mx, Z[c]);
+  float se = 0.f;
+  for (int c = 0; c < nc; ++c) se += expf(Z[c] - mx);
+  return mx + logf(se);
+}
+
+// The head at one (sample, point) with outputs Z and the target at index i
+// of y (int labels or float reals): returns the NLL and, if d is non-null,
+// writes coef·∂NLL/∂Z into d.
+__device__ __forceinline__ float head(const Net& n, const float* Z, const void* y, int i,
+                                      float coef, float* d) {
+  if (n.gaussian) {
+    const float t = static_cast<const float*>(y)[i];
+    const float r = (t - Z[0]) / n.scale;
+    if (d) d[0] = coef * (n.tau * (Z[0] - t));
+    return 0.5f * r * r + n.nll_c;
+  }
+  const int nc = n.out[n.L - 1], yc = static_cast<const int*>(y)[i];
+  const float lse = log_sum_exp(Z, nc);
+  if (d)
+    for (int c = 0; c < nc; ++c) d[c] = coef * (expf(Z[c] - lse) - (c == yc ? 1.f : 0.f));
+  return lse - Z[yc];
+}
+
+// Its tangent in direction Zd: writes coef·∂²NLL/∂Z²·Zd into e and returns
+// ∂NLL/∂Z·Zd.
+__device__ __forceinline__ float head_tangent(const Net& n, const float* Z, const float* Zd,
+                                              const void* y, int i, float coef, float* e) {
+  if (n.gaussian) {
+    e[0] = coef * (n.tau * Zd[0]);
+    return n.tau * (Z[0] - static_cast<const float*>(y)[i]) * Zd[0];
+  }
+  const int nc = n.out[n.L - 1], yc = static_cast<const int*>(y)[i];
+  const float lse = log_sum_exp(Z, nc);
+  float pz = 0.f, nd = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const float pc = expf(Z[c] - lse);
+    pz = fmaf(pc, Zd[c], pz);
+    nd = fmaf(pc - (c == yc ? 1.f : 0.f), Zd[c], nd);
+  }
+  for (int c = 0; c < nc; ++c) e[c] = coef * expf(Z[c] - lse) * (Zd[c] - pz);
+  return nd;
+}
+
+// Inner head: δ^L = cw·∂NLL/∂Z. Returns this thread's share of
 // Σ_s Σ_m cw_m·NLL.
-__device__ float head_inner(const Net& n, const float* z, const int* y, const float* cw,
+__device__ float head_inner(const Net& n, const float* z, const void* y, const float* cw,
                             float* delta) {
   const int nc = n.out[n.L - 1];
   float part = 0.f;
   for (int idx = threadIdx.x; idx < n.S * n.NP; idx += blockDim.x) {
     const int pt = idx % n.NP;
     const float* Z = z + n.zoff[n.L - 1] + idx * nc;
-    float* d = delta + n.zoff[n.L - 1] + idx * nc;
-    float mx = Z[0];
-    for (int c = 1; c < nc; ++c) mx = fmaxf(mx, Z[c]);
-    float se = 0.f;
-    for (int c = 0; c < nc; ++c) se += expf(Z[c] - mx);
-    const float lse = mx + logf(se);
-    const int yc = y[pt];
-    part += cw[pt] * (lse - Z[yc]);
-    for (int c = 0; c < nc; ++c) d[c] = cw[pt] * (expf(Z[c] - lse) - (c == yc ? 1.f : 0.f));
+    part += cw[pt] * head(n, Z, y, pt, cw[pt], delta + n.zoff[n.L - 1] + idx * nc);
   }
   __syncthreads();
   return part;
+}
+
+// g_z[m] −= Σ_s δ^L[s, m] over the first M points of a head δ (Gaussian
+// only: the targets carry no cotangent otherwise).
+__device__ void zbar_from_head(const Net& n, const float* delta, float* g_z) {
+  if (!n.gaussian) return;
+  for (int m = threadIdx.x; m < n.M; m += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < n.S; ++s) acc += delta[n.zoff[n.L - 1] + s * n.NP + m];
+    g_z[m] -= acc;
+  }
 }
 
 // δ^{l-1} = (δ^l·W_s) ⊙ 1[z^{l-1} > 0], for l = L-1..1. dd/thetad non-null
@@ -369,7 +428,7 @@ __device__ void core_weights(const Net& n, const float* v, const float* alpha, f
 
 __global__ void __launch_bounds__(NTHREADS)
 nested_fwd_kernel(Net n, const float* __restrict__ p0, const float* __restrict__ u,
-                  const int* __restrict__ y, const float* __restrict__ v,
+                  const void* __restrict__ y, const float* __restrict__ v,
                   const float* __restrict__ alpha, const float* __restrict__ eps,
                   float* losses, float* hist, float* cw, float* theta, float* z,
                   float* delta) {
@@ -426,10 +485,11 @@ nested_fwd_kernel(Net n, const float* __restrict__ p0, const float* __restrict__
 
 __global__ void __launch_bounds__(NTHREADS)
 nested_outer_kernel(Net n, const float* __restrict__ pT, const float* __restrict__ u,
-                    const int* __restrict__ y, const float* __restrict__ cw,
-                    const float* __restrict__ xb, const int* __restrict__ yb,
+                    const void* __restrict__ y, const float* __restrict__ cw,
+                    const float* __restrict__ xb, const void* __restrict__ yb,
                     const float* __restrict__ eps, float* loss, float* pbar, float* ubar,
-                    float* cwbar, float* theta, float* z, float* delta, float* nll) {
+                    float* cwbar, float* zbar, float* theta, float* z, float* delta,
+                    float* nll) {
   __shared__ float sh_ps[MAXS], sh_da[MAXS], sh_nk[MAXS];
   __shared__ float c_ps[MAXS], c_da[MAXS], c_nk[MAXS];
   const int S = n.S, M = n.M, NP = n.NP, nc = n.out[n.L - 1];
@@ -440,12 +500,7 @@ nested_outer_kernel(Net n, const float* __restrict__ pT, const float* __restrict
   for (int idx = threadIdx.x; idx < S * NP; idx += blockDim.x) {
     const int pt = idx % NP;
     const float* Z = z + n.zoff[n.L - 1] + idx * nc;
-    float mx = Z[0];
-    for (int c = 1; c < nc; ++c) mx = fmaxf(mx, Z[c]);
-    float se = 0.f;
-    for (int c = 0; c < nc; ++c) se += expf(Z[c] - mx);
-    const int yc = pt < M ? y[pt] : yb[pt - M];
-    nll[idx] = mx + logf(se) - Z[yc];
+    nll[idx] = pt < M ? head(n, Z, y, pt, 0.f, nullptr) : head(n, Z, yb, pt - M, 0.f, nullptr);
   }
   __syncthreads();
   // per-sample pseudo NLL, data NLL and log p(θ_s) − log q(θ_s): a warp each
@@ -509,23 +564,26 @@ nested_outer_kernel(Net n, const float* __restrict__ pT, const float* __restrict
   __syncthreads();
   for (int idx = threadIdx.x; idx < S * NP; idx += blockDim.x) {
     const int s = idx / NP, pt = idx % NP;
-    const float coef = pt < M ? c_ps[s] * cw[pt] : c_da[s] * n.NB;
     const float* Z = z + n.zoff[n.L - 1] + idx * nc;
     float* d = delta + n.zoff[n.L - 1] + idx * nc;
-    float mx = Z[0];
-    for (int c = 1; c < nc; ++c) mx = fmaxf(mx, Z[c]);
-    float se = 0.f;
-    for (int c = 0; c < nc; ++c) se += expf(Z[c] - mx);
-    const float lse = mx + logf(se);
-    const int yc = pt < M ? y[pt] : yb[pt - M];
-    for (int c = 0; c < nc; ++c) d[c] = coef * (expf(Z[c] - lse) - (c == yc ? 1.f : 0.f));
+    if (pt < M) head(n, Z, y, pt, c_ps[s] * cw[pt], d);
+    else head(n, Z, yb, pt - M, c_da[s] * n.NB, d);
   }
+  // c̄w = Σ_s c_ps·NLL with the NLL centred over the samples: the c_ps sum
+  // to zero, so the value is the same, but the part of the NLL that all
+  // samples share (for a Gaussian head most of it, the log-normaliser) no
+  // longer cancels in fp32
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    float mean = 0.f;
+    for (int s = 0; s < S; ++s) mean += nll[s * NP + m];
+    mean /= S;
     float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc = fmaf(c_ps[s], nll[s * NP + m], acc);
+    for (int s = 0; s < S; ++s) acc = fmaf(c_ps[s], nll[s * NP + m] - mean, acc);
     cwbar[m] = acc;
+    zbar[m] = 0.f;
   }
   __syncthreads();
+  zbar_from_head(n, delta, zbar);  // the head δ is final: backward writes below it
   backward(n, theta, z, delta, nullptr, nullptr);
   // p̄_T: likelihood terms through θ plus the NKL terms
   for (int l = 0; l < n.L; ++l) {
@@ -570,10 +628,11 @@ nested_outer_kernel(Net n, const float* __restrict__ pT, const float* __restrict
 __global__ void __launch_bounds__(NTHREADS)
 nested_rev_kernel(Net n, const float* __restrict__ hist, const float* __restrict__ pbar_in,
                   const float* __restrict__ ubar_in, const float* __restrict__ cwbar_in,
-                  const float* __restrict__ u, const int* __restrict__ y,
-                  const float* __restrict__ cw, const float* __restrict__ v,
-                  const float* __restrict__ alpha, const float* __restrict__ eps,
-                  float* g_u, float* g_v, float* g_alpha, float* theta, float* thetad,
+                  const float* __restrict__ zbar_in, const float* __restrict__ u,
+                  const void* __restrict__ y, const float* __restrict__ cw,
+                  const float* __restrict__ v, const float* __restrict__ alpha,
+                  const float* __restrict__ eps, float* g_u, float* g_v, float* g_alpha,
+                  float* g_z, float* theta, float* thetad,
                   float* z, float* delta, float* zd, float* dd, float* nlld, float* h,
                   float* gbar, float* pbar, float* mbar, float* nbar, float* cwbar) {
   __shared__ float sh[33];
@@ -586,7 +645,10 @@ nested_rev_kernel(Net n, const float* __restrict__ hist, const float* __restrict
     nbar[j] = 0.f;
   }
   for (int j = threadIdx.x; j < M * D; j += blockDim.x) g_u[j] = ubar_in[j];
-  for (int j = threadIdx.x; j < M; j += blockDim.x) cwbar[j] = cwbar_in[j];
+  for (int j = threadIdx.x; j < M; j += blockDim.x) {
+    cwbar[j] = cwbar_in[j];
+    g_z[j] = zbar_in[j];
+  }
   __syncthreads();
   for (int t = n.T; t >= 1; --t) {
     const float* p = hist + (t - 1) * 3 * P;
@@ -632,28 +694,12 @@ nested_rev_kernel(Net n, const float* __restrict__ hist, const float* __restrict
     tangent_theta(n, p, gbar, et, thetad);
     tangent_forward(n, theta, thetad, u, z, zd);
     for (int idx = threadIdx.x; idx < S * M; idx += blockDim.x) {
-      const int m = idx % M;
-      const float* Z = z + n.zoff[n.L - 1] + idx * nc;
-      const float* Zd = zd + n.zoff[n.L - 1] + idx * nc;
-      float* e = dd + n.zoff[n.L - 1] + idx * nc;
-      float mx = Z[0];
-      for (int c = 1; c < nc; ++c) mx = fmaxf(mx, Z[c]);
-      float se = 0.f;
-      for (int c = 0; c < nc; ++c) se += expf(Z[c] - mx);
-      const float lse = mx + logf(se);
-      float pz = 0.f, nd = 0.f;
-      const int yc = y[m];
-      for (int c = 0; c < nc; ++c) {
-        const float pc = expf(Z[c] - lse);
-        pz = fmaf(pc, Zd[c], pz);
-        nd = fmaf(pc - (c == yc ? 1.f : 0.f), Zd[c], nd);
-      }
-      for (int c = 0; c < nc; ++c) e[c] = cw[m] * expf(Z[c] - lse) * (Zd[c] - pz);
-      nlld[idx] = nd;
+      const int m = idx % M, q = n.zoff[n.L - 1] + idx * nc;
+      nlld[idx] = head_tangent(n, z + q, zd + q, y, m, cw[m], dd + q);
     }
     __syncthreads();
     backward(n, theta, z, delta, thetad, dd);
-    // accumulate ū, c̄w and p̄_{t-1} = p̄_t + H·ḡ_t
+    // accumulate ū, c̄w, z̄ and p̄_{t-1} = p̄_t + H·ḡ_t
     {
       const int o = n.out[0];
       const float* W = theta + n.eoff[0];
@@ -679,6 +725,7 @@ nested_rev_kernel(Net n, const float* __restrict__ hist, const float* __restrict
       for (int s = 0; s < S; ++s) acc += nlld[s * M + m];
       cwbar[m] += acc;
     }
+    zbar_from_head(n, dd, g_z);
     for (int l = 0; l < n.L; ++l) {
       const int o = n.out[l], nw = o * n.in[l];
       const int off = n.poff[l];
@@ -730,17 +777,17 @@ nested_rev_kernel(Net n, const float* __restrict__ hist, const float* __restrict
 // ---------------------------------------------------------------------------
 // host side: the Net description and the C entries
 
-// dims = [L, S, T, M, B, parameterised, use_alpha, widths[0..L]]
-// hyper = [N, prior_sd, b1, b2, adam_eps, lr]
+// dims = [L, S, T, M, B, parameterised, use_alpha, gaussian, widths[0..L]]
+// hyper = [N, prior_sd, b1, b2, adam_eps, lr, tau]
 static int make_net(Net* n, const int* dims, const double* hyper, int with_batch) {
   n->L = dims[0]; n->S = dims[1]; n->T = dims[2]; n->M = dims[3]; n->B = dims[4];
-  n->parameterised = dims[5]; n->use_alpha = dims[6];
+  n->parameterised = dims[5]; n->use_alpha = dims[6]; n->gaussian = dims[7];
   if (n->L < 1 || n->L > MAXL || n->S < 1 || n->S > MAXS || n->M < 1) return 1;
   n->NP = with_batch ? n->M + n->B : n->M;
   int poff = 0, eoff = 0, zoff = 0;
   for (int l = 0; l < n->L; ++l) {
-    n->in[l] = dims[7 + l];
-    n->out[l] = dims[8 + l];
+    n->in[l] = dims[8 + l];
+    n->out[l] = dims[9 + l];
     n->poff[l] = poff;
     n->eoff[l] = eoff;
     n->zoff[l] = zoff;
@@ -758,10 +805,14 @@ static int make_net(Net* n, const int* dims, const double* hyper, int with_batch
   n->b2 = hyper[3];
   n->adam_eps = (float)hyper[4];
   n->lr = (float)hyper[5];
+  if (n->gaussian && (n->out[n->L - 1] != 1 || !(hyper[6] > 0.0))) return 1;
+  n->tau = (float)hyper[6];
+  n->scale = (float)(1.0 / sqrt(hyper[6]));
+  n->nll_c = (float)(log(1.0 / sqrt(hyper[6])) + 0.91893853320467274178);
   return 0;
 }
 
-extern "C" int psvi_nested_fwd(const float* p0, const float* u, const int* y, const float* v,
+extern "C" int psvi_nested_fwd(const float* p0, const float* u, const void* y, const float* v,
                                const float* alpha, const float* eps, float* losses, float* hist,
                                float* cw, float* theta, float* z, float* delta,
                                const int* dims, const double* hyper, void* stream) {
@@ -772,30 +823,31 @@ extern "C" int psvi_nested_fwd(const float* p0, const float* u, const int* y, co
   return (int)cudaGetLastError();
 }
 
-extern "C" int psvi_nested_outer(const float* pT, const float* u, const int* y, const float* cw,
-                                 const float* xb, const int* yb, const float* eps, float* loss,
-                                 float* pbar, float* ubar, float* cwbar, float* theta, float* z,
-                                 float* delta, float* nll, const int* dims, const double* hyper,
-                                 void* stream) {
+extern "C" int psvi_nested_outer(const float* pT, const float* u, const void* y, const float* cw,
+                                 const float* xb, const void* yb, const float* eps, float* loss,
+                                 float* pbar, float* ubar, float* cwbar, float* zbar,
+                                 float* theta, float* z, float* delta, float* nll,
+                                 const int* dims, const double* hyper, void* stream) {
   Net n;
   if (make_net(&n, dims, hyper, 1)) return (int)cudaErrorInvalidValue;
   nested_outer_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(
-      n, pT, u, y, cw, xb, yb, eps, loss, pbar, ubar, cwbar, theta, z, delta, nll);
+      n, pT, u, y, cw, xb, yb, eps, loss, pbar, ubar, cwbar, zbar, theta, z, delta, nll);
   return (int)cudaGetLastError();
 }
 
 extern "C" int psvi_nested_rev(const float* hist, const float* pbar_in, const float* ubar_in,
-                               const float* cwbar_in, const float* u, const int* y,
-                               const float* cw, const float* v, const float* alpha,
-                               const float* eps, float* g_u, float* g_v, float* g_alpha,
-                               float* theta, float* thetad, float* z, float* delta, float* zd,
-                               float* dd, float* nlld, float* h, float* gbar, float* pbar,
-                               float* mbar, float* nbar, float* cwbar, const int* dims,
-                               const double* hyper, void* stream) {
+                               const float* cwbar_in, const float* zbar_in, const float* u,
+                               const void* y, const float* cw, const float* v,
+                               const float* alpha, const float* eps, float* g_u, float* g_v,
+                               float* g_alpha, float* g_z, float* theta, float* thetad,
+                               float* z, float* delta, float* zd, float* dd, float* nlld,
+                               float* h, float* gbar, float* pbar, float* mbar, float* nbar,
+                               float* cwbar, const int* dims, const double* hyper,
+                               void* stream) {
   Net n;
   if (make_net(&n, dims, hyper, 0)) return (int)cudaErrorInvalidValue;
   nested_rev_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(
-      n, hist, pbar_in, ubar_in, cwbar_in, u, y, cw, v, alpha, eps, g_u, g_v, g_alpha, theta,
-      thetad, z, delta, zd, dd, nlld, h, gbar, pbar, mbar, nbar, cwbar);
+      n, hist, pbar_in, ubar_in, cwbar_in, zbar_in, u, y, cw, v, alpha, eps, g_u, g_v,
+      g_alpha, g_z, theta, thetad, z, delta, zd, dd, nlld, h, gbar, pbar, mbar, nbar, cwbar);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def categorical_nll(logits, labels):
@@ -40,7 +40,7 @@ def gaussian_nll(preds, targets, tau: float):
     return (
         0.5 * torch.square((targets[None] - preds) / scale)
         + math.log(scale)
-        + _HALF_LOG_2PI
+        + HALF_LOG_2PI
     )
 
 

@@ -2,12 +2,15 @@
 
 Port of ``psvi_tpu/ops/fused_nested.py::fused_nested_outer``: one whole
 bilevel outer step of a ``VILinear (ReLU VILinear)*`` net with a
-categorical likelihood —
+categorical likelihood (class labels z) or a Gaussian one at precision τ
+(real targets z, one output) —
 
 - T differentiable inner Adam iterations on the inner ELBO
   ``Σ_s Σ_m cw_m·NLL(u_m, z_m; θ_s) + KL(q‖p)``, cw = N·f(v);
 - the outer importance-weighted PSVI-ELBO on (u, minibatch) from paramsT;
-- the hypergradients w.r.t. u, v and α through the whole unroll.
+- the hypergradients w.r.t. u, v and α through the whole unroll, and for
+  the Gaussian likelihood w.r.t. the targets z (``learn_z``, the
+  regressors).
 
 The JAX package got the reverse sweep by tracing ``jax.value_and_grad``
 into one Mosaic kernel. CUDA has no tracer, so here the reverse sweep is
@@ -21,13 +24,19 @@ twin of the same math in this module:
 ``nested_outer`` from paramsT and the outer noise: the forward on (u, xb),
                  the pseudo and data NLLs, the per-sample NKL, the
                  self-normalized IW weights and the loss; its backward to
-                 p̄_T and the direct ū and c̄w.
+                 p̄_T and the direct ū, c̄w and z̄.
 ``nested_rev``   for t = T..1: the Adam VJP (``_sqrt_safe`` rule: zero
                  derivative at n = 0) to ḡ_t, then the VJP of
-                 g_t = ∇_p L_inner(p_{t−1}; u, cw, ε_t) applied to ḡ_t as
-                 forward-over-reverse — a tangent pass in direction ḡ_t
+                 g_t = ∇_p L_inner(p_{t−1}; u, cw, z, ε_t) applied to ḡ_t
+                 as forward-over-reverse — a tangent pass in direction ḡ_t
                  through the forward and the backprop — accumulating
-                 p̄_{t−1}, ū and c̄w. Finally c̄w → v̄, ᾱ.
+                 p̄_{t−1}, ū, c̄w and z̄. Finally c̄w → v̄, ᾱ.
+
+The likelihood enters only through the head on the outputs Z: the NLL,
+its gradient ∂NLL/∂Z (softmax − onehot, or τ·(Z − z)) and its Hessian on
+a tangent (the softmax Jacobian, or the constant τ). ∂NLL/∂z is −τ·(Z − z),
+so z̄ is minus the sum over samples of the head's δ at the pseudo points:
+in the outer step the IW-ELBO's δ, in iteration t the tangent δ̇ = cw·τ·Ż.
 
 The layouts are the engine's natural ones: a flat parameter vector
 (per layer ``mu_w (o,i), rho_w (o,i), mu_b (o), rho_b (o)``) and a flat
@@ -81,6 +90,9 @@ class FusedCfg:
     parameterised: bool  # f(v) = softmax(v)
     use_alpha: bool  # f(v) *= exp(alpha)
     prior_sd: float
+    likelihood: str = "categorical"  # or "gaussian" (the regressors; nc = 1)
+    tau: float = 0.1  # Gaussian precision
+    learn_z: bool = False  # the Gaussian targets are hyperparameters (g_z)
     b1: float = 0.9
     b2: float = 0.999
     adam_eps: float = 1e-8
@@ -88,6 +100,10 @@ class FusedCfg:
     @property
     def L(self):
         return len(self.widths) - 1
+
+    @property
+    def gaussian(self):
+        return self.likelihood == "gaussian"
 
     @property
     def D(self):
@@ -221,10 +237,33 @@ def _sample_grads(delta, a_prev):
     return GW, delta.sum(1)
 
 
-def _top(Z, Y):
-    """Categorical head: (lse (S,P), softmax (S,P,nc), nll (S,P))."""
+def _targets(y, cfg: FusedCfg):
+    """The head's targets: one-hot rows (P, nc) of class labels, or the real
+    targets (P,) of a Gaussian likelihood."""
+    if cfg.gaussian:
+        return y.reshape(-1)
+    return _one_hot(y, cfg.nc)
+
+
+def _head(Z, Y, cfg: FusedCfg):
+    """The likelihood head on the outputs Z (S, P, nc): the NLL (S, P), its
+    gradient ∂NLL/∂Z (S, P, nc), and the map Ż ↦ ∂²NLL/∂Z²·Ż."""
+    if cfg.gaussian:
+        scale = 1.0 / math.sqrt(cfg.tau)
+        nll = 0.5 * torch.square((Y - Z[..., 0]) / scale) + math.log(scale) + _HALF_LOG_2PI
+        return nll, cfg.tau * (Z - Y[:, None]), lambda Zd: cfg.tau * Zd
     lse = torch.logsumexp(Z, dim=-1)
-    return lse, torch.exp(Z - lse[..., None]), lse - (Z * Y).sum(-1)
+    Pz = torch.exp(Z - lse[..., None])
+    return (lse - (Z * Y).sum(-1), Pz - Y,
+            lambda Zd: Pz * (Zd - (Pz * Zd).sum(-1, keepdim=True)))
+
+
+def _zbar(delta_top, cfg: FusedCfg):
+    """−Σ_s δ_{s,m} at the head: ∂/∂z_m of a sum whose head δ is
+    c·τ·(Z − z) (zeros for class labels)."""
+    if cfg.gaussian:
+        return -delta_top[..., 0].sum(0)
+    return torch.zeros(delta_top.shape[1], dtype=delta_top.dtype, device=delta_top.device)
 
 
 def _inner_value_grad(p, eps_t, u, Y, cw, cfg: FusedCfg):
@@ -238,13 +277,13 @@ def _inner_value_grad(p, eps_t, u, Y, cw, cfg: FusedCfg):
     Ws = [mw + sw * ew for (mw, _, _, _), (sw, _), (ew, _) in zip(prm, sds, eps)]
     bs = [mb + sb * eb for (_, _, mb, _), (_, sb), (_, eb) in zip(prm, sds, eps)]
     zs = _forward(Ws, bs, u)
-    _, Pz, nll = _top(zs[-1], Y)
+    nll, G, hvp = _head(zs[-1], Y, cfg)
     kl = sum(
         torch.sum(torch.log(sp / s) + (torch.square(s) + torch.square(m)) / (2.0 * sp2) - 0.5)
         for (mw, _, mb, _), (sw, sb) in zip(prm, sds) for m, s in ((mw, sw), (mb, sb))
     )
     loss = torch.sum(nll @ cw) + kl
-    deltas = _backward(Ws, zs, cw[None, :, None] * (Pz - Y))
+    deltas = _backward(Ws, zs, cw[None, :, None] * G)
     grads, hs = [], []
     for l, ((mw, rw, mb, rb), (sw, sb), (ew, eb)) in enumerate(zip(prm, sds, eps)):
         GW, Gb = _sample_grads(deltas[l], _layer_input(zs, u, l))
@@ -254,7 +293,7 @@ def _inner_value_grad(p, eps_t, u, Y, cw, cfg: FusedCfg):
         grads.append((GW.sum(0) + mw / sp2, torch.sigmoid(rw) * hw,
                       Gb.sum(0) + mb / sp2, torch.sigmoid(rb) * hb))
         hs.append((hw, hb))
-    cache = dict(prm=prm, sds=sds, eps=eps, Ws=Ws, zs=zs, Pz=Pz, deltas=deltas, hs=hs)
+    cache = dict(prm=prm, sds=sds, eps=eps, Ws=Ws, zs=zs, G=G, hvp=hvp, deltas=deltas, hs=hs)
     return loss, _pack4(grads), cache
 
 
@@ -274,7 +313,7 @@ def nested_fwd_torch(p0, u, y, v, alpha, eps_in, lr: float, cfg: FusedCfg):
     """T inner Adam iterations. Returns ``(losses (T,), hist (T+1, 3, P),
     cw (M,))``; ``hist[t] = (p_t, m_t, n_t)``, ``hist[T, 0]`` is paramsT."""
     cw = core_weights(v, alpha, cfg)
-    Y = _one_hot(y, cfg.nc)
+    Y = _targets(y, cfg)
     p, m, n = p0, torch.zeros_like(p0), torch.zeros_like(p0)
     hist, losses = [torch.stack([p, m, n])], []
     for t in range(1, cfg.T + 1):
@@ -287,19 +326,19 @@ def nested_fwd_torch(p0, u, y, v, alpha, eps_in, lr: float, cfg: FusedCfg):
 
 def nested_outer_torch(pT, u, y, cw, xb, yb, eps_out, cfg: FusedCfg):
     """Outer IW-ELBO from paramsT and its first-order backward. Returns
-    ``(loss (), p̄_T (P,), ū (M, D), c̄w (M,))``."""
+    ``(loss (), p̄_T (P,), ū (M, D), c̄w (M,), z̄ (M,))``."""
     S, M, B = cfg.S, cfg.M, cfg.B
     sp = cfg.prior_sd
     sp2 = sp * sp
     X = torch.cat([u, xb], dim=0)
-    Y = torch.cat([_one_hot(y, cfg.nc), _one_hot(yb, cfg.nc)], dim=0)
+    Y = torch.cat([_targets(y, cfg), _targets(yb, cfg)], dim=0)
     prm = _mu_rho(pT, cfg)
     eps = unpack_eps(eps_out, cfg)
     sds = [(softplus(rw), softplus(rb)) for _, rw, _, rb in prm]
     Ws = [mw + sw * ew for (mw, _, _, _), (sw, _), (ew, _) in zip(prm, sds, eps)]
     bs = [mb + sb * eb for (_, _, mb, _), (_, sb), (_, eb) in zip(prm, sds, eps)]
     zs = _forward(Ws, bs, X)
-    _, Pz, nll = _top(zs[-1], Y)
+    nll, G, _ = _head(zs[-1], Y, cfg)
     pseudo = nll[:, :M] @ cw
     data = (cfg.N / B) * nll[:, M:].sum(1)
     spt = torch.tensor(sp, dtype=pT.dtype, device=pT.device)
@@ -325,7 +364,7 @@ def nested_outer_torch(pT, u, y, cw, xb, yb, eps_out, cfg: FusedCfg):
     c_ps = -w - q
     coef = torch.cat([c_ps[:, None] * cw[None, :],
                       (w * (cfg.N / B))[:, None].expand(S, B)], dim=1)
-    deltas = _backward(Ws, zs, coef[..., None] * (Pz - Y))
+    deltas = _backward(Ws, zs, coef[..., None] * G)
     bars = []
     for l, ((mw, rw, mb, rb), (sw, sb), (ew, eb), W, b) in enumerate(
             zip(prm, sds, eps, Ws, bs)):
@@ -341,15 +380,21 @@ def nested_outer_torch(pT, u, y, cw, xb, yb, eps_out, cfg: FusedCfg):
             quad.append((mubar, sdbar * torch.sigmoid(rho)))
         bars.append((quad[0][0], quad[0][1], quad[1][0], quad[1][1]))
     ubar = torch.einsum("spo,soi->pi", deltas[0][:, :M], Ws[0])
-    cwbar = (c_ps[:, None] * nll[:, :M]).sum(0)
-    return loss, _pack4(bars), ubar, cwbar
+    # Σ_s c_ps·NLL with the NLL centred over the samples: the c_ps sum to
+    # zero, so the value is the same, but the part of the NLL that all
+    # samples share (for a Gaussian head most of it, the log-normaliser)
+    # no longer cancels in fp32
+    nll_ps = nll[:, :M]
+    cwbar = (c_ps[:, None] * (nll_ps - nll_ps.mean(0))).sum(0)
+    return loss, _pack4(bars), ubar, cwbar, _zbar(deltas[-1][:, :M], cfg)
 
 
 def rev_iter_torch(t: int, p_prev, m_t, n_t, pbar, mbar, nbar, u, Y, cw, eps_t,
                    lr: float, cfg: FusedCfg):
-    """VJP of inner iteration t, ``(p_{t−1}, m_{t−1}, n_{t−1}, u, cw) →
-    (p_t, m_t, n_t)``, at the cotangent ``(p̄_t, m̄_t, n̄_t)``. Returns
-    ``(p̄_{t−1}, m̄_{t−1}, n̄_{t−1}, ū, c̄w)``."""
+    """VJP of inner iteration t, ``(p_{t−1}, m_{t−1}, n_{t−1}, u, cw, z) →
+    (p_t, m_t, n_t)``, at the cotangent ``(p̄_t, m̄_t, n̄_t)``. ``Y`` holds
+    the head's targets (``_targets``). Returns ``(p̄_{t−1}, m̄_{t−1},
+    n̄_{t−1}, ū, c̄w, z̄)``; z̄ is zero for class labels."""
     sp2 = cfg.prior_sd * cfg.prior_sd
     _, g, c = _inner_value_grad(p_prev, eps_t, u, Y, cw, cfg)
     # Adam VJP (_sqrt_safe: zero derivative at n = 0)
@@ -363,7 +408,7 @@ def rev_iter_torch(t: int, p_prev, m_t, n_t, pbar, mbar, nbar, u, Y, cw, eps_t,
 
     # forward-over-reverse: tangent of (forward, backprop) in direction ḡ
     prm, sds, eps, Ws, zs = c["prm"], c["sds"], c["eps"], c["Ws"], c["zs"]
-    Pz, deltas, hs = c["Pz"], c["deltas"], c["hs"]
+    G, hvp, deltas, hs = c["G"], c["hvp"], c["deltas"], c["hs"]
     dirs = _mu_rho(gbar, cfg)
     Wd = [gmw + torch.sigmoid(rw) * grw * ew
           for (gmw, grw, _, _), (_, rw, _, _), (ew, _) in zip(dirs, prm, eps)]
@@ -379,15 +424,14 @@ def rev_iter_torch(t: int, p_prev, m_t, n_t, pbar, mbar, nbar, u, Y, cw, eps_t,
                  + torch.matmul(torch.relu(zs[l - 1]), Wd[l].transpose(1, 2)))
         zd.append(z + bd[l][:, None, :])
     Zd = zd[-1]
-    pzd = (Pz * Zd).sum(-1, keepdim=True)
-    cwbar = ((Pz - Y) * Zd).sum(-1).sum(0)
+    cwbar = (G * Zd).sum(-1).sum(0)
     dd = [None] * cfg.L
-    dd[-1] = cw[None, :, None] * Pz * (Zd - pzd)
+    dd[-1] = cw[None, :, None] * hvp(Zd)
     for l in range(cfg.L - 1, 0, -1):
         dd[l - 1] = (torch.matmul(dd[l], Ws[l]) + torch.matmul(deltas[l], Wd[l])) * (zs[l - 1] > 0)
     ubar = (torch.einsum("spo,soi->pi", dd[0], Ws[0])
             + torch.einsum("spo,soi->pi", deltas[0], Wd[0]))
-    hvp = []
+    hv = []
     for l, ((gmw, grw, gmb, grb), (mw, rw, mb, rb), (sw, sb), (ew, eb), (hw, hb)) in enumerate(
             zip(dirs, prm, sds, eps, hs)):
         GWd, Gbd = _sample_grads(dd[l], _layer_input(zs, u, l))
@@ -400,8 +444,9 @@ def rev_iter_torch(t: int, p_prev, m_t, n_t, pbar, mbar, nbar, u, Y, cw, eps_t,
             quad.append(G.sum(0) + gm / sp2)
             quad.append(sg * (1.0 - sg) * gr * h
                         + sg * ((G * e).sum(0) + (1.0 / (sd * sd) + 1.0 / sp2) * sg * gr))
-        hvp.append((quad[0], quad[1], quad[2], quad[3]))
-    return pbar + _pack4(hvp), cfg.b1 * mbar_t, cfg.b2 * nbar_t, ubar, cwbar
+        hv.append((quad[0], quad[1], quad[2], quad[3]))
+    return (pbar + _pack4(hv), cfg.b1 * mbar_t, cfg.b2 * nbar_t, ubar, cwbar,
+            _zbar(dd[-1], cfg))
 
 
 def _cw_vjp(cwbar, cw, v, alpha, cfg: FusedCfg):
@@ -421,27 +466,32 @@ def _cw_vjp(cwbar, cw, v, alpha, cfg: FusedCfg):
     return g_v, g_a
 
 
-def nested_rev_torch(hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in,
+def nested_rev_torch(hist, pbar, ubar, cwbar, zbar, u, y, cw, v, alpha, eps_in,
                      lr: float, cfg: FusedCfg):
-    """Reverse sweep t = T..1. Returns ``(g_u (M, D), g_v (M,), g_alpha (1,))``."""
-    Y = _one_hot(y, cfg.nc)
+    """Reverse sweep t = T..1 from the outer step's cotangents. Returns
+    ``(g_u (M, D), g_v (M,), g_alpha (1,), g_z (M,))``."""
+    Y = _targets(y, cfg)
     mbar, nbar = torch.zeros_like(pbar), torch.zeros_like(pbar)
     for t in range(cfg.T, 0, -1):
-        pbar, mbar, nbar, du, dcw = rev_iter_torch(
+        pbar, mbar, nbar, du, dcw, dz = rev_iter_torch(
             t, hist[t - 1, 0], hist[t, 1], hist[t, 2], pbar, mbar, nbar,
             u, Y, cw, eps_in[t - 1], lr, cfg)
         ubar = ubar + du
         cwbar = cwbar + dcw
+        zbar = zbar + dz
     g_v, g_a = _cw_vjp(cwbar, cw, v, alpha, cfg)
-    return ubar, g_v, g_a
+    return ubar, g_v, g_a, zbar
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernels (psvi_torch/ops/csrc/fused_nested.cu)
 # ---------------------------------------------------------------------------
 
-#: Launch count of each kernel: its wrapper adds one where it launches it.
-LAUNCHES = {"nested_fwd": 0, "nested_outer": 0, "nested_rev": 0}
+#: Launch count of each kernel and likelihood branch (``<kernel>`` for the
+#: categorical head, ``<kernel>_gaussian`` for the Gaussian one): its
+#: wrapper adds one where it launches it.
+LAUNCHES = {f"{k}{b}": 0 for k in ("nested_fwd", "nested_outer", "nested_rev")
+            for b in ("", "_gaussian")}
 
 
 def reset_launches():
@@ -453,11 +503,11 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     # p0 u y v alpha eps | losses hist cw | theta z delta
     "psvi_nested_fwd": [_P] * 12,
-    # pT u y cw xb yb eps | loss pbar ubar cwbar | theta z delta nll
-    "psvi_nested_outer": [_P] * 15,
-    # hist pbar ubar cwbar u y cw v alpha eps | g_u g_v g_alpha |
+    # pT u y cw xb yb eps | loss pbar ubar cwbar zbar | theta z delta nll
+    "psvi_nested_outer": [_P] * 16,
+    # hist pbar ubar cwbar zbar u y cw v alpha eps | g_u g_v g_alpha g_z |
     # theta thetad z delta zd deltad nlld h gbar pbar mbar nbar cwbar
-    "psvi_nested_rev": [_P] * 26,
+    "psvi_nested_rev": [_P] * 28,
 }
 
 
@@ -477,12 +527,12 @@ def _lib():
 
 def _dims(cfg: FusedCfg):
     vals = [cfg.L, cfg.S, cfg.T, cfg.M, cfg.B, int(cfg.parameterised),
-            int(cfg.use_alpha), *cfg.widths]
+            int(cfg.use_alpha), int(cfg.gaussian), *cfg.widths]
     return (ctypes.c_int * len(vals))(*vals)
 
 
 def _hyper(cfg: FusedCfg, lr: float):
-    vals = [cfg.N, cfg.prior_sd, cfg.b1, cfg.b2, cfg.adam_eps, float(lr)]
+    vals = [cfg.N, cfg.prior_sd, cfg.b1, cfg.b2, cfg.adam_eps, float(lr), cfg.tau]
     return (ctypes.c_double * len(vals))(*vals)
 
 
@@ -511,7 +561,7 @@ def _launch(name, dev, args, cfg, lr):
         rc = fn(*[_P(a.data_ptr()) for a in args], _dims(cfg), _hyper(cfg, lr), _P(stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name + ("_gaussian" if cfg.gaussian else "")] += 1
 
 
 _F, _I = torch.float32, torch.int32
@@ -521,9 +571,14 @@ def _empty(dev, *shape):
     return torch.empty(shape, dtype=_F, device=dev)
 
 
+def _ydt(cfg):
+    """The kernels' target dtype: float32 reals (Gaussian) or int32 labels."""
+    return _F if cfg.gaussian else _I
+
+
 def _inner_args(cfg, u, y, v, alpha, eps_in):
     M = cfg.M
-    return [("u", u, _F, (M, cfg.D)), ("y", y, _I, (M,)), ("v", v, _F, (M,)),
+    return [("u", u, _F, (M, cfg.D)), ("y", y, _ydt(cfg), (M,)), ("v", v, _F, (M,)),
             ("alpha", alpha, _F, (1,)), ("eps_in", eps_in, _F, (cfg.T, cfg.n_eps))]
 
 
@@ -539,31 +594,33 @@ def _nested_fwd_cuda(p0, u, y, v, alpha, eps_in, lr, cfg):
 
 def _nested_outer_cuda(pT, u, y, cw, xb, yb, eps_out, cfg):
     M, B, D = cfg.M, cfg.B, cfg.D
-    dev = _check([("pT", pT, _F, (cfg.n_params,)), ("u", u, _F, (M, D)), ("y", y, _I, (M,)),
-                  ("cw", cw, _F, (M,)), ("xb", xb, _F, (B, D)), ("yb", yb, _I, (B,)),
+    yt = _ydt(cfg)
+    dev = _check([("pT", pT, _F, (cfg.n_params,)), ("u", u, _F, (M, D)), ("y", y, yt, (M,)),
+                  ("cw", cw, _F, (M,)), ("xb", xb, _F, (B, D)), ("yb", yb, yt, (B,)),
                   ("eps_out", eps_out, _F, (cfg.n_eps,))])
     S, NP = cfg.S, M + B
     out = (_empty(dev), _empty(dev, cfg.n_params), _empty(dev, cfg.M, cfg.D),
-           _empty(dev, cfg.M))
+           _empty(dev, cfg.M), _empty(dev, cfg.M))
     scratch = (_empty(dev, cfg.n_eps), _empty(dev, S * NP * cfg.n_units),
                _empty(dev, S * NP * cfg.n_units), _empty(dev, S * NP))
     _launch("nested_outer", dev, (pT, u, y, cw, xb, yb, eps_out) + out + scratch, cfg, 0.0)
     return out
 
 
-def _nested_rev_cuda(hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in, lr, cfg):
+def _nested_rev_cuda(hist, pbar, ubar, cwbar, zbar, u, y, cw, v, alpha, eps_in, lr, cfg):
     S, M, P, E = cfg.S, cfg.M, cfg.n_params, cfg.n_eps
     dev = _check([("hist", hist, _F, (cfg.T + 1, 3, P)), ("pbar", pbar, _F, (P,)),
                   ("ubar", ubar, _F, (M, cfg.D)), ("cwbar", cwbar, _F, (M,)),
-                  ("cw", cw, _F, (M,))] + _inner_args(cfg, u, y, v, alpha, eps_in))
+                  ("zbar", zbar, _F, (M,)), ("cw", cw, _F, (M,))]
+                 + _inner_args(cfg, u, y, v, alpha, eps_in))
     Z = S * M * cfg.n_units
-    out = (_empty(dev, M, cfg.D), _empty(dev, M), _empty(dev, 1))
+    out = (_empty(dev, M, cfg.D), _empty(dev, M), _empty(dev, 1), _empty(dev, M))
     scratch = (_empty(dev, E), _empty(dev, E), _empty(dev, Z), _empty(dev, Z),
                _empty(dev, Z), _empty(dev, Z), _empty(dev, S * M),
                _empty(dev, P), _empty(dev, P), _empty(dev, P), _empty(dev, P),
                _empty(dev, P), _empty(dev, M))
     _launch("nested_rev", dev,
-            (hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in) + out + scratch, cfg, lr)
+            (hist, pbar, ubar, cwbar, zbar, u, y, cw, v, alpha, eps_in) + out + scratch, cfg, lr)
     return out
 
 
@@ -571,28 +628,36 @@ def _labels(y):
     return y if y.dtype == _I else y.to(_I)
 
 
+def _kernel_targets(y, cfg):
+    """The targets as the kernels read them: int32 class labels, or the
+    Gaussian targets as a flat row."""
+    return y.reshape(-1) if cfg.gaussian else _labels(y)
+
+
 def nested_fwd(p0, u, y, v, alpha, eps_in, lr: float, cfg: FusedCfg):
     """Kernel 1 wrapper: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if p0.is_cuda:
-        return _nested_fwd_cuda(p0, u, _labels(y), v, alpha, eps_in, lr, cfg)
+        return _nested_fwd_cuda(p0, u, _kernel_targets(y, cfg), v, alpha, eps_in, lr, cfg)
     return nested_fwd_torch(p0, u, y, v, alpha, eps_in, lr, cfg)
 
 
 def nested_outer(pT, u, y, cw, xb, yb, eps_out, cfg: FusedCfg):
     """Kernel 2 wrapper (CUDA kernel for CUDA tensors, plain version on CPU)."""
     if pT.is_cuda:
-        return _nested_outer_cuda(pT, u, _labels(y), cw, xb, _labels(yb), eps_out, cfg)
+        return _nested_outer_cuda(pT, u, _kernel_targets(y, cfg), cw, xb,
+                                  _kernel_targets(yb, cfg), eps_out, cfg)
     return nested_outer_torch(pT, u, y, cw, xb, yb, eps_out, cfg)
 
 
-def nested_rev(hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in, lr: float,
+def nested_rev(hist, pbar, ubar, cwbar, zbar, u, y, cw, v, alpha, eps_in, lr: float,
                cfg: FusedCfg):
     """Kernel 3 wrapper (CUDA kernel for CUDA tensors, plain version on CPU)."""
     if hist.is_cuda:
-        return _nested_rev_cuda(hist, pbar, ubar, cwbar, u, _labels(y), cw, v, alpha,
-                                eps_in, lr, cfg)
-    return nested_rev_torch(hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in, lr, cfg)
+        return _nested_rev_cuda(hist, pbar, ubar, cwbar, zbar, u, _kernel_targets(y, cfg), cw,
+                                v, alpha, eps_in, lr, cfg)
+    return nested_rev_torch(hist, pbar, ubar, cwbar, zbar, u, y, cw, v, alpha, eps_in, lr,
+                            cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -601,7 +666,8 @@ def nested_rev(hist, pbar, ubar, cwbar, u, y, cw, v, alpha, eps_in, lr: float,
 
 
 def _autograd_flat(p0, u, y, v, alpha, xb, yb, eps_in, eps_out, lr, cfg):
-    """The oracle: ``_nested_core`` through torch.autograd (create_graph)."""
+    """The oracle: ``_nested_core`` through torch.autograd (create_graph),
+    differentiated w.r.t. the Gaussian targets too."""
     net = make_dense(cfg.widths, prior_sd=cfg.prior_sd).to(p0.device)
     didx = [i for i, l in enumerate(net.layers) if isinstance(l, VILinear)]
 
@@ -614,38 +680,45 @@ def _autograd_flat(p0, u, y, v, alpha, xb, yb, eps_in, eps_out, lr, cfg):
     def eps_tree(flat):
         return full([{"w": w, "b": b} for w, b in unpack_eps(flat, cfg)])
 
+    gauss = cfg.gaussian
+    lik = dict(likelihood=cfg.likelihood, nc=cfg.nc, tau=cfg.tau)
     with torch.enable_grad():
         u_ = u.detach().clone().requires_grad_(True)
         v_ = v.detach().clone().requires_grad_(True)
         a_ = alpha.detach().clone().requires_grad_(True)
+        y_ = y.detach().reshape(-1).clone().requires_grad_(gauss)
         cw = core_weights(v_, a_, cfg)
         p = p0.detach().clone().requires_grad_(True)
         m, n = torch.zeros_like(p), torch.zeros_like(p)
         losses = []
         for t in range(1, cfg.T + 1):
             params = full(unpack_params(p, cfg))
-            loss_t = elbo.inner_elbo(net, params, eps_tree(eps_in[t - 1]), u_, y, cw)
+            loss_t = elbo.inner_elbo(net, params, eps_tree(eps_in[t - 1]), u_, y_, cw, **lik)
             (g,) = torch.autograd.grad(loss_t, p, create_graph=True)
             p, m, n = _adam(p, m, n, g, t, lr, cfg)
             losses.append(loss_t.detach())
         loss = elbo.psvi_elbo(net, full(unpack_params(p, cfg)), eps_tree(eps_out),
-                           u_, y, cw, xb, yb, cfg.N)
-        g_u, g_v, g_a = torch.autograd.grad(loss, [u_, v_, a_], allow_unused=True)
+                              u_, y_, cw, xb, yb, cfg.N, **lik)
+        wrt = [u_, v_, a_] + ([y_] if gauss else [])
+        g_u, g_v, g_a, *g_z = torch.autograd.grad(loss, wrt, allow_unused=True)
     if g_a is None:
         g_a = torch.zeros_like(alpha)
-    return loss.detach(), torch.stack(losses), p.detach(), g_u, g_v, g_a
+    g_z = g_z[0] if gauss else torch.zeros_like(v)
+    return loss.detach(), torch.stack(losses), p.detach(), g_u, g_v, g_a, g_z
 
 
 def fused_nested_flat(p0, u, v, alpha, z, xb, yb, eps_in, eps_out, lr: float,
                       cfg: FusedCfg, backend=None):
     """The fused step on flat parameters ``p0 (P,)`` and flat noise
-    ``eps_in (T, E)``, ``eps_out (E,)``. ``z``/``yb`` are labels (M,)/(B,).
-    Returns ``(loss, inner_losses (T,), pT (P,), g_u (M, D), g_v (M,),
-    g_alpha (1,))``."""
+    ``eps_in (T, E)``, ``eps_out (E,)``. ``z``/``yb`` are the targets
+    (M,)/(B,): class labels, or reals for a Gaussian likelihood. Returns
+    ``(loss, inner_losses (T,), pT (P,), g_u (M, D), g_v (M,), g_alpha (1,),
+    g_z (M,))``; g_z is zero unless ``cfg.learn_z``, as in the JAX step."""
     if backend is None:
         backend = "cuda" if p0.is_cuda else "torch"
     if backend == "autograd":
-        return _autograd_flat(p0, u, z, v, alpha, xb, yb, eps_in, eps_out, lr, cfg)
+        out = _autograd_flat(p0, u, z, v, alpha, xb, yb, eps_in, eps_out, lr, cfg)
+        return out[:-1] + (out[-1] if cfg.learn_z else torch.zeros_like(out[-1]),)
     if backend == "torch":
         fwd, outer, rev = nested_fwd_torch, nested_outer_torch, nested_rev_torch
     elif backend == "cuda":
@@ -657,9 +730,12 @@ def fused_nested_flat(p0, u, v, alpha, z, xb, yb, eps_in, eps_out, lr: float,
     with torch.no_grad():
         losses, hist, cw = fwd(p0, u, z, v, alpha, eps_in, lr, cfg)
         pT = hist[cfg.T, 0]
-        loss, pbar, ubar, cwbar = outer(pT, u, z, cw, xb, yb, eps_out, cfg)
-        g_u, g_v, g_a = rev(hist, pbar, ubar, cwbar, u, z, cw, v, alpha, eps_in, lr, cfg)
-    return loss, losses, pT, g_u, g_v, g_a
+        loss, pbar, ubar, cwbar, zbar = outer(pT, u, z, cw, xb, yb, eps_out, cfg)
+        g_u, g_v, g_a, g_z = rev(hist, pbar, ubar, cwbar, zbar, u, z, cw, v, alpha, eps_in,
+                                 lr, cfg)
+    if not cfg.learn_z:
+        g_z = torch.zeros_like(g_z)
+    return loss, losses, pT, g_u, g_v, g_a, g_z
 
 
 def fused_nested_outer(params0, u, v, alpha, z, xb, yb, eps_inner, eps_outer, lr: float,
@@ -672,20 +748,21 @@ def fused_nested_outer(params0, u, v, alpha, z, xb, yb, eps_inner, eps_outer, lr
     v (M,), alpha (1,). ``backend``: ``None`` (CUDA kernels for CUDA
     tensors, the plain versions for CPU tensors), ``"cuda"``, ``"torch"``
     or ``"autograd"``. Returns ``(loss, inner_losses (T,), paramsT (L
-    dicts), g_u (M, D), g_v (M,), g_alpha (1,))``.
+    dicts), g_u (M, D), g_v (M,), g_alpha (1,), g_z (M,))``.
     """
     p0 = pack_params(params0)
     e_in = pack_eps(eps_inner, lead=(cfg.T,))
     e_out = pack_eps(eps_outer)
-    loss, losses, pT, g_u, g_v, g_a = fused_nested_flat(
+    loss, losses, pT, g_u, g_v, g_a, g_z = fused_nested_flat(
         p0, u, v, alpha, z, xb, yb, e_in, e_out, lr, cfg, backend=backend)
-    return loss, losses, unpack_params(pT, cfg), g_u, g_v, g_a
+    return loss, losses, unpack_params(pT, cfg), g_u, g_v, g_a, g_z
 
 
 def supports(engine) -> bool:
     """True when the engine's nested step can run as the fused kernels: an
     all-dense ``VILinear (ReLU VILinear)*`` net with biases, KL counted and
-    one prior_sd; categorical likelihood with hard labels; the plain nested
+    one prior_sd; a categorical likelihood with hard labels, or a Gaussian
+    one with one output, its targets learned or not; the plain nested
     trainer with inner Adam; and the CUDA design's caps (L ≤ 8, 2 ≤ S ≤ 32,
     S·max(width) ≤ 2048, M + B ≤ 2048)."""
     net = engine.net
@@ -712,8 +789,11 @@ def supports(engine) -> bool:
         and engine.num_pseudo > 0
         and engine.inner_it >= 1
         and engine.trainer == "nested"
-        and engine.likelihood == "categorical"
-        and not engine.spec.learn_z
+        and engine.likelihood in ("categorical", "gaussian")
+        and (engine.likelihood == "categorical" or widths[-1] == 1)
+        # learned Gaussian targets are a plain hypergradient g_z; the
+        # categorical soft labels (KLDiv) are not fused
+        and not (engine.spec.learn_z and engine.likelihood == "categorical")
         and not engine.spec.ablated
         and not engine.spec.evaluate_only
     )

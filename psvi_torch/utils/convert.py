@@ -53,6 +53,7 @@ def state_from_jax(jstate, device="cpu"):
         alpha=_to_tensor(jstate.alpha, device),
         opt_u=_adam_from_jax(jstate.opt_u, device),
         opt_v=_adam_from_jax(jstate.opt_v, device),
+        opt_z=_adam_from_jax(jstate.opt_z, device),
         opt_alpha=_adam_from_jax(jstate.opt_alpha, device),
         net_step=int(np.asarray(jstate.net_step)),
     )

@@ -3,13 +3,18 @@
 - ``fused_nested_outer(backend="torch")`` (the plain versions of the three
   CUDA kernels, hand-derived math) and ``backend="autograd"`` (the oracle)
   each match JAX ``fused_nested_outer(..., backend="xla")`` on the six
-  configs of ``tests/test_fused_nested.py``, from the same NumPy inputs,
-  with that file's tolerances;
+  categorical configs of ``tests/test_fused_nested.py``, from the same
+  NumPy inputs, with that file's tolerances, and on the Gaussian
+  (regressor) configs — the three regressor methods on sinus with the
+  1-20-1 net of ``tests/test_fused_nested.py:186-213`` and a 1-40-40-1 net
+  — g_z included;
 - one inner iteration's hand-derived VJP (``rev_iter_torch``) matches
-  ``jax.vjp`` of the same one-iteration body and ``torch.autograd``;
+  ``jax.vjp`` of the same one-iteration body and ``torch.autograd``, for
+  both heads (z̄ included for the Gaussian one);
 - ``supports()`` gates what the CUDA design can run.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -18,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from psvi_torch.data import read_dataset
+from psvi_torch.data import read_dataset, read_regression_dataset
 from psvi_torch.inference.psvi import PSVI
 from psvi_torch.models.networks import make_dense
 from psvi_torch.ops import elbo as TE
@@ -80,7 +85,8 @@ def _jax_fused(cfg, a):
     L = cfg.L
     jcfg = JFN.FusedCfg(T=cfg.T, S=cfg.S, widths=cfg.widths, M=cfg.M, B=cfg.B, N=cfg.N,
                         parameterised=cfg.parameterised, use_alpha=cfg.use_alpha,
-                        prior_sd=cfg.prior_sd)
+                        prior_sd=cfg.prior_sd, likelihood=cfg.likelihood, tau=cfg.tau,
+                        learn_z=cfg.learn_z)
 
     def flat_w(e, lyr, lead=()):
         n = int(np.prod(lead, dtype=int)) if lead else 1
@@ -98,11 +104,14 @@ def _jax_fused(cfg, a):
     for p in a["layers"]:
         o = p["mu_b"].shape[0]
         params0 += [p["mu_w"], p["rho_w"], p["mu_b"].reshape(o, 1), p["rho_b"].reshape(o, 1)]
+    if cfg.likelihood == "gaussian":  # raw targets as (1, P) rows
+        ypse, ybat = (jnp.asarray(a[k]).reshape(1, -1) for k in ("z", "yb"))
+    else:
+        ypse, ybat = (jax.nn.one_hot(a[k].astype(np.int32), cfg.nc).T for k in ("z", "yb"))
     out = JFN.fused_nested_outer(
         tuple(jnp.asarray(x) for x in params0), jnp.asarray(a["u"]),
         jnp.asarray(a["v"]).reshape(1, cfg.M), jnp.asarray(a["alpha"]).reshape(1, 1),
-        jax.nn.one_hot(a["z"].astype(np.int32), cfg.nc).T,
-        jax.nn.one_hot(a["yb"].astype(np.int32), cfg.nc).T,
+        ypse, ybat,
         tuple(flat_w(e["w"], l, (cfg.T,)) for l, e in enumerate(a["eps_in"])),
         tuple(flat_b(e["b"], l, (cfg.T,)) for l, e in enumerate(a["eps_in"])),
         tuple(flat_w(e["w"], l) for l, e in enumerate(a["eps_out"])),
@@ -125,7 +134,8 @@ def _port_fused(cfg, a, backend):
 def test_fused_matches_jax(method, dataset, arch, backend):
     cfg, a = _inputs(method, dataset, arch)
     j_loss, j_il, j_pT, j_gu, j_gv, j_ga, _ = _jax_fused(cfg, a)
-    loss, il, pT, g_u, g_v, g_a = _port_fused(cfg, a, backend)
+    loss, il, pT, g_u, g_v, g_a, g_z = _port_fused(cfg, a, backend)
+    assert not g_z.any()  # class labels carry no hypergradient
     # tolerances of tests/test_fused_nested.py:156-183
     assert np.isclose(float(loss), float(j_loss), rtol=1e-5)
     np.testing.assert_allclose(il.numpy(), j_il, rtol=2e-5)
@@ -141,11 +151,88 @@ def test_fused_matches_jax(method, dataset, arch, backend):
         assert np.isclose(float(g_a[0]), float(j_ga.ravel()[0]), rtol=0.05, atol=1e-6)
 
 
-def _one_iter_inputs(seed=1):
-    """fn 2-8-4 on four_blobs-like shapes: one iteration t=3 with nonzero
-    incoming Adam moments and random output cotangents."""
-    cfg = FN.FusedCfg(T=1, S=4, widths=(2, 8, 4), M=6, B=1, N=800.0, parameterised=True,
-                      use_alpha=False, prior_sd=1.0)
+# the regressor configs: tests/test_fused_nested.py:186-213 (sinus, M=12,
+# S=5, 1-20-1, T=4, τ=1.0, B=32) and the same with a 1-40-40-1 net
+REG_METHODS = ["psvi_regressor", "psvi_learn_v_regressor", "psvi_alpha_v_regressor"]
+REG_WIDTHS = [(1, 20, 1), (1, 40, 40, 1)]
+
+
+def _gauss_inputs(method, widths, seed=0, T=4, S=5, M=12, B=32, tau=1.0):
+    """Engine-like inputs of a regressor step on sinus from
+    numpy.random.default_rng(seed): the pseudo-targets are the chosen rows'
+    targets, jittered so they differ from the data."""
+    data = read_regression_dataset("sinus")
+    parameterised = method != "psvi_regressor"
+    cfg = FN.FusedCfg(T=T, S=S, widths=widths, M=M, B=B, N=float(data.N),
+                      parameterised=parameterised,
+                      use_alpha=method == "psvi_alpha_v_regressor", prior_sd=1.0,
+                      likelihood="gaussian", tau=tau, learn_z=True)
+    rng = np.random.default_rng(seed)
+    rho0 = math.log(math.expm1(1e-3))
+    f32 = np.float32
+    layers, eps_in, eps_out = [], [], []
+    for i, o in cfg.layer_dims():
+        b = 1.0 / math.sqrt(i)
+        layers.append({"mu_w": rng.uniform(-b, b, (o, i)).astype(f32),
+                       "rho_w": (rho0 + 0.1 * rng.standard_normal((o, i))).astype(f32),
+                       "mu_b": rng.uniform(-b, b, o).astype(f32),
+                       "rho_b": (rho0 + 0.1 * rng.standard_normal(o)).astype(f32)})
+        eps_in.append({"w": rng.standard_normal((T, S, o, i)).astype(f32),
+                       "b": rng.standard_normal((T, S, o)).astype(f32)})
+        eps_out.append({"w": rng.standard_normal((S, o, i)).astype(f32),
+                        "b": rng.standard_normal((S, o)).astype(f32)})
+    iu, ib = rng.choice(data.N, M, replace=False), rng.choice(data.N, B, replace=False)
+    v = (0.1 * rng.standard_normal(M)).astype(f32) if parameterised else np.full(M, 1 / M, f32)
+    z = (data.y[iu, 0] + 0.3 * rng.standard_normal(M)).astype(f32)
+    arrays = dict(layers=layers, eps_in=eps_in, eps_out=eps_out, u=data.x[iu], z=z,
+                  xb=data.x[ib], yb=data.y[ib, 0], v=v,
+                  alpha=np.array([0.1 if cfg.use_alpha else 0.0], f32), lr=1e-2)
+    return cfg, arrays
+
+
+def _agrees(x, ref, rel=1e-3, cos=0.9999):
+    """cosine > ``cos`` and max |Δ| ≤ ``rel``·max |ref|: sums over S·M terms
+    with cancellation, so an elementwise rtol is not meaningful."""
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return _cos(x, ref) > cos and np.abs(x - ref).max() <= rel * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("backend", ["torch", "autograd"])
+@pytest.mark.parametrize("widths", REG_WIDTHS, ids=["1-20-1", "1-40-40-1"])
+@pytest.mark.parametrize("method", REG_METHODS)
+def test_fused_gaussian_matches_jax(method, widths, backend):
+    cfg, a = _gauss_inputs(method, widths)
+    j_loss, j_il, j_pT, j_gu, j_gv, j_ga, j_gz = _jax_fused(cfg, a)
+    loss, il, pT, g_u, g_v, g_a, g_z = _port_fused(cfg, a, backend)
+    assert np.isclose(float(loss), float(j_loss), rtol=1e-5)
+    np.testing.assert_allclose(il.numpy(), j_il, rtol=2e-5)
+    for l, p in enumerate(pT):
+        for k, key in enumerate(("mu_w", "rho_w", "mu_b", "rho_b")):
+            np.testing.assert_allclose(p[key].numpy(), j_pT[4 * l + k].reshape(p[key].shape),
+                                       rtol=2e-4, atol=1e-6)
+    for name, x, ref in (("g_u", g_u, j_gu), ("g_v", g_v, j_gv), ("g_z", g_z, j_gz)):
+        assert _agrees(x.numpy(), ref.reshape(x.shape)), name
+    if cfg.use_alpha:
+        assert np.isclose(float(g_a[0]), float(j_ga.ravel()[0]), rtol=0.05, atol=1e-6)
+
+
+def test_gaussian_without_learn_z_returns_zero_g_z():
+    """As in JAX, g_z is zero when the targets are not learned."""
+    cfg, a = _gauss_inputs("psvi_learn_v_regressor", (1, 20, 1))
+    cfg = dataclasses.replace(cfg, learn_z=False)
+    for backend in ("torch", "autograd"):
+        out = _port_fused(cfg, a, backend)
+        assert not out[-1].any() and out[3].abs().max() > 0
+
+
+def _one_iter_inputs(seed=1, likelihood="categorical"):
+    """fn 2-8-4 on four_blobs-like shapes (2-8-1 with real targets for the
+    Gaussian head, τ = 0.5): one iteration t=3 with nonzero incoming Adam
+    moments and random output cotangents."""
+    gauss = likelihood == "gaussian"
+    cfg = FN.FusedCfg(T=1, S=4, widths=(2, 8, 1 if gauss else 4), M=6, B=1, N=800.0,
+                      parameterised=True, use_alpha=False, prior_sd=1.0,
+                      likelihood=likelihood, tau=0.5, learn_z=gauss)
     rng = np.random.default_rng(seed)
     P, E = cfg.n_params, cfg.n_eps
     f32 = np.float32
@@ -153,10 +240,11 @@ def _one_iter_inputs(seed=1):
     for q in FN.unpack_params(p, cfg):  # ρ near softplus⁻¹(1e-2)
         q["rho_w"].mul_(0.1).add_(-4.6)
         q["rho_b"].mul_(0.1).add_(-4.6)
+    z = rng.standard_normal(6) if gauss else rng.integers(0, 4, 6)
     return cfg, dict(
         p=p.numpy(), m=(0.1 * rng.standard_normal(P)).astype(f32),
         n=(0.01 * rng.random(P)).astype(f32), eps=rng.standard_normal(E).astype(f32),
-        u=rng.standard_normal((6, 2)).astype(f32), z=rng.integers(0, 4, 6).astype(f32),
+        u=rng.standard_normal((6, 2)).astype(f32), z=z.astype(f32),
         cw=(800 * rng.dirichlet(np.ones(6))).astype(f32),
         pbar=rng.standard_normal(P).astype(f32), mbar=rng.standard_normal(P).astype(f32),
         nbar=rng.standard_normal(P).astype(f32), t=3, lr=1e-2)
@@ -179,12 +267,17 @@ def _join(tree):
                            for d in tree if d])
 
 
-def test_one_iteration_vjp_matches_jax_and_autograd():
-    cfg, a = _one_iter_inputs()
+def _check_one_iteration(likelihood):
+    """``rev_iter_torch`` against ``jax.vjp`` and ``torch.autograd`` of one
+    inner iteration ``(p, m, n, u, cw[, z]) → (p', m', n')``: the Gaussian
+    head also differentiates w.r.t. the targets z."""
+    cfg, a = _one_iter_inputs(likelihood=likelihood)
+    gauss = likelihood == "gaussian"
+    lik = dict(likelihood=likelihood, nc=cfg.nc, tau=cfg.tau)
     t, lr, b1, b2, ae = a["t"], a["lr"], cfg.b1, cfg.b2, cfg.adam_eps
     bc1, bc2s = cfg.bias_corrections(t)
     eps_layers = FN.unpack_eps(torch.tensor(a["eps"]), cfg)
-    jnet = JN.make_fcnet(2, 8, 4, n_layers=1)
+    jnet = JN.make_fcnet(2, 8, cfg.nc, n_layers=1)
     jeps = []
     for l, (w, b) in enumerate(eps_layers):
         if l:
@@ -192,8 +285,8 @@ def test_one_iteration_vjp_matches_jax_and_autograd():
         jeps.append({"w": jnp.asarray(w.numpy()), "b": jnp.asarray(b.numpy())})
     jeps = tuple(jeps)
 
-    def body(params, m, n, u, cw):
-        g = jax.grad(lambda q: JE.inner_elbo(jnet, q, jeps, u, a["z"], cw, nc=4))(params)
+    def body(params, m, n, u, cw, z):
+        g = jax.grad(lambda q: JE.inner_elbo(jnet, q, jeps, u, z, cw, **lik))(params)
         tm = jax.tree_util.tree_map
         m = tm(lambda mm, gg: b1 * mm + (1.0 - b1) * gg, m, g)
         n = tm(lambda nn, gg: b2 * nn + (1.0 - b2) * jnp.square(gg), n, g)
@@ -201,22 +294,33 @@ def test_one_iteration_vjp_matches_jax_and_autograd():
                params, m, n)
         return p, m, n
 
-    (p1, m1, n1), vjp = jax.vjp(body, _split(a["p"], cfg), _split(a["m"], cfg),
-                                _split(a["n"], cfg), jnp.asarray(a["u"]), jnp.asarray(a["cw"]))
-    jp0, jm0, jn0, ju, jcw = vjp((_split(a["pbar"], cfg), _split(a["mbar"], cfg),
-                                  _split(a["nbar"], cfg)))
-    jax_out = [_join(jp0), _join(jm0), _join(jn0), np.asarray(ju), np.asarray(jcw)]
+    if gauss:
+        primals = (jnp.asarray(a["z"]),)
+        jbody = body
+    else:  # class labels are not differentiated
+        primals = ()
+
+        def jbody(params, m, n, u, cw):
+            return body(params, m, n, u, cw, a["z"])
+
+    (p1, m1, n1), vjp = jax.vjp(jbody, _split(a["p"], cfg), _split(a["m"], cfg),
+                                _split(a["n"], cfg), jnp.asarray(a["u"]), jnp.asarray(a["cw"]),
+                                *primals)
+    jp0, jm0, jn0, *rest = vjp((_split(a["pbar"], cfg), _split(a["mbar"], cfg),
+                                _split(a["nbar"], cfg)))
+    jax_out = [_join(jp0), _join(jm0), _join(jn0)] + [np.asarray(x) for x in rest]
 
     tt = lambda k: torch.tensor(np.asarray(a[k]))  # noqa: E731
-    Y = FN._one_hot(tt("z"), cfg.nc)
+    Y = FN._targets(tt("z"), cfg)
     port = FN.rev_iter_torch(t, tt("p"), torch.tensor(_join(m1)), torch.tensor(_join(n1)),
                              tt("pbar"), tt("mbar"), tt("nbar"), tt("u"), Y, tt("cw"),
                              tt("eps"), lr, cfg)
 
     # torch.autograd of the same body (port's own ELBO and Adam)
     net = make_dense(cfg.widths)
-    leaves = [tt(k).requires_grad_(True) for k in ("p", "m", "n", "u", "cw")]
-    p, m, n, u, cw = leaves
+    names = ["pbar", "mbar", "nbar", "ubar", "cwbar"] + (["zbar"] if gauss else [])
+    leaves = [tt(k).requires_grad_(True) for k in ("p", "m", "n", "u", "cw", "z")[:len(names)]]
+    p, m, n, u, cw = leaves[:5]
 
     def tree(flat):
         out = []
@@ -231,19 +335,30 @@ def test_one_iteration_vjp_matches_jax_and_autograd():
         if l:
             teps.append({})
         teps.append({"w": w, "b": b})
-    loss = TE.inner_elbo(net, tree(p), tuple(teps), u, tt("z"), cw, nc=4)
+    z = leaves[5] if gauss else tt("z")
+    loss = TE.inner_elbo(net, tree(p), tuple(teps), u, z, cw, **lik)
     (g,) = torch.autograd.grad(loss, p, create_graph=True)
     p1t, m1t, n1t = FN._adam(p, m, n, g, t, lr, cfg)
     dot = (p1t * tt("pbar")).sum() + (m1t * tt("mbar")).sum() + (n1t * tt("nbar")).sum()
     auto = torch.autograd.grad(dot, leaves)
 
-    names = ["pbar", "mbar", "nbar", "ubar", "cwbar"]
+    assert len(jax_out) == len(auto) == len(names)
     for name, x, j, au in zip(names, port, jax_out, auto):
         x, au = x.detach().numpy(), au.numpy()
         # one iteration in fp32: cosine and max error relative to the largest entry
         for ref in (j, au):
             assert _cos(x, ref) > 0.99999, name
             assert np.abs(x - ref).max() <= 1e-4 * np.abs(ref).max(), name
+    if not gauss:
+        assert not port[5].any()
+
+
+def test_one_iteration_vjp_matches_jax_and_autograd():
+    _check_one_iteration("categorical")
+
+
+def test_one_iteration_vjp_gaussian_matches_jax_and_autograd():
+    _check_one_iteration("gaussian")
 
 
 ENGINE_KW = dict(num_pseudo=20, mc_samples=6, inner_it=5, data_minibatch=64,

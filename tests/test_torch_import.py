@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from psvi_torch.data import read_dataset
+from psvi_torch.data import read_dataset, read_regression_dataset
 from psvi_torch.device import resolve_device
 from psvi_torch.inference.psvi import PSVI, make_psvi_engine, run_psvi
 from psvi_torch.ops import fused_nested as FN
@@ -54,6 +54,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
         make_psvi_engine(data, num_pseudo=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_psvi(data, num_pseudo=4, num_epochs=1)
+    sinus = read_regression_dataset("sinus")
+    for method in ("psvi_regressor", "psvi_learn_v_regressor", "psvi_alpha_v_regressor"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_psvi_engine(sinus, method=method, architecture="regressor_net", num_pseudo=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_psvi(sinus, method="psvi_learn_v_regressor", architecture="regressor_net",
+                 num_pseudo=4, num_epochs=1)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
 
@@ -80,13 +87,13 @@ def _wrapper_args(cfg, bad):
         FN._nested_outer_cuda: (f("pT", P), f("u", M, D), i("y", M), f("cw", M),
                                 f("xb", B, D), i("yb", B), f("eps_out", E), cfg),
         FN._nested_rev_cuda: (f("hist", T + 1, 3, P), f("pbar", P), f("ubar", M, D),
-                              f("cwbar", M), inner[0], inner[1], f("cw", M), inner[2],
-                              inner[3], inner[4], 1e-3, cfg),
+                              f("cwbar", M), f("zbar", M), inner[0], inner[1], f("cw", M),
+                              inner[2], inner[3], inner[4], 1e-3, cfg),
     }
 
 
 @pytest.mark.parametrize("bad", ["p0", "pT", "hist", "u", "y", "yb", "xb", "eps_in",
-                                 "eps_out", "cwbar"])
+                                 "eps_out", "cwbar", "zbar"])
 def test_cuda_wrappers_validate_shapes(bad):
     """The wrappers check every extent the kernel reads before any pointer
     is passed; a correct CPU call gets as far as the device check."""
@@ -98,6 +105,20 @@ def test_cuda_wrappers_validate_shapes(bad):
         match = f"{bad}: expected shape" if takes else "one CUDA device"
         with pytest.raises(ValueError, match=match):
             fn(*args)
+
+
+@pytest.mark.parametrize("dtype,match", [(torch.int32, "y: expected torch.float32"),
+                                         (torch.float32, "one CUDA device")])
+def test_gaussian_wrappers_take_real_targets(dtype, match):
+    """The Gaussian branch reads float32 targets where the categorical one
+    reads int32 labels."""
+    cfg = FN.FusedCfg(T=2, S=2, widths=(1, 5, 1), M=4, B=6, N=10.0, parameterised=True,
+                      use_alpha=False, prior_sd=1.0, likelihood="gaussian", tau=0.5,
+                      learn_z=True)
+    z = torch.zeros
+    with pytest.raises(ValueError, match=match):
+        FN._nested_fwd_cuda(z(cfg.n_params), z(4, 1), z(4, dtype=dtype), z(4), z(1),
+                            z(2, cfg.n_eps), 1e-3, cfg)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
