@@ -22,6 +22,11 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
    caps    — at each edge of the dense ``supports()`` (widest layer, S = 32
              with M + B = 2048, eight layers), for each head, the composed
              CUDA step against the plain version run in float64;
+   sampled_linear — kernel B3 against its plain version (max |Δ| ≤ 1e-5·max
+             |ref|, and a rerun bit for bit) at the LeNet fc shapes (S=10,
+             N=356), fn's second layer (40→4, N=176) and ragged and edge shapes
+             (N = 1 and 7, Dout = 1, S = 1, S = 64 with N = 2048); its
+             Function's backward against autograd through the plain version;
    lenet   — ``lenet_fwd`` and ``lenet_rev`` against their plain versions
              (and against a rerun of themselves, bit for bit) on three
              configs: the flagship psvi_learn_v (S=10, M=100, T=20),
@@ -38,12 +43,23 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              (psvi_learn_v_regressor, M=10, S=10, inner_it=10, B=64, τ=0.1,
              lr 1e-2 for u, v, z, 101 steps, final test RMSE ≤ 0.30); the
              LeNet path, synth_mnist LeNet psvi_learn_v (M=100, S=10,
-             inner_it=20, B=256, init_sd 1e-3, 31 outer steps);
+             inner_it=20, B=256, init_sd 1e-3, 31 outer steps); then the
+             first-order paths with ``backend="pallas"``, where every batched
+             dense forward launches B3: the LeNet flagship under the joint
+             trainer (31 steps) and four_blobs fn 2-40-4 under the
+             alternating trainer with ``retrain_on_coreset`` and
+             ``register_elbos`` (101 steps, then 101 retrain steps), each
+             with B3's launch count derived from the loops;
 5. times   — CUDA-event medians of each kernel (each head at its main
              path's shapes), its plain version, the fused engine steps and
-             the plain autograd engine steps;
+             the plain autograd engine steps; B3, its plain version and a
+             cuBLAS product on pre-sampled weights at the LeNet fc shapes
+             (calls queued back to back behind a device sleep); the LeNet
+             joint and alternating steps with ``backend="pallas"`` against
+             ``backend="xla"``;
    profile — torch.profiler's device time by CUDA kernel over one call of
-             each LeNet kernel and one fused LeNet engine step.
+             each LeNet kernel, one fused LeNet engine step and one LeNet
+             joint step with each backend.
 
 Then, as its last three lines: the ``kernels`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Any failed check
@@ -83,9 +99,29 @@ SOURCE = "psvi_torch/ops/csrc/fused_nested.cu"
 LENET_SOURCE = "psvi_torch/ops/csrc/fused_lenet.cu"
 LENET_REPLACES = {"lenet_fwd": "psvi_tpu/ops/fused_lenet.py:973",
                   "lenet_rev": "psvi_tpu/ops/fused_lenet.py:997"}
+SL_SOURCE = "psvi_torch/ops/csrc/sampled_linear.cu"
+SL_REPLACES = "psvi_tpu/ops/pallas_vi.py:84"
+
+# B3 (sampled_linear) against its plain version: the same fp32 products
+# summed in another order, so max |Δ| ≤ 1e-5·max |ref| on the output and on
+# each gradient of the backward (which also needs cosine > 0.99999).
+REL_B3, COS_B3 = 1e-5, 0.99999
+# (label, S, N, Din, Dout): the LeNet fc layers at N = M + B = 356, S = 10;
+# fn's second layer (40→4) at N = 48 + 128; then ragged and edge shapes
+SL_SHAPES = [
+    ("fc1", 10, 356, 400, 120), ("fc2", 10, 356, 120, 84), ("fc3", 10, 356, 84, 10),
+    ("fn 40-4", 10, 176, 40, 4), ("N=1", 10, 1, 400, 120), ("N=7", 10, 7, 84, 10),
+    ("Dout=1", 10, 356, 40, 1), ("S=1", 1, 356, 120, 84), ("S=64 N=2048", 64, 2048, 400, 120),
+]
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line; a phase's line also gets the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -474,6 +510,103 @@ def work(cfg):
     return ops, byts
 
 
+def sl_inputs(S, N, Din, Dout, seed, dev):
+    """B3's inputs from numpy.random.default_rng(seed): post-ReLU activations,
+    U(±1/√Din) means, ρ = softplus⁻¹(1e-3) with a spread of 3 (both branches
+    of softplus), N(0, 1) noise."""
+    rng = np.random.default_rng(seed)
+    rho0, b = math.log(math.expm1(1e-3)), 1.0 / math.sqrt(Din)
+    arrays = (np.maximum(rng.standard_normal((S, N, Din)), 0.0), rng.uniform(-b, b, (Dout, Din)),
+              rho0 + 3.0 * rng.standard_normal((Dout, Din)), rng.uniform(-b, b, Dout),
+              rho0 + 3.0 * rng.standard_normal(Dout), rng.standard_normal((S, Dout, Din)),
+              rng.standard_normal((S, Dout)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrays]
+
+
+def check_sampled_linear(SL, chk, dev):
+    """B3 against its plain version on the same CUDA inputs at every shape of
+    SL_SHAPES, and a rerun bit for bit; then the Function's backward (JAX's
+    _bwd in torch products, after the kernel's forward) against autograd
+    through the plain version, for a random output cotangent."""
+    names = ("dx", "dmu_w", "drho_w", "dmu_b", "drho_b")
+    rep = {"phase": "kernels", "config": "sampled_linear", "gate_rel": REL_B3, "shapes": {}}
+    for seed, (label, S, N, Din, Dout) in enumerate(SL_SHAPES):
+        a = sl_inputs(S, N, Din, Dout, 100 + seed, dev)
+        y = SL._sampled_linear_cuda(*a)
+        same_bits([SL._sampled_linear_cuda(*a)], [y], "sampled_linear")
+        ref = SL.sampled_linear_reference(*a)
+        torch.cuda.synchronize()
+        e, r = chk._note("sampled_linear", y, ref), _rel(y, ref)
+        if not r <= REL_B3:
+            raise AssertionError(f"sampled_linear {label}: max|Δ|/max|ref| {r} > {REL_B3}")
+        g = torch.randn((S, N, Dout), generator=torch.Generator(dev).manual_seed(seed),
+                        device=dev)
+        grads = {}
+        for key, fn in (("function", SL.sampled_linear), ("autograd", SL.sampled_linear_reference)):
+            leaves = [t.clone().requires_grad_(True) for t in a[:5]]
+            with torch.enable_grad():
+                grads[key] = torch.autograd.grad(fn(*leaves, *a[5:]), leaves, g)
+        torch.cuda.synchronize()
+        bwd = {}
+        for nm, x, ref_g in zip(names, grads["function"], grads["autograd"]):
+            c, rg = _cos(x, ref_g), _rel(x, ref_g)
+            if not (c > COS_B3 and rg <= REL_B3):
+                raise AssertionError(f"sampled_linear backward {label}/{nm}: cos {c}, rel {rg}")
+            bwd[nm] = {"cos": c, "rel": rg}
+        rep["shapes"][label] = {"S": S, "N": N, "Din": Din, "Dout": Dout, "max_abs": e,
+                                "rel": r, "backward": bwd}
+    emit(rep)
+
+
+def sl_work(S, N, Din, Dout):
+    """B3's fp32 operations (the product's multiply-adds count 2, the
+    sampling a multiply and an add per sampled weight and bias, the bias add
+    one) and bytes (each input read once, the output written once)."""
+    ops = 2 * S * N * Din * Dout + 2 * S * Dout * (Din + 1) + S * N * Dout
+    byts = 4 * (S * N * Din + 2 * Dout * Din + 2 * Dout + S * Dout * Din + S * Dout + S * N * Dout)
+    return ops, byts
+
+
+def b3_expected(data, kw, forwards_per_step, retrain=False):
+    """B3's launches in one run_psvi, derived from its loops. Each forward of
+    the net launches it once for every VILinear that sees a batched (S, N, ·)
+    input: LeNet's three fc layers, every fn layer after the first. A
+    training step runs ``forwards_per_step`` forwards, an evaluation one per
+    test batch, a retrain step one."""
+    n3 = 3 if kw["architecture"] == "lenet" else kw["n_layers"]
+    evals = len(range(0, kw["num_epochs"], kw["log_every"]))
+    n_test = len(data.xt)
+    per_eval = -(-n_test // min(kw["data_minibatch"], n_test))
+    n = kw["num_epochs"] * forwards_per_step + evals * per_eval
+    if retrain:
+        n += kw["num_epochs"] + evals * per_eval
+    return n3 * n
+
+
+def queued_ms(fn, reps=50, rounds=5):
+    """Device time per call: CUDA events around ``reps`` calls queued behind
+    a device sleep, so the host's launch cost is hidden and the calls run
+    back to back; the median over ``rounds``. Also whether the host finished
+    queueing before the sleep ended (else the time includes host gaps)."""
+    fn()
+    torch.cuda.synchronize()
+    times, queued = [], True
+    for _ in range(rounds):
+        e0, s, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(100_000_000)
+        s.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e.record()
+        torch.cuda.synchronize()
+        queued = queued and host_ms < e0.elapsed_time(s)
+        times.append(s.elapsed_time(e) / reps)
+    return float(np.median(times)), queued
+
+
 def lenet_cfg(FL, data, S, M, T, parameterised, use_alpha):
     return FL.LeNetCfg(T=T, S=S, M=M, nc=data.nc, N=float(data.N), parameterised=parameterised,
                        use_alpha=use_alpha, prior_sd=1.0)
@@ -672,9 +805,11 @@ def main() -> int:
     import psvi_torch  # noqa: F401  (fails outside a checkout)
     from psvi_torch.data import DataBundle, read_dataset, read_regression_dataset
     from psvi_torch.inference.psvi import PSVI, make_psvi_engine
+    from psvi_torch.models.layers import softplus
     from psvi_torch.ops import _build
     from psvi_torch.ops import fused_lenet as FL
     from psvi_torch.ops import fused_nested as FN
+    from psvi_torch.ops import sampled_linear as SL
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true fp32
@@ -686,7 +821,7 @@ def main() -> int:
 
     # 2. build every kernel source of the paths, one nvcc each, all at once
     t0 = time.perf_counter()
-    sources = ["fused_nested", "fused_lenet"]
+    sources = ["fused_nested", "fused_lenet", "sampled_linear"]
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
     ptxas = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -730,9 +865,10 @@ def main() -> int:
         cfg = lenet_cfg(FL, mnist, S, M, T, par, ua)
         check_lenet(FL, chk, name, cfg, lenet_inputs(FL, cfg, mnist, seed, dev), composed)
     check_lenet_caps(FL, PSVI, mnist, chk, dev)
+    check_sampled_linear(SL, chk, dev)
 
     # 4. the main paths, through the user's entry point
-    mods = (FN, FL)
+    mods = (FN, FL, SL)
 
     def only(**n):  # expected launches: n of the named kernels, none of the rest
         return {k: n.get(k, 0) for mod in mods for k in mod.LAUNCHES}
@@ -787,6 +923,42 @@ def main() -> int:
           "seconds": secs_l, "step_path": eng_l.step_path})
     if not acc_l >= 0.99:
         raise AssertionError(f"synth_mnist LeNet final accuracy {acc_l} < 0.99")
+    # the first-order paths with backend="pallas": every batched dense
+    # forward (training, retrain, evaluation) launches B3, no nested kernel
+    lj_kw = {**lenet_kw, "trainer": "joint", "backend": "pallas"}
+    del lj_kw["fused_inner"]
+    n_lj = b3_expected(mnist, lj_kw, 1)
+    eng_lj, res_lj, launches_lj, secs_lj = run_engine(mods, make_psvi_engine, mnist,
+                                                      only(sampled_linear=n_lj), **lj_kw)
+    shapes_lj = {f"{s}x{n}x{i}x{o}": c for (s, n, i, o), c in SL.LAUNCH_SHAPES.items()}
+    acc_lj = res_lj["accs"][-1]
+    emit({"phase": "engine", "config": "synth_mnist lenet psvi_learn_v M=100 S=10 B=256 joint "
+          "backend=pallas", "accs": res_lj["accs"], "nlls": res_lj["nlls"],
+          "launches": launches_lj, "b3_launches_by_shape": shapes_lj, "seconds": secs_lj,
+          "step_path": eng_lj.step_path})
+    if not all(math.isfinite(x) for x in res_lj["accs"] + res_lj["nlls"]):
+        raise AssertionError("non-finite accuracy or NLL on the LeNet joint path")
+    if not acc_lj >= 0.99:
+        raise AssertionError(f"synth_mnist LeNet joint final accuracy {acc_lj} < 0.99")
+    fb_kw = {**main_kw, "trainer": "alternating", "backend": "pallas",
+             "retrain_on_coreset": True, "register_elbos": True}
+    del fb_kw["fused_inner"]
+    n_fb = b3_expected(blobs, fb_kw, 2, retrain=True)
+    eng_fb, res_fb, launches_fb, secs_fb = run_engine(mods, make_psvi_engine, blobs,
+                                                      only(sampled_linear=n_fb), **fb_kw)
+    tags = sorted({t for t, _ in res_fb["elbos"]})
+    n_eval = len(res_fb["accs"]) // 2
+    emit({"phase": "engine", "config": "four_blobs fn 2-40-4 psvi_learn_v M=48 alternating "
+          "backend=pallas retrain_on_coreset register_elbos", "accs": res_fb["accs"],
+          "nlls": res_fb["nlls"], "launches": launches_fb, "elbos": len(res_fb["elbos"]),
+          "elbo_tags": tags, "seconds": secs_fb, "step_path": eng_fb.step_path})
+    if not all(math.isfinite(x) for x in res_fb["accs"] + res_fb["nlls"]):
+        raise AssertionError("non-finite accuracy or NLL on the four_blobs alternating path")
+    for what, acc_fb in (("training", res_fb["accs"][n_eval - 1]), ("retrain", res_fb["accs"][-1])):
+        if not acc_fb >= 0.85:
+            raise AssertionError(f"four_blobs alternating {what} final accuracy {acc_fb} < 0.85")
+    if len(res_fb["elbos"]) != 2 * fb_kw["num_epochs"] or tags != [0, 1]:
+        raise AssertionError(f"elbos: {len(res_fb['elbos'])} entries with tags {tags}")
 
     # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; sinus
     # regressor 1-40-1, M=10, B=64; LeNet flagship)
@@ -815,6 +987,28 @@ def main() -> int:
         kernels += [timed_kernel(name, kern, plain, lops[name], lbyts[name], launches_l, chk,
                                  LENET_SOURCE, LENET_REPLACES[name], 10)
                     for name, (kern, plain) in lcalls.items()]
+        # B3 at the LeNet fc shapes: the kernel, its plain version and one
+        # cuBLAS product on pre-sampled weights (sampling excluded)
+        for label, S, N, Din, Dout in SL_SHAPES[:3]:
+            a = sl_inputs(S, N, Din, Dout, 200, dev)
+            w_t = (a[1][None] + softplus(a[2])[None] * a[5]).transpose(1, 2)
+            b = (a[3][None] + softplus(a[4])[None] * a[6])[:, None, :]
+            ms, q_k = queued_ms(lambda: SL._sampled_linear_cuda(*a))
+            plain_ms, q_p = queued_ms(lambda: SL.sampled_linear_reference(*a))
+            lib_ms, q_l = queued_ms(lambda: torch.baddbmm(b, a[0], w_t))
+            ops, byts = sl_work(S, N, Din, Dout)
+            t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
+            kernels.append({
+                "name": f"sampled_linear_{label}", "route": "cuda", "source": SL_SOURCE,
+                "replaces": SL_REPLACES, "launches": shapes_lj[f"{S}x{N}x{Din}x{Dout}"],
+                "max_abs_err": chk.max_abs["sampled_linear"], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms,
+                "library": "torch.baddbmm on pre-sampled W (cuBLAS product only, sampling "
+                           "excluded)",
+                "shape": f"S={S} N={N} {Din}->{Dout}", "launches_of": "LeNet joint run",
+                "per_call_ms": median_ms(lambda: SL._sampled_linear_cuda(*a)),
+                "queued_ahead": q_k and q_p and q_l, "ops": ops, "bytes": byts})
     # whole engine steps on the same card: fused kernels vs plain autograd
     steps = {}
     for key, e, data, kw in (("nested", eng, blobs, main_kw), ("regressor", eng_r, sinus, reg_kw)):
@@ -831,6 +1025,19 @@ def main() -> int:
     lenet_fused_ms = median_ms(lambda: eng_l._nested_step_fused_lenet(st_lf, batch_l), reps=10,
                                warmup=2)
     lenet_plain_ms = median_ms(lambda: eng_lp._nested_step(st_lp, batch_l), reps=3, warmup=1)
+    # the first-order LeNet steps, backend "pallas" (B3) against "xla", in
+    # turns (xla, pallas, pallas, xla) on the same batch and state
+    fo = {}
+    for trainer in ("joint", "alternating"):
+        kw = {**lenet_kw, "trainer": trainer}
+        del kw["fused_inner"]
+        es = {b: PSVI(mnist, **{**kw, "backend": b}) for b in ("xla", "pallas")}
+        fns = {b: getattr(e, f"_{trainer}_step") for b, e in es.items()}
+        runs = {b: [] for b in es}
+        for b in ("xla", "pallas", "pallas", "xla"):
+            st = es[b].state
+            runs[b].append(median_ms(lambda: fns[b](st, batch_l), reps=20, warmup=3))
+        fo[f"lenet_{trainer}_step_ms"] = runs
     emit({"phase": "times", "card": card,
           "config": {"dense": "four_blobs fn 2-40-4 M=48 S=10 T=10 B=128",
                      "regressor": "sinus regressor_net 1-40-1 M=10 S=10 T=10 B=64 tau=0.1",
@@ -839,12 +1046,27 @@ def main() -> int:
           "plain_ms": {k["name"]: k["plain_ms"] for k in kernels},
           "bound_ms": {k["name"]: k["bound_ms"] for k in kernels},
           **steps, "lenet_step_fused_ms": lenet_fused_ms,
-          "lenet_step_plain_autograd_ms": lenet_plain_ms})
+          "lenet_step_plain_autograd_ms": lenet_plain_ms, **fo})
     # where the LeNet time goes, by kernel (torch.profiler)
     with torch.no_grad():
         prof = profile_calls({name: kern for name, (kern, _) in lcalls.items()})
     prof.update(profile_calls(
         {"lenet_step_fused": lambda: eng_l._nested_step_fused_lenet(st_lf, batch_l)}))
+    # one LeNet joint step with each backend: B3's share and the busy share
+    eng_jx = PSVI(mnist, **{**lj_kw, "backend": "xla"})
+    st_jp, st_jx = eng_lj.state, eng_jx.state
+    prof.update(profile_calls({
+        "lenet_joint_step_pallas": lambda: eng_lj._joint_step(st_jp, batch_l),
+        "lenet_joint_step_xla": lambda: eng_jx._joint_step(st_jx, batch_l)}))
+    for backend in ("pallas", "xla"):
+        p = prof[f"lenet_joint_step_{backend}"]
+        if p["device_ms"]:
+            # the profiler's own host cost lengthens the profiled wall, so
+            # also against the step's unprofiled median (times phase)
+            p["busy_share"] = p["device_ms"] / p["wall_ms_profiled"]
+            p["busy_share_of_step"] = p["device_ms"] / float(
+                np.median(fo["lenet_joint_step_ms"][backend]))
+            p["b3_ms"] = sum(r["ms"] for r in p["top"] if "sampled_linear" in r["kernel"])
     emit({"phase": "profile", "card": card, "config": "synth_mnist LeNet M=100 S=10 T=20 B=256",
           **prof})
 

@@ -1,9 +1,10 @@
-"""PSVI inference engine — the nested slices of the port.
+"""PSVI inference engine — the nested and first-order slices of the port.
 
 Counterpart of ``psvi_tpu/inference/psvi.py`` for the nested (bilevel)
-trainer on the dense mean-field nets (logistic regression and the ``fn``
-MLP) and on LeNet with the categorical likelihood, and on the regression
-MLP with the Gaussian likelihood and learned targets (``PSVIRegressor``):
+trainer and the first-order ``joint`` and ``alternating`` trainers on the
+dense mean-field nets (logistic regression and the ``fn`` MLP) and on LeNet
+with the categorical likelihood, and on the regression MLP with the
+Gaussian likelihood and learned targets (``PSVIRegressor``):
 
 - ``PSVIState`` — parameters, pseudodata (u, z), weights v, α and the
   Adam states of the hyperparameters;
@@ -16,8 +17,14 @@ MLP with the Gaussian likelihood and learned targets (``PSVIRegressor``):
 - ``_nested_step_fused_lenet`` — the LeNet step with its inner unroll
   through the kernel pair of ``ops/fused_lenet.py`` and the outer IW-ELBO
   through autograd;
+- ``_joint_step`` and ``_alternating_step`` — single-level Adam steps on
+  the outer objective (ref ``joint_step`` :517-525, ``alternating_step``
+  :527-539), and ``_retrain_step``, the net-only step of the retrain loop;
+  with ``backend="pallas"`` every batched dense forward on these paths goes
+  through kernel B3 (``ops/sampled_linear.py``);
 - ``_evaluate_fn`` and the ``run_psvi`` loop with the reference's
-  results-dict keys;
+  results-dict keys, the ``register_elbos`` streams, ``reset`` and
+  ``retrain_on_coreset``;
 - ``PSVIRegressor`` — the Gaussian likelihood at precision ``tau``, the
   pseudo-targets z learned with the other hyperparameters, RMSE and
   predictive-LL evaluation.
@@ -27,7 +34,7 @@ per engine on its device, seeded from ``seed`` (the JAX engine's
 ``trial_key``). The pseudodata init is host-side NumPy and draws the same
 points as the JAX engine for the same seed.
 
-The nested steps and the regressor's evaluation accept injected batches
+The trainers' steps and the regressor's evaluation accept injected batches
 and noise; the tests use that seam to line the port up with JAX.
 """
 
@@ -41,7 +48,7 @@ import torch
 
 from psvi_torch.data.datasets import DataBundle
 from psvi_torch.device import resolve_device
-from psvi_torch.models.layers import VILinear, fuse_conv_pool
+from psvi_torch.models.layers import VILinear, fuse_conv_pool, with_dense_backend
 from psvi_torch.models.networks import set_up_model
 from psvi_torch.ops import elbo as E
 from psvi_torch.ops import fused_lenet as FL
@@ -62,11 +69,23 @@ class PSVIState(NamedTuple):
     opt_v: Any
     opt_z: Any
     opt_alpha: Any
+    opt_net: Any  # the net's Adam (alternating trainer, retrain loop)
+    opt_joint: Any  # the joint trainer's Adam over {params, u[, v]}
     net_step: int  # StepLR counter
 
 
 def _count_pad(n, b):
     return (b - n % b) % b
+
+
+def _value_and_grad(fn, tree):
+    """``fn(tree)`` and its gradient with respect to every leaf of ``tree``,
+    as a tree of the same structure (``jax.value_and_grad``)."""
+    with torch.enable_grad():
+        leaves = tree_map(lambda x: x.detach().requires_grad_(True), tree)
+        loss = fn(leaves)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    return loss.detach(), tree_unflatten(tree, grads)
 
 
 def _check_spec(method: str, spec: MethodSpec, likelihood: str):
@@ -88,7 +107,14 @@ def _check_spec(method: str, spec: MethodSpec, likelihood: str):
 
 
 class PSVI:
-    """Black-box coreset VI engine (classification, nested trainer).
+    """Black-box coreset VI engine (classification).
+
+    ``trainer``: ``"nested"`` (bilevel, the default), ``"joint"`` or
+    ``"alternating"``. ``backend``: ``"xla"`` (the plain dense product) or
+    ``"pallas"`` — JAX's two values, so that a JAX config selects the same
+    path; in the port ``"pallas"`` means the hand-written CUDA kernel B3 for
+    every batched dense forward. Its backward is first-order only, so the
+    nested and hyper trainers refuse it, as the JAX engine does.
 
     ``device=None`` means CUDA (raises without a GPU); pass ``device="cpu"``
     for the plain PyTorch path on the CPU. ``fused_inner``: ``"auto"`` uses
@@ -124,12 +150,18 @@ class PSVI:
         lr0v: float = 1e-3,
         lr0z: float = 1e-3,
         lr0alpha: float = 1e-3,
+        lr0joint: float = 1e-3,
         gamma: float = 1.0,
         num_epochs: int = 100,
         log_every: int = 10,
+        register_elbos: bool = False,
         init_args: str = "subsample",
+        reset: bool = False,
+        reset_interval: int = 10,
+        retrain_on_coreset: bool = False,
         compute_weights_entropy: bool = True,
         tau: float = 0.1,
+        backend: str = "xla",
         fused_inner="auto",
         device=None,
         **unported,
@@ -138,10 +170,19 @@ class PSVI:
             raise NotImplementedError(
                 f"options {sorted(unported)} are not ported yet (ROADMAP.md, queue A)"
             )
-        if trainer != "nested":
+        if backend == "pallas" and trainer in ("nested", "hyper"):
+            raise ValueError(
+                "backend='pallas' serves first-order paths only (joint/alternating "
+                "trainers, retrain, evaluation): the nested trainer differentiates twice "
+                "through the layer and the hyper trainer applies forward mode to it; the "
+                "kernel's autograd Function gives neither"
+            )
+        if trainer == "hyper":
             raise NotImplementedError(
                 f"trainer {trainer!r} is not ported yet (ROADMAP.md, queue A item 7)"
             )
+        if trainer not in ("nested", "joint", "alternating"):
+            raise ValueError(f"unknown trainer {trainer!r}")
         if fused_inner not in ("auto", True, False):
             raise ValueError(f"fused_inner must be 'auto', True or False, got {fused_inner!r}")
         self.device = resolve_device(device)
@@ -157,11 +198,15 @@ class PSVI:
         self.n_hidden, self.n_layers, self.init_sd = n_hidden, n_layers, init_sd
         self.inner_it = inner_it
         self.trainer = trainer
-        self.lrs = dict(net=lr0net, u=lr0u, v=lr0v, z=lr0z, alpha=lr0alpha)
+        self.lrs = dict(net=lr0net, u=lr0u, v=lr0v, z=lr0z, alpha=lr0alpha, joint=lr0joint)
         self.gamma = gamma
         self.num_epochs = num_epochs
         self.log_every = log_every
+        self.register_elbos = register_elbos
         self.init_args = init_args
+        self.reset, self.reset_interval = reset, reset_interval
+        self.retrain_on_coreset = retrain_on_coreset
+        self.backend = backend
         self.compute_weights_entropy = compute_weights_entropy
         self.tau = tau
         self.fused_inner = fused_inner
@@ -181,10 +226,10 @@ class PSVI:
         self.data_minibatch = min(data_minibatch, self.N, self.n_train_now)
 
         # conv + max-pool pairs fold into the parity-split pooled conv, as
-        # the JAX engine's default fuse_convpool
-        self.net = fuse_conv_pool(set_up_model(
+        # the JAX engine's default fuse_convpool; then the dense backend
+        self.net = with_dense_backend(fuse_conv_pool(set_up_model(
             architecture, self.D, n_hidden, self.nc, init_sd, n_layers=n_layers,
-            n_channels=data.channels or 1)).to(dev)
+            n_channels=data.channels or 1)), backend).to(dev)
         self._init_state()
         self._step = self._trainer_fn()
 
@@ -246,6 +291,10 @@ class PSVI:
         self.opt_v = O.adam(self.lrs["v"])
         self.opt_z = O.adam(self.lrs["z"])
         self.opt_alpha = O.adam(self.lrs["alpha"])
+        self.opt_net = O.adam(self.lrs["net"])
+        self.opt_joint = O.adam(self.lrs["joint"])
+        # the retrain loop takes a fresh Adam at lr0joint (ref :971)
+        self.opt_retrain = O.adam(self.lrs["joint"])
         self.inner_opt = O.adam(self.lrs["net"])
         # StepLR schedule for the net lr (ref :803-807,864-866)
         epoch_quarter = (self.N // self.data_minibatch) // 4
@@ -254,8 +303,23 @@ class PSVI:
         self.state = PSVIState(
             params=params, u=u, z=z, v=v, alpha=alpha,
             opt_u=self.opt_u.init(u), opt_v=self.opt_v.init(v), opt_z=self.opt_z.init(z),
-            opt_alpha=self.opt_alpha.init(alpha), net_step=0,
+            opt_alpha=self.opt_alpha.init(alpha), opt_net=self.opt_net.init(params),
+            opt_joint=self.opt_joint.init(self._joint_leaves(params, u, v)), net_step=0,
         )
+
+    def _joint_leaves(self, params, u, v):
+        """What the joint trainer learns: the net, u and, where v is learned,
+        v; z and α are not (ref optimizer :876-882)."""
+        leaves = {"params": params, "u": u}
+        if self.spec.learn_v:
+            leaves["v"] = v
+        return leaves
+
+    def weight_reset(self):
+        """Reinitialise the variational parameters and the net's Adam (ref
+        :1110-1128)."""
+        params = self.net.init(self.gen)
+        self.state = self.state._replace(params=params, opt_net=self.opt_net.init(params))
 
     # ------------------------------------------------------------------
     # objectives
@@ -441,6 +505,52 @@ class PSVI:
                                net_step=state.net_step + 1)
         return state, {"outer_loss": loss.detach(), "inner_losses": inner_losses.detach()}
 
+    def _joint_step(self, state: PSVIState, batch=None, eps=None):
+        """One Adam step on (params, u[, v]) jointly, on the outer objective
+        (JAX ``_joint_step``; ref ``joint_step`` :517-525). ``eps`` is one
+        noise tree."""
+        xb, yb = batch if batch is not None else self._sample_batch()
+        if eps is None:
+            eps = self._sample_eps(self.mc_samples)
+        leaves = self._joint_leaves(state.params, state.u, state.v)
+        loss, grads = _value_and_grad(lambda lv: self._outer_loss(
+            lv["params"], eps, lv["u"], state.z, lv.get("v", state.v), state.alpha, xb, yb),
+            leaves)
+        leaves, opt_joint = self.opt_joint.step(leaves, grads, state.opt_joint)
+        state = state._replace(params=leaves["params"], u=leaves["u"],
+                               v=leaves.get("v", state.v), opt_joint=opt_joint)
+        return state, {"outer_loss": loss, "inner_losses": torch.zeros(1, device=self.device)}
+
+    def _alternating_step(self, state: PSVIState, batch=None, eps=None):
+        """A net step, then a u step at the new net, each on the outer
+        objective with its own noise draw (JAX ``_alternating_step``; ref
+        ``alternating_step`` :527-539). ``eps`` is the pair of draws, net
+        step first. ``inner_losses`` holds the u step's loss, as JAX returns
+        it (the stream tag 1 of ``register_elbos``)."""
+        xb, yb = batch if batch is not None else self._sample_batch()
+        if eps is None:
+            eps = (self._sample_eps(self.mc_samples), self._sample_eps(self.mc_samples))
+        eps_net, eps_u = eps
+        loss0, gp = _value_and_grad(lambda p: self._outer_loss(
+            p, eps_net, state.u, state.z, state.v, state.alpha, xb, yb), state.params)
+        params, opt_net = self.opt_net.step(state.params, gp, state.opt_net)
+        loss1, gu = _value_and_grad(lambda u: self._outer_loss(
+            params, eps_u, u, state.z, state.v, state.alpha, xb, yb), state.u)
+        u, opt_u = self.opt_u.step(state.u, gu, state.opt_u)
+        state = state._replace(params=params, u=u, opt_net=opt_net, opt_u=opt_u)
+        return state, {"outer_loss": loss0, "inner_losses": loss1[None]}
+
+    def _retrain_step(self, state: PSVIState, eps=None):
+        """Net-only Adam step on the inner ELBO over the coreset, with the
+        retrain Adam at lr0joint on ``state.opt_net`` (JAX ``_retrain_step``;
+        ref retrain loop :996-1003). Returns (state, loss)."""
+        if eps is None:
+            eps = self._sample_eps(self.mc_samples)
+        loss, g = _value_and_grad(lambda p: self._inner_loss(
+            p, eps, state.u, state.z, state.v, state.alpha), state.params)
+        params, opt_net = self.opt_retrain.step(state.params, g, state.opt_net)
+        return state._replace(params=params, opt_net=opt_net), loss
+
     def _use_fused_inner(self):
         """Which fused path serves this config: ``'dense'``
         (ops/fused_nested), ``'lenet'`` (ops/fused_lenet) or ``None``."""
@@ -456,7 +566,14 @@ class PSVI:
         return which if self.device.type == "cuda" else None
 
     def _trainer_fn(self):
+        # evaluated first, so that fused_inner=True raises for a configuration
+        # the kernels do not serve, a first-order trainer included (JAX
+        # psvi.py:1258-1261)
         which = self._use_fused_inner()
+        if self.trainer == "joint":
+            return self._joint_step
+        if self.trainer == "alternating":
+            return self._alternating_step
         if which == "dense":
             return self._nested_step_fused
         if which == "lenet":
@@ -505,8 +622,11 @@ class PSVI:
 
     def run_psvi(self) -> dict:
         """Train for ``num_epochs`` outer steps, evaluating every
-        ``log_every``; returns the reference's results dict (JAX engine
-        ``psvi.py:1713-1720``)."""
+        ``log_every``; with ``retrain_on_coreset``, then re-fit the net on the
+        coreset alone for as many steps, evaluated without the IW correction
+        (ref :967-1003). Returns the reference's results dict (JAX engine
+        ``psvi.py:1713-1720``): raw v in ``vs`` while training, f(v) while
+        retraining."""
         nlls, accs, csizes, iws_ent, nesses, vs_ent, vs, times = [], [], [], [], [], [], [], [0.0]
         if self.spec.learn_alpha:
             self.results.setdefault("alpha", [])
@@ -526,8 +646,30 @@ class PSVI:
                 nesses.append(float(ness))
                 if self.spec.learn_alpha:
                     self.results["alpha"].append(self.state.alpha.cpu().numpy())
-            self.state, _ = self._step(self.state)
+            if self.reset and it % self.reset_interval == 0:
+                self.weight_reset()
+            self.state, aux = self._step(self.state)
+            if self.register_elbos:
+                # stream tags (ref :521-559): 1 for the inner entries, then
+                # the step's own, 2 for the joint trainer and 0 otherwise
+                inner = aux["inner_losses"].cpu()
+                for j in range(0, inner.shape[0], max(self.log_every, 1)):
+                    self.elbos.append((1, -float(inner[j])))
+                self.elbos.append((2 if self.trainer == "joint" else 0,
+                                   -float(aux["outer_loss"])))
             log_resource.update()
+        if self.retrain_on_coreset:
+            self.weight_reset()
+            for it in range(self.num_epochs):
+                if it % self.log_every == 0:
+                    acc, nll, *_ = self._evaluate_fn(self.state, correction=False)
+                    accs.append(float(acc))
+                    nlls.append(float(nll))
+                    csizes.append(self.num_pseudo)
+                    times.append(times[-1] + time.time() - t_start)
+                    _, fv = self._core_weights(self.state.v, self.state.alpha)
+                    vs.append(fv.cpu().numpy())
+                self.state, _ = self._retrain_step(self.state)
         resources = log_resource.get_resources()
         self.results.update(
             accs=accs, nlls=nlls, csizes=csizes, times=times[1:], elbos=self.elbos,

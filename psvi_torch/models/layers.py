@@ -2,9 +2,8 @@
 
 Counterpart of ``psvi_tpu/models/layers.py``'s ``VILinear``, ``VIConv2d``,
 ``VIConvPool2d`` (with ``PrePatched`` and ``fuse_conv_pool``),
-``MaxPool2d`` (reshape backend), ``Flatten``, ``ReLU``, ``Identity`` and
-``Sequential``. Each layer
-is an ``nn.Module`` that holds its configuration; the computation is
+``MaxPool2d`` (reshape backend), ``Flatten``, ``ReLU``, ``Identity``,
+``Sequential`` and ``with_dense_backend``. Each layer is an ``nn.Module`` that holds its configuration; the computation is
 functional so that ``torch.autograd`` can differentiate through the inner
 unroll:
 
@@ -23,6 +22,7 @@ variational layer accepts an unbatched ``(N, ...)`` input and adds it.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -121,18 +121,26 @@ class _MeanField(Layer):
 
 class VILinear(_MeanField):
     """Mean-field Gaussian variational dense layer, ``y = x @ W_sᵀ + b_s``
-    (ref ``psvi/models/neural_net.py:176-179``)."""
+    (ref ``psvi/models/neural_net.py:176-179``).
+
+    ``backend`` keeps the JAX package's two values so that a JAX config
+    selects the same path: ``"xla"``, the plain product; ``"pallas"``, which
+    in the port means kernel B3 (``ops/sampled_linear.py``, hand-written
+    CUDA on the card) for every batched (S, N, in) input. B3's backward is
+    first-order only, so ``"pallas"`` serves the first-order paths."""
 
     def __init__(self, in_dim: int, out_dim: int, init_sd: float = 0.01,
-                 prior_sd: float = 1.0, use_bias: bool = True):
+                 prior_sd: float = 1.0, use_bias: bool = True, backend: str = "xla"):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
         self.init_sd, self.prior_sd = init_sd, prior_sd
         self.use_bias = use_bias
         self.count_kl = True
+        self.backend = backend
 
     def extra_repr(self):
-        return f"{self.in_dim}, {self.out_dim}, init_sd={self.init_sd}, prior_sd={self.prior_sd}"
+        return (f"{self.in_dim}, {self.out_dim}, init_sd={self.init_sd}, "
+                f"prior_sd={self.prior_sd}, backend={self.backend}")
 
     def init(self, generator):
         # torch nn.Linear.reset_parameters: U(±1/√fan_in) means
@@ -163,6 +171,12 @@ class VILinear(_MeanField):
 
     def apply(self, params, eps, x):
         # x: (N, in) unbatched or (S, N, in); w: (S, out, in); b: (S, out)
+        if x.dim() == 3 and self.backend == "pallas" and self.use_bias:
+            # imported here, as the JAX layer does (layers.py:158)
+            from psvi_torch.ops.sampled_linear import sampled_linear
+
+            return sampled_linear(x, params["mu_w"], params["rho_w"], params["mu_b"],
+                                  params["rho_b"], eps["w"], eps["b"])
         w, b = self._theta(params, eps)
         if x.dim() == 2:
             y = torch.einsum("ni,soi->sno", x, w)
@@ -404,6 +418,19 @@ def fuse_conv_pool(net: "Sequential") -> "Sequential":
             out.append(l)
             i += 1
     return Sequential(out)
+
+
+def with_dense_backend(net: "Sequential", backend: str) -> "Sequential":
+    """A copy of ``net`` with every ``VILinear``'s ``backend`` replaced
+    (``"xla"`` or ``"pallas"``); convolutions and the input net are left as
+    they are."""
+    if backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown dense backend {backend!r}")
+    net = copy.deepcopy(net)
+    for layer in net.layers:
+        if isinstance(layer, VILinear):
+            layer.backend = backend
+    return net
 
 
 def _infer_mc_samples(eps) -> Optional[int]:

@@ -55,5 +55,7 @@ def state_from_jax(jstate, device="cpu"):
         opt_v=_adam_from_jax(jstate.opt_v, device),
         opt_z=_adam_from_jax(jstate.opt_z, device),
         opt_alpha=_adam_from_jax(jstate.opt_alpha, device),
+        opt_net=_adam_from_jax(jstate.opt_net, device),
+        opt_joint=_adam_from_jax(jstate.opt_joint, device),
         net_step=int(np.asarray(jstate.net_step)),
     )
