@@ -27,6 +27,18 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              N=356), fn's second layer (40→4, N=176) and ragged and edge shapes
              (N = 1 and 7, Dout = 1, S = 1, S = 64 with N = 2048); its
              Function's backward against autograd through the plain version;
+   sampled_linear_prng — kernel B4 (four kernels, one Philox generator):
+             their Philox words against the plain generator's, bit for bit;
+             ε as the kernels see it (W_s, b_s recovered from the forward at
+             x = I and x = 0); each kernel against its plain version (max |Δ|
+             ≤ 1e-5·max |ref|, a rerun bit for bit) at the LeNet fc shapes,
+             the JAX docstring's 400→120 at N = 104 and 1024 and B3's ragged
+             and edge shapes, the NKL at S = 10 and at S = 4000; the
+             statistical tests of tests/test_pallas.py:60-124; then B4's
+             path, the composed 400-120-84-10 step (S=10, N=356, synth_mnist)
+             through ``sampled_linear_prng`` and ``vi_linear_nkl_prng`` with
+             B4's launch counters set to 0 just before and read just after,
+             against B3 and ``VILinear.nkl`` fed the same ε;
    lenet   — ``lenet_fwd`` and ``lenet_rev`` against their plain versions
              (and against a rerun of themselves, bit for bit) on three
              configs: the flagship psvi_learn_v (S=10, M=100, T=20),
@@ -49,12 +61,15 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              trainer (31 steps) and four_blobs fn 2-40-4 under the
              alternating trainer with ``retrain_on_coreset`` and
              ``register_elbos`` (101 steps, then 101 retrain steps), each
-             with B3's launch count derived from the loops;
+             with B3's launch count derived from the loops; no engine run
+             launches B4;
 5. times   — CUDA-event medians of each kernel (each head at its main
              path's shapes), its plain version, the fused engine steps and
              the plain autograd engine steps; B3, its plain version and a
              cuBLAS product on pre-sampled weights at the LeNet fc shapes
-             (calls queued back to back behind a device sleep); the LeNet
+             (calls queued back to back behind a device sleep), and so B4a–c
+             at fc1–fc3 and N = 1024 beside B3 and a cuBLAS product, B4d at
+             the fc shapes and S = 4000; the LeNet
              joint and alternating steps with ``backend="pallas"`` against
              ``backend="xla"``;
    profile — torch.profiler's device time by CUDA kernel over one call of
@@ -113,6 +128,26 @@ SL_SHAPES = [
     ("fn 40-4", 10, 176, 40, 4), ("N=1", 10, 1, 400, 120), ("N=7", 10, 7, 84, 10),
     ("Dout=1", 10, 356, 40, 1), ("S=1", 1, 356, 120, 84), ("S=64 N=2048", 64, 2048, 400, 120),
 ]
+
+SLP_SOURCE = "psvi_torch/ops/csrc/sampled_linear_prng.cu"
+SLP_REPLACES = {"prng_fwd": "psvi_tpu/ops/pallas_vi.py:285",
+                "prng_dx": "psvi_tpu/ops/pallas_vi.py:317",
+                "prng_dparam": "psvi_tpu/ops/pallas_vi.py:330",
+                "prng_nkl": "psvi_tpu/ops/pallas_vi.py:369"}
+# B4 (sampled_linear_prng), each kernel against its plain version at REL_B3:
+# the LeNet fc shapes at N = 356, the JAX docstring's S=10 400→120
+# (pallas_vi.py:25-28) at N = 104 and 1024, and B3's ragged and edge shapes;
+# the NKL at S = 10 on the fc shapes and at S = 4000 on 64→32 (the KL check's)
+SLP_SHAPES = (SL_SHAPES[:3] + [("N=104", 10, 104, 400, 120), ("N=1024", 10, 1024, 400, 120)]
+              + SL_SHAPES[4:])
+NKL_SHAPES = [(label, 10, Din, Dout) for label, _, _, Din, Dout in SL_SHAPES[:3]] + [
+    ("S=4000 64-32", 4000, 64, 32)]
+# Operations of one normal of the in-kernel generator: Philox4x32-10 is 98
+# (each of ten rounds two 32-bit multiplies for the low and high words and
+# four XORs, nine key bumps of two adds), Box–Muller 13 (two shifts, two
+# conversions, three scalings and an add, log, sqrt, cos and the product,
+# each counted once).
+GEN_OPS = 98 + 13
 
 
 _T0 = time.perf_counter()
@@ -558,6 +593,267 @@ def check_sampled_linear(SL, chk, dev):
     emit(rep)
 
 
+def philox_bits_check(SLP, dev):
+    """The kernels' Philox words equal the plain generator's, bit for bit, on
+    zeros, all ones, the Random123 vector and (e, s, 0, 0) for every s < 64
+    and e spread up to 2²⁰, under six keys."""
+    M = 0xFFFFFFFF
+    es = [0, 1, 2, 399, 48_119, 48_239, 2**20 - 1, 2**20]
+    es += np.random.default_rng(0).integers(0, 2**20, 24).tolist()
+    ctrs = [(0, 0, 0, 0), (M, M, M, M), (0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344)]
+    ctrs += [(e, s, 0, 0) for s in range(64) for e in es]
+    keys = [(0, 0), (M, M), (0xa4093822, 0x299f31d0), SLP.philox_key(-1), SLP.philox_key(7),
+            SLP.philox_key(2**40 + 3)]
+    ctr = torch.tensor(ctrs, dtype=torch.int64, device=dev)
+    ctr32 = torch.where(ctr >= 2**31, ctr - 2**32, ctr).to(torch.int32)  # the same 32 bits
+    for key in keys:
+        got = SLP._philox_bits_cuda(ctr32, key).to(torch.int64) & M
+        if not torch.equal(got, SLP.philox4x32(ctr, key)):
+            raise AssertionError(f"philox_bits: the kernel's words differ from the plain "
+                                 f"generator's under key {key}")
+    return {"counters": len(ctrs), "keys": len(keys), "equal": True}
+
+
+def slp_calls(SLP, a, g, seed):
+    """B4a–c and their plain versions on the inputs a = (x, μ_w, ρ_w, μ_b,
+    ρ_b) and the output cotangent g."""
+    x, mu_w, rho_w, mu_b, rho_b = a
+    return {
+        "prng_fwd": (lambda: SLP._prng_fwd_cuda(x, mu_w, rho_w, mu_b, rho_b, seed),
+                     lambda: SLP.sampled_linear_prng_reference(x, mu_w, rho_w, mu_b, rho_b, seed)),
+        "prng_dx": (lambda: SLP._prng_dx_cuda(g, mu_w, rho_w, seed),
+                    lambda: SLP.prng_dx_reference(g, mu_w, rho_w, seed)),
+        "prng_dparam": (lambda: SLP._prng_dparam_cuda(g, x, rho_w, rho_b, seed),
+                        lambda: SLP.prng_dparam_reference(g, x, rho_w, rho_b, seed)),
+    }
+
+
+def nkl_call(SLP, p, seed, S):
+    """B4d and its plain version on p = (μ_w, ρ_w, μ_b, ρ_b)."""
+    return (lambda: SLP._prng_nkl_cuda(*p, seed, S),
+            lambda: SLP.vi_linear_nkl_prng_reference(*p, seed, S))
+
+
+def check_against_plain(chk, name, label, kern, plain):
+    """One kernel against its plain version at REL_B3 on every output, and a
+    rerun bit for bit. Returns max |Δ|/max |ref| over the outputs."""
+    k = kern()
+    k = k if isinstance(k, tuple) else (k,)
+    rerun = kern()
+    same_bits(rerun if isinstance(rerun, tuple) else (rerun,), k, name)
+    r = plain()
+    r = r if isinstance(r, tuple) else (r,)
+    torch.cuda.synchronize()
+    rel = 0.0
+    for x, y in zip(k, r):
+        chk._note(name, x, y)
+        rel = max(rel, _rel(x, y))
+    if not rel <= REL_B3:
+        raise AssertionError(f"{name} {label}: max|Δ|/max|ref| {rel} > {REL_B3}")
+    return rel
+
+
+def pallas_args(S, N, Din, Dout, seed, dev):
+    """tests/test_pallas.py:21's scales: x ~ N(0, 1), μ ~ 0.1·N(0, 1),
+    ρ ~ 0.1·N(0, 1) − 3."""
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal((S, N, Din)), 0.1 * rng.standard_normal((Dout, Din)),
+         0.1 * rng.standard_normal((Dout, Din)) - 3, 0.1 * rng.standard_normal(Dout),
+         0.1 * rng.standard_normal(Dout) - 3)
+    return [torch.as_tensor(v, dtype=torch.float32, device=dev) for v in a]
+
+
+def prng_statistics(SLP, VILinear, dev):
+    """tests/test_pallas.py:60-124 on the kernels: determinism with samples
+    and seeds distinct; cross-tile consistency; E[−nkl] over 4000 samples
+    against the closed-form KL; dx against the weights recovered from the
+    forward."""
+    fwd = SLP.sampled_linear_prng
+    a = pallas_args(6, 64, 32, 16, 0, dev)
+    y1, y2, y3 = fwd(*a, 7), fwd(*a, 7), fwd(*a, 8)
+    out = {"deterministic": torch.equal(y1, y2),
+           "samples_differ": float((y1[0] - y1[1]).abs().max()),
+           "seeds_differ": float((y1 - y3).abs().max())}
+    x, *p = pallas_args(4, 1024, 400, 120, 1, dev)
+    x[:, 512] = x[:, 0]
+    y = fwd(x, *p, 3)
+    out["cross_tile_max_abs"] = float((y[:, 512] - y[:, 0]).abs().max())
+    _, *p = pallas_args(1, 1, 64, 32, 2, dev)
+    kl = float(VILinear(64, 32).kl(dict(zip(("mu_w", "rho_w", "mu_b", "rho_b"), p))))
+    nkl = SLP.vi_linear_nkl_prng(*p, 11, 4000).double()
+    se = float(nkl.std()) / math.sqrt(4000)
+    out["kl"] = {"closed_form": kl, "mc": -float(nkl.mean()), "se": se}
+    S, N, Din, Dout = 4, 256, 128, 64
+    x, *p = pallas_args(S, N, Din, Dout, 3, dev)
+    b_rec = fwd(torch.zeros(S, 8, Din, device=dev), *p, 5)[:, 0]
+    eye = torch.eye(Din, device=dev).expand(S, Din, Din)
+    w_rec = (fwd(eye, *p, 5) - b_rec[:, None, :]).transpose(1, 2)
+    x.requires_grad_(True)
+    with torch.enable_grad():
+        y = fwd(x, *p, 5)
+        (gx,) = torch.autograd.grad(torch.sin(y).sum(), [x])
+    want = torch.einsum("sno,soi->sni", torch.cos(y.detach()), w_rec)
+    out["dx_vs_recovered_max_abs"] = float((gx - want).abs().max())
+    if not (out["deterministic"] and out["samples_differ"] > 1e-3 and out["seeds_differ"] > 1e-3):
+        raise AssertionError(f"B4 determinism: {out}")
+    if not out["cross_tile_max_abs"] <= 1e-6:
+        raise AssertionError(f"B4 cross-tile: {out['cross_tile_max_abs']}")
+    if not abs(out["kl"]["mc"] - kl) < 5 * se + 1e-3 * abs(kl):
+        raise AssertionError(f"B4 E[-nkl] against KL: {out['kl']}")
+    if not bool(torch.all((gx - want).abs() <= 1e-5 + 1e-4 * want.abs())):
+        raise AssertionError(f"B4 dx against the recovered weights: {out}")
+    return out
+
+
+def prng_stack_loss(S, N, n_data, x, labels, layers, seeds, forward, nkl):
+    """A dense stack with ReLU between layers and one seed per layer: the
+    categorical NLL scaled to the data, minus the mean NKL (a value only)."""
+    h, total = x, 0.0
+    for k, (p, seed) in enumerate(zip(layers, seeds)):
+        h = forward(h, *p, seed)
+        if k < len(layers) - 1:
+            h = torch.relu(h)
+        total = total + nkl(*p, seed).detach()
+    nll = -torch.log_softmax(h, -1).gather(-1, labels[None, :, None].expand(S, N, 1))[..., 0]
+    return n_data / N * nll.sum(1).mean() - total.mean()
+
+
+def composed_prng_check(SLP, SL, VILinear, mnist, dev):
+    """The four B4 kernels draw one ε: the 400-120-84-10 stack at S = 10,
+    N = 356 on synth_mnist rows (the central 20×20 pixels), once through
+    sampled_linear_prng and vi_linear_nkl_prng, with B4's launch counters set
+    to 0 just before and read just after, then through B3's sampled_linear
+    and VILinear.nkl fed the ε that prng_normal gives for each seed. Loss at
+    rtol 1e-5; the gradients of x, μ and ρ at cosine > COS_B3 and ≤
+    REL_B3·max |ref|."""
+    S, N, widths, seeds = 10, 356, (400, 120, 84, 10), (11, -12, 13)
+    rng = np.random.default_rng(5)
+    rows = rng.choice(len(mnist.x), N, replace=False)
+    x0 = mnist.x[rows][:, 0, 4:24, 4:24].reshape(N, 400)
+    labels = torch.as_tensor(mnist.y[rows], dtype=torch.int64, device=dev)
+    rho0 = math.log(math.expm1(1e-3))
+    leaves = [torch.as_tensor(x0, dtype=torch.float32, device=dev).expand(S, N, 400)]
+    for i, o in zip(widths[:-1], widths[1:]):
+        b = 1.0 / math.sqrt(i)
+        leaves += [torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (
+            rng.uniform(-b, b, (o, i)), rho0 + 0.1 * rng.standard_normal((o, i)),
+            rng.uniform(-b, b, o), rho0 + 0.1 * rng.standard_normal(o))]
+    leaves = [t.contiguous().requires_grad_(True) for t in leaves]
+    layers = [leaves[1 + 4 * k:5 + 4 * k] for k in range(3)]
+
+    def b3_forward(h, mu_w, rho_w, mu_b, rho_b, seed):
+        return SL.sampled_linear(h, mu_w, rho_w, mu_b, rho_b,
+                                 *SLP.prng_eps(seed, S, *mu_w.shape, dev))
+
+    def port_nkl(mu_w, rho_w, mu_b, rho_b, seed):
+        w, b = SLP.prng_eps(seed, S, *mu_w.shape, dev)
+        p = {"mu_w": mu_w, "rho_w": rho_w, "mu_b": mu_b, "rho_b": rho_b}
+        return VILinear(mu_w.shape[1], mu_w.shape[0]).nkl(p, {"w": w, "b": b})
+
+    runs = {}
+    torch.cuda.synchronize()
+    SLP.reset_launches()
+    with torch.enable_grad():
+        loss = prng_stack_loss(S, N, float(mnist.N), leaves[0], labels, layers, seeds,
+                               SLP.sampled_linear_prng,
+                               lambda *p: SLP.vi_linear_nkl_prng(*p, S))
+        runs["prng"] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    torch.cuda.synchronize()
+    launches = dict(SLP.LAUNCHES)
+    if launches != {k: 3 for k in SLP.LAUNCHES}:
+        raise AssertionError(f"the composed B4 step launched {launches}, expected 3 of each")
+    with torch.enable_grad():
+        loss = prng_stack_loss(S, N, float(mnist.N), leaves[0], labels, layers, seeds,
+                               b3_forward, port_nkl)
+        runs["b3"] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    torch.cuda.synchronize()
+    (lk, gk), (lr, gr) = runs["prng"], runs["b3"]
+    rep = {"loss": float(lk), "loss_b3": float(lr), "launches": launches, "grads": {}}
+    if not abs(float(lk) - float(lr)) <= 1e-5 * abs(float(lr)):
+        raise AssertionError(f"composed B4 loss {float(lk)} against B3's {float(lr)}")
+    names = ["x"] + [f"fc{k + 1}.{n}" for k in range(3) for n in ("mu_w", "rho_w", "mu_b", "rho_b")]
+    for nm, x, y in zip(names, gk, gr):
+        c, r = _cos(x, y), _rel(x, y)
+        if not (c > COS_B3 and r <= REL_B3):
+            raise AssertionError(f"composed B4 gradient {nm}: cos {c}, rel {r}")
+        rep["grads"][nm] = {"cos": c, "rel": r}
+    return rep, launches
+
+
+def check_sampled_linear_prng(SLP, SL, VILinear, softplus, mnist, chk, dev):
+    """Kernel B4 on the card: the generator's bits; ε as the kernels see it
+    (W_s and b_s recovered from B4a at x = I and x = 0, against the plain
+    ε); each kernel against its plain version and a rerun at SLP_SHAPES and
+    NKL_SHAPES; the statistical tests; the composed stack. Returns B4's
+    launches in the composed step."""
+    rep = {"phase": "sampled_linear_prng", "gate_rel": REL_B3,
+           "bits": philox_bits_check(SLP, dev), "eps": {}, "shapes": {}, "nkl": {}}
+    for seed, (label, S, _, Din, Dout) in enumerate(SL_SHAPES[:3]):
+        x, mu_w, rho_w, mu_b, rho_b = sl_inputs(S, 1, Din, Dout, 400 + seed, dev)[:5]
+        b_rec = SLP._prng_fwd_cuda(torch.zeros(S, 1, Din, device=dev), mu_w, rho_w, mu_b, rho_b,
+                                   seed)[:, 0]
+        eye = torch.eye(Din, device=dev).expand(S, Din, Din).contiguous()
+        y_eye = SLP._prng_fwd_cuda(eye, mu_w, rho_w, mu_b, rho_b, seed)
+        w_rec = (y_eye - b_rec[:, None, :]).transpose(1, 2)
+        eps_w, eps_b = SLP.prng_eps(seed, S, Dout, Din, dev)
+        w = mu_w + softplus(rho_w) * eps_w
+        b = mu_b + softplus(rho_b) * eps_b
+        rel = {"w": _rel(w_rec, w), "b": _rel(b_rec, b)}
+        if not max(rel.values()) <= REL_B3:
+            raise AssertionError(f"B4 eps as the kernels see it, {label}: {rel}")
+        rep["eps"][label] = rel
+    for seed, (label, S, N, Din, Dout) in enumerate(SLP_SHAPES):
+        a = sl_inputs(S, N, Din, Dout, 500 + seed, dev)[:5]
+        g = torch.randn((S, N, Dout), generator=torch.Generator(dev).manual_seed(seed), device=dev)
+        rep["shapes"][label] = {"S": S, "N": N, "Din": Din, "Dout": Dout, **{
+            name: check_against_plain(chk, name, label, kern, plain)
+            for name, (kern, plain) in slp_calls(SLP, a, g, -seed).items()}}
+    for seed, (label, S, Din, Dout) in enumerate(NKL_SHAPES):
+        p = sl_inputs(1, 1, Din, Dout, 600 + seed, dev)[1:5]
+        rep["nkl"][label] = {"S": S, "Din": Din, "Dout": Dout, "rel": check_against_plain(
+            chk, "prng_nkl", label, *nkl_call(SLP, p, 2**40 + seed, S))}
+    rep["statistics"] = prng_statistics(SLP, VILinear, dev)
+    rep["composed"], launches = composed_prng_check(SLP, SL, VILinear, mnist, dev)
+    emit(rep)
+    return launches
+
+
+def slp_work(name, S, N, Din, Dout):
+    """B4's fp32 operations and bytes: each ε drawn once per (sample,
+    parameter) at GEN_OPS, then the sampling's multiply and add (dparam: the
+    add into dμ and the multiply-add into dρ); the products' multiply-adds
+    count 2, the bias add or sum one a term; the NKL's two densities and the
+    sum 12 a term (softplus is not counted, as in sl_work). Bytes: each input
+    read once, each output written once; no ε."""
+    W, E = Dout * Din, Dout * Din + Dout
+    prod = 2 * S * N * Din * Dout
+    ops = {"prng_fwd": prod + S * N * Dout + S * E * (GEN_OPS + 2),
+           "prng_dx": prod + S * W * (GEN_OPS + 2),
+           "prng_dparam": prod + S * N * Dout + S * E * (GEN_OPS + 3),
+           "prng_nkl": S * E * (GEN_OPS + 12)}[name]
+    byts = 4 * {"prng_fwd": S * N * Din + 2 * E + S * N * Dout,
+                "prng_dx": S * N * Dout + 2 * W + S * N * Din,
+                "prng_dparam": S * N * Dout + S * N * Din + E + 2 * E,
+                "prng_nkl": 2 * E + S}[name]
+    return ops, byts
+
+
+def queued_row(name, source, replaces, kern, plain, lib_fn, ops, byts, launches, chk,
+               kernel, **extra):
+    """The kernels-line entry of a kernel whose one call costs more host
+    time than device time: the kernel, its plain version and a library call
+    (or None) timed with ``queued_ms``."""
+    ms, q_k = queued_ms(kern)
+    plain_ms, q_p = queued_ms(plain)
+    lib_ms, q_l = queued_ms(lib_fn) if lib_fn else (None, True)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": chk.max_abs[kernel], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms,
+            "queued_ahead": q_k and q_p and q_l, "ops": ops, "bytes": byts, **extra}
+
+
 def sl_work(S, N, Din, Dout):
     """B3's fp32 operations (the product's multiply-adds count 2, the
     sampling a multiply and an add per sampled weight and bias, the bias add
@@ -805,11 +1101,12 @@ def main() -> int:
     import psvi_torch  # noqa: F401  (fails outside a checkout)
     from psvi_torch.data import DataBundle, read_dataset, read_regression_dataset
     from psvi_torch.inference.psvi import PSVI, make_psvi_engine
-    from psvi_torch.models.layers import softplus
+    from psvi_torch.models.layers import VILinear, softplus
     from psvi_torch.ops import _build
     from psvi_torch.ops import fused_lenet as FL
     from psvi_torch.ops import fused_nested as FN
     from psvi_torch.ops import sampled_linear as SL
+    from psvi_torch.ops import sampled_linear_prng as SLP
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true fp32
@@ -821,7 +1118,7 @@ def main() -> int:
 
     # 2. build every kernel source of the paths, one nvcc each, all at once
     t0 = time.perf_counter()
-    sources = ["fused_nested", "fused_lenet", "sampled_linear"]
+    sources = ["fused_nested", "fused_lenet", "sampled_linear", "sampled_linear_prng"]
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
     ptxas = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -866,9 +1163,11 @@ def main() -> int:
         check_lenet(FL, chk, name, cfg, lenet_inputs(FL, cfg, mnist, seed, dev), composed)
     check_lenet_caps(FL, PSVI, mnist, chk, dev)
     check_sampled_linear(SL, chk, dev)
+    launches_b4 = check_sampled_linear_prng(SLP, SL, VILinear, softplus, mnist, chk, dev)
 
-    # 4. the main paths, through the user's entry point
-    mods = (FN, FL, SL)
+    # 4. the main paths, through the user's entry point (no engine path
+    # launches B4, in JAX or here)
+    mods = (FN, FL, SL, SLP)
 
     def only(**n):  # expected launches: n of the named kernels, none of the rest
         return {k: n.get(k, 0) for mod in mods for k in mod.LAUNCHES}
@@ -989,26 +1288,50 @@ def main() -> int:
                     for name, (kern, plain) in lcalls.items()]
         # B3 at the LeNet fc shapes: the kernel, its plain version and one
         # cuBLAS product on pre-sampled weights (sampling excluded)
+        b3_ms = {}
         for label, S, N, Din, Dout in SL_SHAPES[:3]:
             a = sl_inputs(S, N, Din, Dout, 200, dev)
             w_t = (a[1][None] + softplus(a[2])[None] * a[5]).transpose(1, 2)
             b = (a[3][None] + softplus(a[4])[None] * a[6])[:, None, :]
-            ms, q_k = queued_ms(lambda: SL._sampled_linear_cuda(*a))
-            plain_ms, q_p = queued_ms(lambda: SL.sampled_linear_reference(*a))
-            lib_ms, q_l = queued_ms(lambda: torch.baddbmm(b, a[0], w_t))
-            ops, byts = sl_work(S, N, Din, Dout)
-            t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
-            kernels.append({
-                "name": f"sampled_linear_{label}", "route": "cuda", "source": SL_SOURCE,
-                "replaces": SL_REPLACES, "launches": shapes_lj[f"{S}x{N}x{Din}x{Dout}"],
-                "max_abs_err": chk.max_abs["sampled_linear"], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms,
-                "library": "torch.baddbmm on pre-sampled W (cuBLAS product only, sampling "
-                           "excluded)",
-                "shape": f"S={S} N={N} {Din}->{Dout}", "launches_of": "LeNet joint run",
-                "per_call_ms": median_ms(lambda: SL._sampled_linear_cuda(*a)),
-                "queued_ahead": q_k and q_p and q_l, "ops": ops, "bytes": byts})
+            kernels.append(queued_row(
+                f"sampled_linear_{label}", SL_SOURCE, SL_REPLACES,
+                lambda: SL._sampled_linear_cuda(*a), lambda: SL.sampled_linear_reference(*a),
+                lambda: torch.baddbmm(b, a[0], w_t), *sl_work(S, N, Din, Dout),
+                shapes_lj[f"{S}x{N}x{Din}x{Dout}"], chk, "sampled_linear",
+                library="torch.baddbmm on pre-sampled W (cuBLAS product only, sampling "
+                        "excluded)",
+                shape=f"S={S} N={N} {Din}->{Dout}", launches_of="LeNet joint run",
+                per_call_ms=median_ms(lambda: SL._sampled_linear_cuda(*a))))
+        # B4a-c at the fc shapes and the docstring's N = 1024: each beside its
+        # plain version, one cuBLAS product on pre-sampled weights (sampling
+        # excluded) and, for the forward, B3 reading the same amount of ε
+        b4_of = "composed 400-120-84-10 step (one launch at each fc shape)"
+        libs = {"prng_fwd": "torch.baddbmm on pre-sampled W", "prng_dx": "torch.bmm(g, W)",
+                "prng_dparam": "torch.bmm(g^T, x)"}
+        for label, S, N, Din, Dout in SLP_SHAPES[:3] + [SLP_SHAPES[4]]:
+            a = sl_inputs(S, N, Din, Dout, 300, dev)
+            g = torch.randn((S, N, Dout), generator=torch.Generator(dev).manual_seed(3),
+                            device=dev)
+            w = a[1][None] + softplus(a[2])[None] * a[5]
+            b = (a[3][None] + softplus(a[4])[None] * a[6])[:, None, :]
+            lib = {"prng_fwd": lambda: torch.baddbmm(b, a[0], w.transpose(1, 2)),
+                   "prng_dx": lambda: torch.bmm(g, w),
+                   "prng_dparam": lambda: torch.bmm(g.transpose(1, 2), a[0])}
+            b3_ms[label] = queued_ms(lambda: SL._sampled_linear_cuda(*a))[0]
+            for name, (kern, plain) in slp_calls(SLP, a[:5], g, 300).items():
+                extra = {"b3_ms": b3_ms[label]} if name == "prng_fwd" else {}
+                kernels.append(queued_row(
+                    f"{name}_{label}", SLP_SOURCE, SLP_REPLACES[name], kern, plain, lib[name],
+                    *slp_work(name, S, N, Din, Dout), launches_b4[name], chk, name,
+                    library=libs[name] + " (cuBLAS product only, sampling excluded)",
+                    shape=f"S={S} N={N} {Din}->{Dout}", launches_of=b4_of, **extra))
+        for label, S, Din, Dout in NKL_SHAPES:
+            p = sl_inputs(1, 1, Din, Dout, 301, dev)[1:5]
+            kernels.append(queued_row(
+                f"prng_nkl_{label}", SLP_SOURCE, SLP_REPLACES["prng_nkl"],
+                *nkl_call(SLP, p, 301, S), None, *slp_work("prng_nkl", S, 1, Din, Dout),
+                launches_b4["prng_nkl"], chk, "prng_nkl", library=None,
+                shape=f"S={S} {Din}->{Dout}", launches_of=b4_of))
     # whole engine steps on the same card: fused kernels vs plain autograd
     steps = {}
     for key, e, data, kw in (("nested", eng, blobs, main_kw), ("regressor", eng_r, sinus, reg_kw)):

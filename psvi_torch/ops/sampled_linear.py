@@ -20,8 +20,9 @@ runs the plain version for CPU tensors; the backward is JAX's ``_bwd``
 any kernel. ε gets no gradient. The backward is ``once_differentiable``: a
 double backward raises, as the ``custom_vjp`` refuses one, so the layer
 serves the first-order paths only (the joint and alternating trainers, the
-retrain loop, evaluation). The in-kernel-PRNG variants (B4,
-``sampled_linear_prng``) are not ported yet.
+retrain loop, evaluation). The in-kernel-PRNG variant, B4, which draws ε
+inside its kernels, is ``ops/sampled_linear_prng.py``
+(``csrc/sampled_linear_prng.cu``).
 """
 
 from __future__ import annotations

@@ -5,6 +5,9 @@ parameters or ``PSVIState`` as NumPy arrays (``np.asarray`` of each leaf)
 and turn them into the port's tensors here, so that both compute the same
 function. Nothing here imports JAX; the caller does the conversion to
 NumPy.
+
+``device=None`` means the CUDA card, as everywhere in the port; the tests
+pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from psvi_torch.device import resolve_device
 from psvi_torch.ops.optim import AdamState
 
 
@@ -22,9 +26,12 @@ def _to_tensor(x, device):
     return torch.as_tensor(np.array(a), device=device)
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device=None):
     """A nested tuple/list/dict of NumPy arrays → the same tree of float32
-    tensors (lists become tuples, as ``Sequential.init`` returns them)."""
+    tensors (lists become tuples, as ``Sequential.init`` returns them) on
+    ``device`` (None: CUDA, or raise)."""
+    device = resolve_device(device)
+
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
@@ -40,10 +47,13 @@ def _adam_from_jax(opt, device):
                      params_from_jax(opt.mu, device), params_from_jax(opt.nu, device))
 
 
-def state_from_jax(jstate, device="cpu"):
+def state_from_jax(jstate, device=None):
     """The JAX ``PSVIState`` (leaves as NumPy arrays or anything
-    ``np.asarray`` accepts) → the port's :class:`PSVIState`."""
+    ``np.asarray`` accepts) → the port's :class:`PSVIState` on ``device``
+    (None: CUDA, or raise)."""
     from psvi_torch.inference.psvi import PSVIState
+
+    device = resolve_device(device)
 
     return PSVIState(
         params=params_from_jax(jstate.params, device),

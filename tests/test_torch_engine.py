@@ -79,10 +79,11 @@ def test_engine_step_matches_jax(method, dataset, arch):
     peng = PSVI(read_dataset(dataset), method=method, architecture=arch, device="cpu", **kw)
     pgrads = _capture_hypergrads(peng)
     batch = (torch.tensor(np.asarray(xb)), torch.tensor(np.asarray(yb)))
-    eps = ([params_from_jax(e) for e in eps_inner], params_from_jax(eps_outer))
+    eps = ([params_from_jax(e, device="cpu") for e in eps_inner],
+           params_from_jax(eps_outer, device="cpu"))
     fused = peng._nested_step_fused_lenet if lenet else peng._nested_step_fused
     for step in (peng._nested_step, fused):
-        s1, aux = step(state_from_jax(jstate0), batch=batch, eps=eps)
+        s1, aux = step(state_from_jax(jstate0, device="cpu"), batch=batch, eps=eps)
         # the hypergradients themselves, before the hyper-Adam step that
         # normalises them away: fp32 sums in another order through the
         # T-deep unroll (largest gap measured: ū of the LeNet kernel pair's
@@ -125,7 +126,7 @@ def test_engine_step_matches_jax(method, dataset, arch):
 
 def test_state_from_jax_roundtrip():
     jeng = JPSVI(jax_read_dataset("halfmoon"), method="psvi_learn_v", fused_inner=False, **KW)
-    st = state_from_jax(_np_tree(jeng.state))
+    st = state_from_jax(_np_tree(jeng.state), device="cpu")
     np.testing.assert_array_equal(st.u.numpy(), np.asarray(jeng.state.u))
     np.testing.assert_array_equal(st.params[0]["mu_w"].numpy(),
                                   np.asarray(jeng.state.params[0]["mu_w"]))

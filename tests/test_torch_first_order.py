@@ -125,7 +125,7 @@ class _Draws:
         jeng._sample_eps = lambda key, S: jax.tree_util.tree_map(jnp.asarray, next(it))
 
     def port(self, i):
-        return params_from_jax(self.trees[i])
+        return params_from_jax(self.trees[i], device="cpu")
 
 
 def _engines(name, trainer):
@@ -157,13 +157,13 @@ def _check_joint(name):
     jb, pb = _batch(jeng)
     js0 = _np_tree(jeng.state)
     js1, jaux = jax.jit(jeng._joint_step)(jeng.state, jax.random.PRNGKey(1), batch=jb)
-    ps1, paux = peng._joint_step(state_from_jax(js0), batch=pb, eps=draws.port(0))
+    ps1, paux = peng._joint_step(state_from_jax(js0, device="cpu"), batch=pb, eps=draws.port(0))
     np.testing.assert_allclose(float(paux["outer_loss"]), float(jaux["outer_loss"]), rtol=1e-5)
     # the gradients the step hands to Adam, from each engine's _outer_loss
     g32, g64 = _jax_grad(lambda lv, e, z, a, xb, yb: jeng._outer_loss(
         lv["params"], e, lv["u"], z, lv["v"], a, xb, yb),
         _joint_leaves(js0), draws.trees[0], js0.z, js0.alpha, *jb)
-    p0 = state_from_jax(js0)
+    p0 = state_from_jax(js0, device="cpu")
     _, g_p = _value_and_grad(lambda lv: peng._outer_loss(
         lv["params"], draws.port(0), lv["u"], p0.z, lv["v"], p0.alpha, *pb), _joint_leaves(p0))
     _assert_grads_both(g_p, g32, g64, f"{name} joint grads")
@@ -203,12 +203,12 @@ def test_alternating_step_matches_jax(name):
     jb, pb = _batch(jeng)
     js0 = _np_tree(jeng.state)
     js1, jaux = jax.jit(jeng._alternating_step)(jeng.state, jax.random.PRNGKey(1), batch=jb)
-    ps1, paux = peng._alternating_step(state_from_jax(js0), batch=pb,
+    ps1, paux = peng._alternating_step(state_from_jax(js0, device="cpu"), batch=pb,
                                        eps=(draws.port(0), draws.port(1)))
     np.testing.assert_allclose(float(paux["outer_loss"]), float(jaux["outer_loss"]), rtol=1e-5)
     np.testing.assert_allclose(paux["inner_losses"].numpy(), np.asarray(jaux["inner_losses"]),
                                rtol=1e-5)
-    p0 = state_from_jax(js0)
+    p0 = state_from_jax(js0, device="cpu")
     # the net step's gradient at the start
     g32, g64 = _jax_grad(jeng._outer_loss, js0.params, draws.trees[0], js0.u, js0.z, js0.v,
                          js0.alpha, *jb)
@@ -221,7 +221,7 @@ def test_alternating_step_matches_jax(name):
     g32, g64 = _jax_grad(lambda u, p, e, z, v, a, xb, yb: jeng._outer_loss(
         p, e, u, z, v, a, xb, yb), js0.u, params1, draws.trees[1], js0.z, js0.v, js0.alpha, *jb)
     _, g_up = _value_and_grad(lambda u: peng._outer_loss(
-        params_from_jax(params1), draws.port(1), u, p0.z, p0.v, p0.alpha, *pb), p0.u)
+        params_from_jax(params1, device="cpu"), draws.port(1), u, p0.z, p0.v, p0.alpha, *pb), p0.u)
     _assert_grads_both(g_up, g32, g64, f"{name} u grads")
     _assert_adam_step(ps1.u, js1.u, g32, peng.lrs["u"], f"{name} u")
     assert ps1.opt_net.count == int(js1.opt_net.count) == 1
@@ -235,11 +235,11 @@ def test_retrain_step_matches_jax():
     draws = _Draws(jeng, 1)
     js0 = _np_tree(jeng.state)
     js1, jloss = jax.jit(jeng._retrain_step)(jeng.state, jax.random.PRNGKey(1))
-    ps1, ploss = peng._retrain_step(state_from_jax(js0), eps=draws.port(0))
+    ps1, ploss = peng._retrain_step(state_from_jax(js0, device="cpu"), eps=draws.port(0))
     np.testing.assert_allclose(float(ploss), float(jloss), rtol=1e-5)
     g32, g64 = _jax_grad(jeng._inner_loss, js0.params, draws.trees[0], js0.u, js0.z, js0.v,
                          js0.alpha)
-    p0 = state_from_jax(js0)
+    p0 = state_from_jax(js0, device="cpu")
     _, g_p = _value_and_grad(lambda p: peng._inner_loss(p, draws.port(0), p0.u, p0.z, p0.v,
                                                         p0.alpha), p0.params)
     _assert_grads_both(g_p, g32, g64, "retrain grads")
@@ -354,7 +354,7 @@ def test_state_from_jax_carries_first_order_optimizers():
     jeng, _ = _engines("fn", "joint")
     step = jax.jit(jeng._joint_step)
     js = _np_tree(step(step(jeng.state, jax.random.PRNGKey(0))[0], jax.random.PRNGKey(1))[0])
-    st = state_from_jax(js)
+    st = state_from_jax(js, device="cpu")
     assert list(st.opt_joint.mu) == list(js.opt_joint.mu) == ["params", "u", "v"]
     assert st.opt_joint.count == int(js.opt_joint.count)
     for x, y in zip(jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray,

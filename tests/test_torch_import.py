@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,6 +14,7 @@ from psvi_torch.data import read_dataset, read_regression_dataset
 from psvi_torch.device import resolve_device
 from psvi_torch.inference.psvi import PSVI, make_psvi_engine, run_psvi
 from psvi_torch.ops import fused_nested as FN
+from psvi_torch.utils.convert import params_from_jax, state_from_jax
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -63,6 +65,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  num_pseudo=4, num_epochs=1)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    # the converters that carry JAX's numbers across
+    tree = {"mu_w": np.zeros((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax(tree)
+    assert params_from_jax(tree, device="cpu")["mu_w"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        state_from_jax(None)
 
 
 def test_cuda_backend_refuses_cpu_tensors():

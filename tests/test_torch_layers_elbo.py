@@ -50,7 +50,8 @@ def _setup(kind, seed=0):
         lambda a: np.asarray(a) + 0.3 * rng.standard_normal(np.shape(a)).astype(np.float32),
         jparams)
     eps_np = jax.tree_util.tree_map(np.asarray, jnet.sample_eps(jax.random.PRNGKey(seed + 1), S))
-    return jnet, tnet, jparams, params_from_jax(jparams), eps_np, params_from_jax(eps_np), rng
+    return (jnet, tnet, jparams, params_from_jax(jparams, device="cpu"), eps_np,
+            params_from_jax(eps_np, device="cpu"), rng)
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -59,7 +60,7 @@ def test_vilinear_apply_kl_nkl(batched):
     jp = jax.tree_util.tree_map(np.asarray, jl.init(jax.random.PRNGKey(0)))
     e = jax.tree_util.tree_map(np.asarray, jl.sample_eps(jax.random.PRNGKey(1), S))
     x = np.random.default_rng(2).standard_normal((S, 7, 3) if batched else (7, 3)).astype(np.float32)
-    tp, te = params_from_jax(jp), params_from_jax(e)
+    tp, te = params_from_jax(jp, device="cpu"), params_from_jax(e, device="cpu")
     _close(tl.apply(tp, te, _t(x)), jl.apply(jp, e, x))
     _close(tl.kl(tp), jl.kl(jp))
     _close(tl.nkl(tp, te), jl.nkl(jp, e), rtol=1e-4)

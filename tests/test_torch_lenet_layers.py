@@ -42,7 +42,7 @@ def _layer_pair(jl, seed):
         lambda a: np.asarray(a) + 0.3 * rng.standard_normal(np.shape(a)).astype(np.float32),
         jl.init(jax.random.PRNGKey(seed)))
     je = _np_tree(jl.sample_eps(jax.random.PRNGKey(seed + 1), S))
-    return jp, je, params_from_jax(jp), params_from_jax(je), rng
+    return jp, je, params_from_jax(jp, device="cpu"), params_from_jax(je, device="cpu"), rng
 
 
 CONV_CASES = [  # (C, K, k, padding, input side)
@@ -110,7 +110,7 @@ def test_lenet_apply_kl_nkl(fused):
     assert tnet.variational_layers == jnet.variational_layers
     jp = _np_tree(jnet.init(jax.random.PRNGKey(3)))
     je = _np_tree(jnet.sample_eps(jax.random.PRNGKey(4), S))
-    tp, te = params_from_jax(jp), params_from_jax(je)
+    tp, te = params_from_jax(jp, device="cpu"), params_from_jax(je, device="cpu")
     # the parameter and noise trees line up leaf for leaf, {} included
     gen = torch.Generator().manual_seed(0)
     for a, b in ((tnet.init(gen), jp), (tnet.sample_eps(gen, S), je)):
@@ -147,7 +147,7 @@ def test_lenet_engine_state_from_jax():
     kw = dict(method="psvi_learn_v", architecture="lenet", num_pseudo=4, mc_samples=3,
               inner_it=3, data_minibatch=16, init_sd=1e-3, seed=0, num_epochs=1)
     jeng = JPSVI(jax_read_dataset("synth_mnist"), fused_inner=False, log_every=1000, **kw)
-    st = state_from_jax(_np_tree(jeng.state))
+    st = state_from_jax(_np_tree(jeng.state), device="cpu")
     assert len(st.params) == len(jeng.state.params) == 12
     for tp_, jp_ in zip(st.params, jeng.state.params):
         assert set(tp_) == set(jp_)

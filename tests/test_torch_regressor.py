@@ -89,7 +89,7 @@ def test_regressor_net_matches_jax(n_layers):
     params = _np_tree(jnet.init(jax.random.PRNGKey(0)))
     eps = _np_tree(jnet.sample_eps(jax.random.PRNGKey(1), 4))
     x = np.linspace(-2, 2, 7, dtype=np.float32)[:, None]
-    tp, te = params_from_jax(params), params_from_jax(eps)
+    tp, te = params_from_jax(params, device="cpu"), params_from_jax(eps, device="cpu")
     np.testing.assert_allclose(net.apply(tp, te, torch.tensor(x)).numpy(),
                                np.asarray(jnet.apply(params, eps, x)), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(float(net.kl(tp)), float(jnet.kl(params)), rtol=1e-5)
@@ -148,7 +148,8 @@ def _jax_step(method, kw):
 
         grads64 = _np_tree(jax.grad(outer64)(jeng._hyper_tree(st)))
     batch = (torch.tensor(xb), torch.tensor(yb))
-    eps = ([params_from_jax(e) for e in eps_inner], params_from_jax(eps_outer))
+    eps = ([params_from_jax(e, device="cpu") for e in eps_inner],
+           params_from_jax(eps_outer, device="cpu"))
     return jeng, float(loss), _np_tree(grads), grads64, batch, eps
 
 
@@ -164,7 +165,7 @@ def _port_step(peng, step, jeng, batch, eps):
 
     peng._apply_hyper_updates = capture
     try:
-        _, aux = step(state_from_jax(_np_tree(jeng.state)), batch=batch, eps=eps)
+        _, aux = step(state_from_jax(_np_tree(jeng.state), device="cpu"), batch=batch, eps=eps)
     finally:
         peng._apply_hyper_updates = apply
     return float(aux["outer_loss"]), seen
@@ -254,9 +255,9 @@ def test_evaluate_fn_matches_jax(method):
     state, _ = jeng._nested_step(jeng.state, jax.random.PRNGKey(4))
     key = jax.random.PRNGKey(5)
     jout = jeng._evaluate_fn(state, key)
-    eps = params_from_jax(_np_tree(jeng.net.sample_eps(key, jeng.mc_samples_eval)))
+    eps = params_from_jax(_np_tree(jeng.net.sample_eps(key, jeng.mc_samples_eval)), device="cpu")
     peng = PSVIRegressor(read_regression_dataset("sinus"), method=method, device="cpu", **KW)
-    pout = peng._evaluate_fn(state_from_jax(_np_tree(state)), eps=eps)
+    pout = peng._evaluate_fn(state_from_jax(_np_tree(state), device="cpu"), eps=eps)
     for name, p, j in zip(("rmse", "ll", "iw_entropy", "ness", "v_entropy"), pout, jout):
         np.testing.assert_allclose(float(p), float(j), rtol=1e-5, err_msg=name)
 
@@ -265,7 +266,7 @@ def test_state_from_jax_carries_opt_z():
     jeng = JPSVIRegressor(jax_read_regression_dataset("sinus"),
                           method="psvi_learn_v_regressor", fused_inner=False, **KW)
     state, _ = jeng._nested_step(jeng.state, jax.random.PRNGKey(4))
-    st = state_from_jax(_np_tree(state))
+    st = state_from_jax(_np_tree(state), device="cpu")
     assert st.opt_z.count == int(np.asarray(state.opt_z.count)) == 1
     np.testing.assert_array_equal(st.opt_z.mu.numpy(), np.asarray(state.opt_z.mu))
     np.testing.assert_array_equal(st.opt_z.nu.numpy(), np.asarray(state.opt_z.nu))
