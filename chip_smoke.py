@@ -8,7 +8,8 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
 1. device  — the card's name and power limit (nvidia-smi), versions;
 2. build   — nvcc builds every kernel of the main paths from the sources in
              the checkout (``psvi_torch/ops/csrc``), one nvcc per source, all
-             started at once;
+             started at once; ``k_prng_dx``, ``k_prng_dparam_partial`` and
+             ``k_prng_dparam_reduce`` must report no spill bytes;
 3. kernels — each dense CUDA kernel against its plain PyTorch version on the
              same CUDA inputs (the outer step's cotangents also against the
              plain version in float64), and the composed step against the
@@ -32,8 +33,10 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              ε as the kernels see it (W_s, b_s recovered from the forward at
              x = I and x = 0); each kernel against its plain version (max |Δ|
              ≤ 1e-5·max |ref|, a rerun bit for bit) at the LeNet fc shapes,
-             the JAX docstring's 400→120 at N = 104 and 1024 and B3's ragged
-             and edge shapes, the NKL at S = 10 and at S = 4000; the
+             the JAX docstring's 400→120 at N = 104 and 1024, B3's ragged
+             and edge shapes and 64→2048 (dx's Dout-chunk branch), with the
+             split counts of dx's and dparam's plans, the NKL at S = 10 and
+             at S = 4000; the
              statistical tests of tests/test_pallas.py:60-124; then B4's
              path, the composed 400-120-84-10 step (S=10, N=356, synth_mnist)
              through ``sampled_linear_prng`` and ``vi_linear_nkl_prng`` with
@@ -73,8 +76,9 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              joint and alternating steps with ``backend="pallas"`` against
              ``backend="xla"``;
    profile — torch.profiler's device time by CUDA kernel over one call of
-             each LeNet kernel, one fused LeNet engine step and one LeNet
-             joint step with each backend.
+             each LeNet kernel, one fused LeNet engine step, one LeNet
+             joint step with each backend, and 20 calls each of B4c (its
+             two passes) and B4b at fc1.
 
 Then, as its last three lines: the ``kernels`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Any failed check
@@ -85,6 +89,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -137,9 +142,11 @@ SLP_REPLACES = {"prng_fwd": "psvi_tpu/ops/pallas_vi.py:285",
 # B4 (sampled_linear_prng), each kernel against its plain version at REL_B3:
 # the LeNet fc shapes at N = 356, the JAX docstring's S=10 400→120
 # (pallas_vi.py:25-28) at N = 104 and 1024, and B3's ragged and edge shapes;
-# the NKL at S = 10 on the fc shapes and at S = 4000 on 64→32 (the KL check's)
+# the NKL at S = 10 on the fc shapes and at S = 4000 on 64→32 (the KL check's);
+# last, a Dout past what dx keeps of W_s in shared memory at once (384 rows),
+# so that its Dout-chunk branch runs
 SLP_SHAPES = (SL_SHAPES[:3] + [("N=104", 10, 104, 400, 120), ("N=1024", 10, 1024, 400, 120)]
-              + SL_SHAPES[4:])
+              + SL_SHAPES[4:] + [("Dout=2048", 2, 64, 64, 2048)])
 NKL_SHAPES = [(label, 10, Din, Dout) for label, _, _, Din, Dout in SL_SHAPES[:3]] + [
     ("S=4000 64-32", 4000, 64, 32)]
 # Operations of one normal of the in-kernel generator: Philox4x32-10 is 98
@@ -148,6 +155,8 @@ NKL_SHAPES = [(label, 10, Din, Dout) for label, _, _, Din, Dout in SL_SHAPES[:3]
 # conversions, three scalings and an add, log, sqrt, cos and the product,
 # each counted once).
 GEN_OPS = 98 + 13
+# the B4 kernels redesigned for the card, which must build with no spills
+B4_NO_SPILL = ("k_prng_dx", "k_prng_dparam_partial", "k_prng_dparam_reduce")
 
 
 _T0 = time.perf_counter()
@@ -165,6 +174,31 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_spills(log):
+    """{mangled kernel name: (spill store bytes, spill load bytes)} from
+    nvcc's ``-Xptxas -v`` output, where each "Function properties for
+    <name>" line is followed by its stack and spill line."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[1].strip()
+        elif name and "spill stores" in ln:
+            out[name] = tuple(int(n) for n in re.findall(r"(\d+) bytes spill", ln))
+            name = None
+    return out
+
+
+def check_no_spills(log, kernels):
+    """Each kernel's spill bytes (a C++ kernel's mangled name holds its name
+    after its length); raises unless every one is built with none."""
+    spills = ptxas_spills(log)
+    got = {k: [v for m, v in spills.items() if f"{len(k)}{k}" in m] for k in kernels}
+    bad = {k: v for k, v in got.items() if len(v) != 1 or any(v[0])}
+    if bad:
+        raise AssertionError(f"kernels built with spills, or not found in ptxas's report: {bad}")
+    return {k: v[0] for k, v in got.items()}
 
 
 def _rel(x, y):
@@ -805,7 +839,9 @@ def check_sampled_linear_prng(SLP, SL, VILinear, softplus, mnist, chk, dev):
     for seed, (label, S, N, Din, Dout) in enumerate(SLP_SHAPES):
         a = sl_inputs(S, N, Din, Dout, 500 + seed, dev)[:5]
         g = torch.randn((S, N, Dout), generator=torch.Generator(dev).manual_seed(seed), device=dev)
-        rep["shapes"][label] = {"S": S, "N": N, "Din": Din, "Dout": Dout, **{
+        rep["shapes"][label] = {"S": S, "N": N, "Din": Din, "Dout": Dout, "n_splits": {
+            "prng_dx": SLP._dx_plan(S, N, Din, Dout),
+            "prng_dparam": SLP._dparam_plan(S, N, Din, Dout)}, **{
             name: check_against_plain(chk, name, label, kern, plain)
             for name, (kern, plain) in slp_calls(SLP, a, g, -seed).items()}}
     for seed, (label, S, Din, Dout) in enumerate(NKL_SHAPES):
@@ -1123,8 +1159,11 @@ def main() -> int:
         built = list(pool.map(_build.build, sources))
     ptxas = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for src, (_, log) in zip(sources, built)}
+    slp_log = built[sources.index("sampled_linear_prng")][1]
+    # an empty log means the library was already built (no ptxas report)
+    spills = check_no_spills(slp_log, B4_NO_SPILL) if slp_log else "not rebuilt"
     emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "b4_spill_bytes": spills})
 
     # 3. kernels against their plain versions on the card
     halfmoon, blobs = read_dataset("halfmoon"), read_dataset("four_blobs")
@@ -1308,6 +1347,7 @@ def main() -> int:
         b4_of = "composed 400-120-84-10 step (one launch at each fc shape)"
         libs = {"prng_fwd": "torch.baddbmm on pre-sampled W", "prng_dx": "torch.bmm(g, W)",
                 "prng_dparam": "torch.bmm(g^T, x)"}
+        plans = {"prng_dx": SLP._dx_plan, "prng_dparam": SLP._dparam_plan}
         for label, S, N, Din, Dout in SLP_SHAPES[:3] + [SLP_SHAPES[4]]:
             a = sl_inputs(S, N, Din, Dout, 300, dev)
             g = torch.randn((S, N, Dout), generator=torch.Generator(dev).manual_seed(3),
@@ -1319,7 +1359,8 @@ def main() -> int:
                    "prng_dparam": lambda: torch.bmm(g.transpose(1, 2), a[0])}
             b3_ms[label] = queued_ms(lambda: SL._sampled_linear_cuda(*a))[0]
             for name, (kern, plain) in slp_calls(SLP, a[:5], g, 300).items():
-                extra = {"b3_ms": b3_ms[label]} if name == "prng_fwd" else {}
+                extra = ({"b3_ms": b3_ms[label]} if name == "prng_fwd" else
+                         {"n_splits": plans[name](S, N, Din, Dout)})
                 kernels.append(queued_row(
                     f"{name}_{label}", SLP_SOURCE, SLP_REPLACES[name], kern, plain, lib[name],
                     *slp_work(name, S, N, Din, Dout), launches_b4[name], chk, name,
@@ -1375,6 +1416,17 @@ def main() -> int:
         prof = profile_calls({name: kern for name, (kern, _) in lcalls.items()})
     prof.update(profile_calls(
         {"lenet_step_fused": lambda: eng_l._nested_step_fused_lenet(st_lf, batch_l)}))
+    # B4c and B4b at fc1: the split of dparam's call between its two passes.
+    # 20 calls a window: the profiler has seen no device time in a window
+    # of one 35 µs call
+    _, S, N, Din, Dout = SLP_SHAPES[0]
+    a = sl_inputs(S, N, Din, Dout, 300, dev)[:5]
+    g = torch.randn((S, N, Dout), generator=torch.Generator(dev).manual_seed(3), device=dev)
+    b4 = slp_calls(SLP, a, g, 300)
+    with torch.no_grad():
+        prof.update(profile_calls({
+            f"{name}_fc1_x20": lambda f=b4[name][0]: [f() for _ in range(20)]
+            for name in ("prng_dparam", "prng_dx")}))
     # one LeNet joint step with each backend: B3's share and the busy share
     eng_jx = PSVI(mnist, **{**lj_kw, "backend": "xla"})
     st_jp, st_jx = eng_lj.state, eng_jx.state

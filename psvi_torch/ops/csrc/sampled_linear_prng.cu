@@ -1,11 +1,13 @@
 // Kernel B4: the fused S-sample variational dense op with its noise drawn
-// inside the kernels, hand-written for Hopper (sm_90a). Four kernels that
-// share one generator:
+// inside the kernels, hand-written for Hopper (sm_90a). Four ops that share
+// one generator:
 //
 //   k_prng_fwd    y[s] = x[s] . W_s^T + b_s
 //   k_prng_dx     dx[s] = g[s] . W_s
-//   k_prng_dparam dmu_w = sum_s P_s, drho_w = sum_s P_s * eps_s * sigmoid(rho_w),
-//                 P_s = g[s]^T . x[s], and the bias terms (P_s's column of ones)
+//   dparam        dmu_w = sum_s P_s, drho_w = sum_s P_s * eps_s * sigmoid(rho_w),
+//                 P_s = g[s]^T . x[s], and the bias terms (P_s's column of ones),
+//                 in two kernels: k_prng_dparam_partial (P over splits of N)
+//                 and k_prng_dparam_reduce (the sum over splits, eps, sigmoid)
 //   k_prng_nkl    nkl[s] = sum over the layer of log p(theta_s) - log q(theta_s)
 //
 // with W_s = mu_w + softplus(rho_w) * eps_w[s], b_s = mu_b + softplus(rho_b) *
@@ -35,15 +37,50 @@
 // layer its own seed. psvi_philox_bits writes raw generator words, so that the
 // generator can be held against the plain one bit for bit.
 //
-// Every C entry allocates nothing, launches on the given stream and returns
-// the launch error, or 0. There are no atomics: every output is one
-// fixed-order chain of operations, so a rerun gives the same bits.
+// Every C entry allocates nothing (dparam's scratch comes from the caller),
+// launches on the given stream and returns the launch error, or 0. There are
+// no atomics: every output is one fixed-order chain of operations, so a rerun
+// gives the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 constexpr int THREADS = 256;
 constexpr int PAD = 4;  // keeps shared rows 16-byte aligned and spreads the banks
+constexpr int TM = 4;   // register micro-tile side per thread (every GEMM below)
+
+// cp.async: a copy from device memory into shared memory that the issuing
+// thread does not wait for. A commit closes a group of the copies issued so
+// far; wait<n> holds the thread until all but the newest n groups have
+// landed, and a barrier after it shows them to the whole block. The 16-byte
+// form needs both addresses 16-byte aligned; the 4-byte form takes any float.
+static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+static __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int n>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// Rows of length D whose every row starts 16-byte aligned: the 16-byte copies.
+static bool rows_of_float4(const void* p, int D) {
+  return D % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 struct Key {
   unsigned lo, hi;
@@ -89,10 +126,10 @@ __global__ void k_philox_bits(const unsigned* __restrict__ ctr, Key k, unsigned*
 }
 
 // ---------------------------------------------------------------------------
-// k_prng_fwd and k_prng_dx: kernel B3's tiling (sampled_linear.cu) with eps
-// drawn in place of read.
+// k_prng_fwd: kernel B3's tiling (sampled_linear.cu) with eps drawn in place
+// of read.
 //
-// What bounds them on this card: operations. At fc1 of the LeNet main path
+// What bounds it on this card: operations. At fc1 of the LeNet main path
 // (S = 10, N = 356, 400 -> 120) the product is 2*S*N*Din*Dout = 0.342 GFLOP and
 // drawing each eps once is S*(Dout*Din + Dout) normals of about 110 operations,
 // 0.053 G; 5.9 us at 67 TFLOP/s against 7.8 MB of x, y and parameters, 2.3 us at
@@ -104,12 +141,11 @@ __global__ void k_philox_bits(const unsigned* __restrict__ ctr, Key k, unsigned*
 // shared memory from eps it draws itself, then each of its 256 threads
 // accumulates a 4 x 4 register micro-tile with fp32 FMA. eps never touches
 // device memory. The price is drawing every eps once per tile of the other
-// dimension (ceil(N / 64) times): a later PR can keep W_s's rows of a block in
-// shared memory across N tiles, or draw two normals from one Philox call.
+// dimension (ceil(N / 64) times): a later PR can build W_s once per block, as
+// k_prng_dx below does, or draw two normals from one Philox call.
 // No TF32 and no tensor cores: the port holds true fp32.
-constexpr int BT = 64;  // rows (points) and columns (outputs or inputs) per block
+constexpr int BT = 64;  // rows (points) and columns (outputs) per block
 constexpr int BK = 16;  // reduction chunk staged in shared memory
-constexpr int TM = 4;   // micro-tile side per thread
 
 __global__ void __launch_bounds__(THREADS)
 k_prng_fwd(const float* __restrict__ x, const float* __restrict__ mu_w,
@@ -173,160 +209,379 @@ k_prng_fwd(const float* __restrict__ x, const float* __restrict__ mu_w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// k_prng_dx: dx[s] = g[s] . W_s. It replaces _prng_dx_kernel
+// (psvi_tpu/ops/pallas_vi.py:194, pallas_call at :317).
+//
+// What bounds it on this card: operations. At fc1 (S = 10, N = 356,
+// 400 -> 120) the product is 2*S*N*Din*Dout = 0.342 GFLOP and drawing each
+// eps once is S*Dout*Din normals of about 111 operations, 0.054 G: 5.9 us at
+// 67 TFLOP/s, against 7.8 MB of g, dx and parameters, 2.3 us at 3.35 TB/s.
+//
+// What the design does about it. A block owns dx[s, its split of N, 64
+// input columns]: the grid is (Din / 64) x n_splits x S, where the plan
+// (_dx_plan in ../sampled_linear_prng.py) splits N into runs of whole 64-point
+// tiles until the grid reaches one and a half waves of the 132 SMs, each split
+// at least 64 points and at most 8 splits. The n_splits blocks of one sample
+// and one column tile form a thread block cluster.
+//   Phase 1 builds W_s[:, i0 .. i0 + 63] for all Dout rows in each block's
+//   dynamic shared memory (Dout * 256 bytes, 30 KB at fc1). The cluster's
+//   blocks share the draws: each draws its share of the rows, then copies
+//   the others' rows out of their shared memory (distributed shared memory),
+//   so each eps is drawn once for its sample, where a block per (sample,
+//   N tile) drew it ceil(N / 64) times. Where W_s has fewer 16-row chunks
+//   than the cluster has blocks (fc3), each block draws all of it instead.
+//   Phase 2 walks the split's N tiles, each through Dout in chunks of 16: the
+//   g chunks (64 points x 16 outputs, row-major as g) come through a ring of
+//   six stages filled with cp.async, five chunks in flight while one is
+//   used, and the first five are issued before phase 1, so their copies
+//   overlap the draws; each of the 256 threads accumulates a 4 x 4 register
+//   micro-tile against the resident W tile. The generator's registers are
+//   free again by then: drawing and the FMA loop share no loop.
+// A draw is a long dependent chain behind two loads, so each thread runs
+// four side by side. g's chunks go by 16-byte copies when its rows are a
+// multiple of 4 floats and 16-byte aligned, else by 4-byte copies (Dout = 10
+// at fc3). Where Dout * 256 bytes exceed 96 KB (Dout > 384), the block walks
+// Dout in chunks of 384 rows, builds each chunk of W_s in turn and adds its
+// sum into the dx rows it owns: one block owns them, so the order is fixed.
+constexpr int XI = 64;   // input columns a block
+constexpr int XN = 64;   // points a tile
+constexpr int XK = 16;   // outputs a staged g chunk
+constexpr int XW = 384;  // most rows of W_s resident at once: 96 KB
+constexpr int XSTAGES = 6;  // g chunks in the ring: five in flight while one is used
+
+// g[s, n0 .. n0 + 63, o0 .. o0 + 15] into dst (row-major, as in g); zero
+// past N or past o_end.
+static __device__ __forceinline__ void stage_g(float (*dst)[XK + PAD], const float* gg, int n0,
+                                               int N, int o0, int o_end, int Dout, bool vec,
+                                               int tid) {
+  static_assert(XN * XK / 4 == THREADS, "one 16-byte copy a thread");
+  if (vec) {
+    const int r = tid / (XK / 4), q = tid % (XK / 4), n = n0 + r, o = o0 + 4 * q;
+    float* d = &dst[r][4 * q];
+    if (n < N && o < o_end) {
+      cp_async16(d, gg + (long long)n * Dout + o);
+    } else {
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = tid; e < XN * XK; e += THREADS) {
+      const int r = e / XK, kk = e % XK, n = n0 + r, o = o0 + kk;
+      if (n < N && o < o_end) {
+        cp_async4(&dst[r][kk], gg + (long long)n * Dout + o);
+      } else {
+        dst[r][kk] = 0.f;
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 k_prng_dx(const float* __restrict__ g, const float* __restrict__ mu_w,
-          const float* __restrict__ rho_w, float* __restrict__ dx, int N, int Din, int Dout,
-          Key key) {
-  // gs[o][n] = g[s, n, o], ws[o][i] = W_s[o, i], both over a chunk of outputs o
-  __shared__ __align__(16) float gs[BK][BT + PAD];
-  __shared__ __align__(16) float ws[BK][BT + PAD];
-  const int s = blockIdx.z, n0 = blockIdx.y * BT, i0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int tn = tid / (BT / TM), ti = tid % (BT / TM);
-  const float* gg = g + (long long)s * N * Dout;
+          const float* __restrict__ rho_w, float* __restrict__ dx, int S, int N, int Din,
+          int Dout, int n_splits, int g_vec, Key key) {
+  extern __shared__ float4 w_dyn[];
+  float* ws = reinterpret_cast<float*>(w_dyn);              // ws[r * XI + c] = W_s[d0 + r, i0 + c]
+  __shared__ __align__(16) float gs[XSTAGES][XN][XK + PAD];  // gs[n][o], the cp.async ring
+  const int i0 = blockIdx.x * XI, tid = threadIdx.x;
+  const int tn = tid / (XI / TM), ti = tid % (XI / TM);
+  // this split's N tiles, as _split_bounds(N, n_splits, XN) cuts them
+  const int tiles = (N + XN - 1) / XN;
+  const int t_begin = (int)((long long)blockIdx.y * tiles / n_splits);
+  const int t_end = (int)((long long)(blockIdx.y + 1) * tiles / n_splits);
+  // the cluster is the n_splits blocks of one sample and one column tile
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   float acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
 
-  for (int c0 = 0; c0 < Dout; c0 += BK) {
-    for (int e = tid; e < BT * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK, n = n0 + r, o = c0 + kk;
-      gs[kk][r] = (n < N && o < Dout) ? gg[(long long)n * Dout + o] : 0.f;
-    }
-    // neighbouring threads read neighbouring inputs i of one row o (coalesced)
-    for (int e = tid; e < BT * BK; e += THREADS) {
-      const int kk = e / BT, r = e % BT, o = c0 + kk, i = i0 + r;
-      float w = 0.f;
-      if (o < Dout && i < Din) {
-        const unsigned idx = (unsigned)o * Din + i;
-        w = mu_w[idx] + softplus_f(rho_w[idx]) * normal_at(key, s, idx);
+  for (int s = blockIdx.z; s < S; s += gridDim.z) {
+    const float* gg = g + (long long)s * N * Dout;
+    float* dxs = dx + (long long)s * N * Din;
+    for (int d0 = 0; d0 < Dout; d0 += XW) {
+      const int o_end = min(Dout, d0 + XW);
+      const int chunks = (o_end - d0 + XK - 1) / XK;
+      // step j: N tile t_begin + j / chunks, g chunk j % chunks; the ring
+      // runs on across tile boundaries
+      const int steps = (t_end - t_begin) * chunks;
+      auto stage = [&](int j) {
+        stage_g(gs[j % XSTAGES], gg, (t_begin + j / chunks) * XN, N, d0 + (j % chunks) * XK,
+                o_end, Dout, g_vec, tid);
+      };
+      __syncthreads();  // no thread still reads the ring or the previous rows of W_s
+      // the first chunks of g are in flight while phase 1 draws
+      for (int j = 0; j < XSTAGES - 1; ++j) {
+        if (j < steps) stage(j);
+        cp_async_commit();
       }
-      ws[kk][r] = w;
-    }
-    __syncthreads();
+      // phase 1: where W_s has at least a chunk for each of the cluster's
+      // blocks, they share the draws: block `rank` draws the rows of chunks
+      // [rank, rank + 1) * chunks / n_splits into its own W_s; else each
+      // block draws every row itself (fc3's 16 rows: two cluster barriers
+      // cost more than the draws they save). Neighbouring threads draw
+      // neighbouring inputs i of a row o, four independent draws a thread at
+      // a time (a chunk is 16 rows, four for each thread); rows past o_end
+      // and columns past Din are 0.
+      const bool share = n_splits > 1 && chunks >= n_splits;
+      const int c_lo = share ? rank * chunks / n_splits : 0;
+      const int c_hi = share ? (rank + 1) * chunks / n_splits : chunks;
+      for (int e0 = c_lo * XK * XI + tid; e0 < c_hi * XK * XI; e0 += 4 * THREADS) {
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&gs[kk][tn * TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][ti * TM]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TM] = {b.x, b.y, b.z, b.w};
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * THREADS, o = d0 + e / XI, i = i0 + e % XI;
+          float w = 0.f;
+          if (o < o_end && i < Din) {
+            const unsigned idx = (unsigned)o * Din + i;
+            w = mu_w[idx] + softplus_f(rho_w[idx]) * normal_at(key, s, idx);
+          }
+          ws[e] = w;
+        }
+      }
+      // then each block copies the other blocks' rows from their shared
+      // memory into its own
+      if (share) {
+        cluster.sync();  // every block's rows are written
+        for (int q = 0; q < n_splits; ++q) {
+          if (q == rank) continue;
+          const float4* src = reinterpret_cast<const float4*>(cluster.map_shared_rank(ws, q));
+          float4* dst = reinterpret_cast<float4*>(ws);
+          const int lo = q * chunks / n_splits * (XK * XI / 4);
+          const int hi = (q + 1) * chunks / n_splits * (XK * XI / 4);
+          for (int v = lo + tid; v < hi; v += THREADS) dst[v] = src[v];
+        }
+        cluster.sync();  // no block writes its W_s again, or exits, while another reads it
+      }
+      // phase 2
+      for (int j = 0; j < steps; ++j) {
+        cp_async_wait<XSTAGES - 2>();
+        __syncthreads();  // chunk j has landed, W_s is written, step j - 1's stage is free
+        if (j + XSTAGES - 1 < steps) stage(j + XSTAGES - 1);
+        cp_async_commit();
+        const int st = j % XSTAGES, n0 = (t_begin + j / chunks) * XN, c = j % chunks;
+        if (c == 0) {  // a new tile: 0, or the sum of the earlier Dout chunks
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+          for (int a = 0; a < TM; ++a) {
+            const int n = n0 + tn * TM + a;
 #pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
+            for (int b = 0; b < TM; ++b) {
+              const int i = i0 + ti * TM + b;
+              acc[a][b] = (d0 > 0 && n < N && i < Din) ? dxs[(long long)n * Din + i] : 0.f;
+            }
+          }
+        }
+        const float* wc = ws + c * XK * XI + ti * TM;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int n = n0 + tn * TM + i;
-    if (n >= N) continue;
+        for (int k4 = 0; k4 < XK; k4 += 4) {
+          float gv[TM][4];
 #pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int c = i0 + ti * TM + j;
-      if (c < Din) dx[((long long)s * N + n) * Din + c] = acc[i][j];
+          for (int a = 0; a < TM; ++a) {
+            const float4 v = *reinterpret_cast<const float4*>(&gs[st][tn * TM + a][k4]);
+            gv[a][0] = v.x;
+            gv[a][1] = v.y;
+            gv[a][2] = v.z;
+            gv[a][3] = v.w;
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 w = *reinterpret_cast<const float4*>(wc + (k4 + kk) * XI);
+            const float wv[TM] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int a = 0; a < TM; ++a)
+#pragma unroll
+              for (int b = 0; b < TM; ++b) acc[a][b] = fmaf(gv[a][kk], wv[b], acc[a][b]);
+          }
+        }
+        if (c == chunks - 1) {
+#pragma unroll
+          for (int a = 0; a < TM; ++a) {
+            const int n = n0 + tn * TM + a;
+            if (n >= N) continue;
+#pragma unroll
+            for (int b = 0; b < TM; ++b) {
+              const int i = i0 + ti * TM + b;
+              if (i < Din) dxs[(long long)n * Din + i] = acc[a][b];
+            }
+          }
+        }
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// k_prng_dparam. On the TPU the grid runs in order and the kernel adds each
-// (sample, N tile) into its outputs (pallas_vi.py:225-237); Hopper's blocks run
-// in no order, so here each block owns a 32 x 32 tile of the (Dout, Din + 1)
-// outputs and loops inside itself over s and, within each s, over all of N.
+// dparam in two kernels. It replaces _prng_dparam_kernel
+// (psvi_tpu/ops/pallas_vi.py:207, pallas_call at :330). On the TPU the grid
+// runs in order and the kernel adds each (sample, N tile) into its outputs
+// (pallas_vi.py:225-237); Hopper's blocks run in no order, so the sum over
+// S and N is split across blocks and finished by a second, fixed-order pass.
 // Column Din is the bias: its activation is 1, so P_s[o, Din] = sum_n g[s,n,o].
-// After P_s is whole the block draws eps_s once per output, adds P_s to dmu and
-// P_s * eps_s to the raw drho; the epilogue multiplies by sigmoid(rho).
 //
 // What bounds it on this card: operations, the same 2*S*N*Din*Dout product as
-// the forward (0.342 GFLOP at fc1) plus S*(Dout*Din + Dout) normals, each drawn
-// once. What the design does about it: 2 x 2 register micro-tiles over
-// N chunks of 32 staged in shared memory, and no atomics, so a rerun is
-// bitwise. Its weakness is the grid: (Din + 1) / 32 x Dout / 32 blocks, 52 at
-// fc1 and 3 at fc3 on 132 SMs; splitting N or S across blocks would need a
-// second, fixed-order pass, left to a later PR.
-constexpr int DT = 32;  // outputs o and inputs i per block
-constexpr int DK = 32;  // points per staged chunk
-constexpr int DM = 2;   // micro-tile side per thread
+// the forward (0.342 GFLOP at fc1) plus S*(Dout*Din + Dout) normals, each
+// drawn once (0.055 G): 5.9 us at 67 TFLOP/s, against 7.8 MB of g, x and
+// parameters, 2.3 us at 3.35 TB/s.
+//
+// What the design does about it. One block walking all of S*N for its output
+// tile is latency: 52 blocks at fc1, 3 at fc3, each through S*N/32 chunks.
+//   k_prng_dparam_partial: a batched partial product, no eps. The grid is
+//   (Din + 1) / 64 x Dout / 64 x S * n_splits; the plan (_dparam_plan in
+//   ../sampled_linear_prng.py) splits N evenly until the grid covers the 132
+//   SMs and no split walks more than 256 points, each split at least 32
+//   points. A block takes B3's proven shape: a
+//   64 x 64 tile of P over one split of one sample, 256 threads, 4 x 4
+//   register micro-tiles; the 16-point chunks of g and x come through a ring
+//   of five stages filled with cp.async, four chunks (32 KB) in flight while
+//   one is used: with about one block an SM, one chunk in flight (8 KB) left
+//   each chunk waiting out device memory's latency. 16-byte copies where a
+//   row is a multiple of 4 floats and 16-byte aligned, 4-byte copies else (g
+//   at Dout = 10). It writes P to part[s][k][o][i], i <= Din (3.8 MB at fc1,
+//   in L2).
+//   k_prng_dparam_reduce: one thread an output e, neighbours on neighbouring
+//   e (coalesced), in a fixed order: for each s, P = sum over the splits k,
+//   dmu += P, drho += P * eps(s, e); then sigmoid(rho). Each eps is drawn
+//   once for each (s, e), as before, four samples' draws side by side.
+// No TF32 and no tensor cores: the gate is 1e-5 * max |ref| in true fp32, and
+// TF32 keeps about three digits; the fp32 bound at fc1 is already 2.4 times
+// under torch.bmm's time. A 3xTF32 mma.sync pass 1 is a later PR's choice.
+constexpr int DT = 64;  // outputs o and inputs i a block (pass 1)
+constexpr int DK = 16;  // points a staged chunk
+constexpr int DSTAGES = 5;  // chunks in the ring: four in flight while one is used
 
-__global__ void __launch_bounds__(THREADS)
-k_prng_dparam(const float* __restrict__ g, const float* __restrict__ x,
-              const float* __restrict__ rho_w, const float* __restrict__ rho_b,
-              float* __restrict__ dmu_w, float* __restrict__ drho_w,
-              float* __restrict__ dmu_b, float* __restrict__ drho_b, int S, int N, int Din,
-              int Dout, Key key) {
-  __shared__ __align__(16) float gs[DK][DT + PAD];  // gs[n][o]
-  __shared__ __align__(16) float xs[DK][DT + PAD];  // xs[n][i], 1 in column Din
-  const int i0 = blockIdx.x * DT, o0 = blockIdx.y * DT;
-  const int tid = threadIdx.x;
-  const int to = tid / (DT / DM), ti = tid % (DT / DM);
-  float mu[DM][DM], rho[DM][DM];
-#pragma unroll
-  for (int a = 0; a < DM; ++a)
-#pragma unroll
-    for (int b = 0; b < DM; ++b) mu[a][b] = rho[a][b] = 0.f;
-
-  for (int s = 0; s < S; ++s) {
-    const float* gg = g + (long long)s * N * Dout;
-    const float* xg = x + (long long)s * N * Din;
-    float p[DM][DM];
-#pragma unroll
-    for (int a = 0; a < DM; ++a)
-#pragma unroll
-      for (int b = 0; b < DM; ++b) p[a][b] = 0.f;
-    for (int n0 = 0; n0 < N; n0 += DK) {
-      // neighbouring threads read neighbouring o (or i) of one row n (coalesced)
-      for (int e = tid; e < DK * DT; e += THREADS) {
-        const int kk = e / DT, r = e % DT, n = n0 + kk, o = o0 + r, i = i0 + r;
-        gs[kk][r] = (n < N && o < Dout) ? gg[(long long)n * Dout + o] : 0.f;
-        xs[kk][r] = n >= N ? 0.f : i < Din ? xg[(long long)n * Din + i] : (i == Din ? 1.f : 0.f);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < DK; ++kk) {
-        const float2 ga = *reinterpret_cast<const float2*>(&gs[kk][to * DM]);
-        const float2 xb = *reinterpret_cast<const float2*>(&xs[kk][ti * DM]);
-        const float gv[DM] = {ga.x, ga.y};
-        const float xv[DM] = {xb.x, xb.y};
-#pragma unroll
-        for (int a = 0; a < DM; ++a)
-#pragma unroll
-          for (int b = 0; b < DM; ++b) p[a][b] = fmaf(gv[a], xv[b], p[a][b]);
-      }
-      __syncthreads();
+// Rows [n, n + 16) (up to n_end) of a (rows, D) matrix, columns [c0, c0 + 64),
+// into dst; column `one` (the bias column, or -1) is 1 on a row in range,
+// every other entry outside the matrix or the split is 0.
+static __device__ __forceinline__ void stage_rows(float (*dst)[DT + PAD], const float* src, int n,
+                                                  int n_end, int D, int c0, int one, bool vec,
+                                                  int tid) {
+  static_assert(DK * DT / 4 == THREADS, "one 16-byte copy a thread");
+  if (vec) {  // D % 4 == 0, so a 4-float group lies inside [0, D) or outside it
+    const int kk = tid / (DT / 4), q = tid % (DT / 4), r = n + kk, c = c0 + 4 * q;
+    float* d = &dst[kk][4 * q];
+    if (r < n_end && c < D) {
+      cp_async16(d, src + (long long)r * D + c);
+    } else {
+      const float v = (r < n_end && c == one) ? 1.f : 0.f;
+      *reinterpret_cast<float4*>(d) = make_float4(v, 0.f, 0.f, 0.f);
     }
-#pragma unroll
-    for (int a = 0; a < DM; ++a) {
-      const int o = o0 + to * DM + a;
-#pragma unroll
-      for (int b = 0; b < DM; ++b) {
-        const int i = i0 + ti * DM + b;
-        if (o >= Dout || i > Din) continue;
-        const unsigned e = i < Din ? (unsigned)o * Din + i : (unsigned)Dout * Din + o;
-        mu[a][b] += p[a][b];
-        rho[a][b] += p[a][b] * normal_at(key, s, e);
+  } else {
+    for (int e = tid; e < DK * DT; e += THREADS) {
+      const int kk = e / DT, cc = e % DT, r = n + kk, c = c0 + cc;
+      if (r < n_end && c < D) {
+        cp_async4(&dst[kk][cc], src + (long long)r * D + c);
+      } else {
+        dst[kk][cc] = (r < n_end && c == one) ? 1.f : 0.f;
       }
     }
   }
+}
 
+__global__ void __launch_bounds__(THREADS)
+k_prng_dparam_partial(const float* __restrict__ g, const float* __restrict__ x,
+                      float* __restrict__ part, int S, int N, int Din, int Dout, int n_splits,
+                      int g_vec, int x_vec) {
+  __shared__ __align__(16) float gs[DSTAGES][DK][DT + PAD];  // gs[n][o]
+  __shared__ __align__(16) float xs[DSTAGES][DK][DT + PAD];  // xs[n][i], 1 in column Din
+  const int i0 = blockIdx.x * DT, o0 = blockIdx.y * DT, tid = threadIdx.x;
+  const int to = tid / (DT / TM), ti = tid % (DT / TM);
+  const long long E1 = (long long)Dout * (Din + 1);
+  for (int z = blockIdx.z; z < S * n_splits; z += gridDim.z) {
+    // split k of sample s, as _split_bounds(N, n_splits) cuts it
+    const int s = z / n_splits, k = z % n_splits;
+    const int n_begin = (int)((long long)k * N / n_splits);
+    const int n_end = (int)((long long)(k + 1) * N / n_splits);
+    const float* gg = g + (long long)s * N * Dout;
+    const float* xg = x + (long long)s * N * Din;
+    const int chunks = (n_end - n_begin + DK - 1) / DK;
+    auto stage = [&](int c) {
+      const int st = c % DSTAGES, n = n_begin + c * DK;
+      stage_rows(gs[st], gg, n, n_end, Dout, o0, -1, g_vec, tid);
+      stage_rows(xs[st], xg, n, n_end, Din, i0, Din, x_vec, tid);
+    };
+    float acc[TM][TM];
 #pragma unroll
-  for (int a = 0; a < DM; ++a) {
-    const int o = o0 + to * DM + a;
+    for (int a = 0; a < TM; ++a)
 #pragma unroll
-    for (int b = 0; b < DM; ++b) {
-      const int i = i0 + ti * DM + b;
-      if (o >= Dout || i > Din) continue;
-      if (i < Din) {
-        const long long idx = (long long)o * Din + i;
-        dmu_w[idx] = mu[a][b];
-        drho_w[idx] = rho[a][b] / (1.f + expf(-rho_w[idx]));
-      } else {
-        dmu_b[o] = mu[a][b];
-        drho_b[o] = rho[a][b] / (1.f + expf(-rho_b[o]));
+      for (int b = 0; b < TM; ++b) acc[a][b] = 0.f;
+
+    __syncthreads();  // no thread still reads the ring
+    for (int c = 0; c < DSTAGES - 1; ++c) {
+      if (c < chunks) stage(c);
+      cp_async_commit();
+    }
+    for (int c = 0; c < chunks; ++c) {
+      cp_async_wait<DSTAGES - 2>();
+      __syncthreads();  // chunk c has landed, and chunk c - 1's stage is free
+      if (c + DSTAGES - 1 < chunks) stage(c + DSTAGES - 1);
+      cp_async_commit();
+      const int st = c % DSTAGES;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        const float4 a = *reinterpret_cast<const float4*>(&gs[st][kk][to * TM]);
+        const float4 b = *reinterpret_cast<const float4*>(&xs[st][kk][ti * TM]);
+        const float av[TM] = {a.x, a.y, a.z, a.w};
+        const float bv[TM] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
+    }
+
+    float* pz = part + (long long)z * E1;
+#pragma unroll
+    for (int a = 0; a < TM; ++a) {
+      const int o = o0 + to * TM + a;
+      if (o >= Dout) continue;
+#pragma unroll
+      for (int b = 0; b < TM; ++b) {
+        const int i = i0 + ti * TM + b;
+        if (i <= Din) pz[(long long)o * (Din + 1) + i] = acc[a][b];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+k_prng_dparam_reduce(const float* __restrict__ part, const float* __restrict__ rho_w,
+                     const float* __restrict__ rho_b, float* __restrict__ dmu_w,
+                     float* __restrict__ drho_w, float* __restrict__ dmu_b,
+                     float* __restrict__ drho_b, int S, int Din, int Dout, int n_splits,
+                     Key key) {
+  const long long E1 = (long long)Dout * (Din + 1);
+  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < E1;
+       t += (long long)gridDim.x * THREADS) {
+    const int o = (int)(t / (Din + 1)), i = (int)(t % (Din + 1));
+    const unsigned e = i < Din ? (unsigned)o * Din + i : (unsigned)Dout * Din + o;
+    // four samples at a time: their draws and loads are independent, so
+    // they run side by side; the sums still run s = 0, 1, ... in order
+    float mu = 0.f, rho = 0.f;
+    for (int s0 = 0; s0 < S; s0 += 4) {
+      float p[4], ep[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int s = s0 + u;
+        p[u] = 0.f;
+        ep[u] = 0.f;
+        if (s < S) {
+          const float* ps = part + (long long)s * n_splits * E1 + t;
+          for (int k = 0; k < n_splits; ++k) p[u] += ps[(long long)k * E1];
+          ep[u] = normal_at(key, s, e);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (s0 + u < S) {
+          mu += p[u];
+          rho += p[u] * ep[u];
+        }
+      }
+    }
+    if (i < Din) {
+      const long long idx = (long long)o * Din + i;
+      dmu_w[idx] = mu;
+      drho_w[idx] = rho / (1.f + expf(-rho_w[idx]));
+    } else {
+      dmu_b[o] = mu;
+      drho_b[o] = rho / (1.f + expf(-rho_b[o]));
     }
   }
 }
@@ -392,25 +647,65 @@ extern "C" int psvi_prng_fwd(const float* x, const float* mu_w, const float* rho
   return static_cast<int>(cudaGetLastError());
 }
 
+// n_splits: _dx_plan's splits of N (1 <= n_splits <= min(8, ceil(N / 64))),
+// which is also the cluster size: 8 is the most a portable cluster holds.
 extern "C" int psvi_prng_dx(const float* g, const float* mu_w, const float* rho_w, float* dx,
-                            int S, int N, int Din, int Dout, unsigned key_lo, unsigned key_hi,
-                            void* stream) {
+                            int S, int N, int Din, int Dout, int n_splits, unsigned key_lo,
+                            unsigned key_hi, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0 || N <= 0 || Din <= 0) return 0;
-  const dim3 grid((Din + BT - 1) / BT, (N + BT - 1) / BT, S);
-  k_prng_dx<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, mu_w, rho_w, dx, N, Din, Dout, Key{key_lo, key_hi});
-  return static_cast<int>(cudaGetLastError());
+  if (Dout <= 0) {  // no outputs to sum over: dx is 0
+    return static_cast<int>(cudaMemsetAsync(dx, 0, sizeof(float) * S * N * Din, st));
+  }
+  const int rows = Dout < XW ? (Dout + XK - 1) / XK * XK : XW;
+  const int smem = rows * XI * static_cast<int>(sizeof(float));
+  constexpr int ring = XSTAGES * XN * (XK + PAD) * static_cast<int>(sizeof(float));
+  if (smem + ring > 48 * 1024) {  // above 48 KB a block must ask for its shared memory
+    const cudaError_t err =
+        cudaFuncSetAttribute(k_prng_dx, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // a cluster of the n_splits blocks of one (column tile, sample)
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = n_splits;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Din + XI - 1) / XI, n_splits, S < 65535 ? S : 65535);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, k_prng_dx, g, mu_w, rho_w, dx, S, N, Din,
+                                             Dout, n_splits, static_cast<int>(rows_of_float4(g, Dout)),
+                                             Key{key_lo, key_hi}));
 }
 
+// part: the scratch of pass 1, S * n_splits * Dout * (Din + 1) floats;
+// n_splits: _dparam_plan's splits of N (1 <= n_splits <= max(1, N / 32)).
 extern "C" int psvi_prng_dparam(const float* g, const float* x, const float* rho_w,
                                 const float* rho_b, float* dmu_w, float* drho_w, float* dmu_b,
-                                float* drho_b, int S, int N, int Din, int Dout, unsigned key_lo,
-                                unsigned key_hi, void* stream) {
+                                float* drho_b, float* part, int S, int N, int Din, int Dout,
+                                int n_splits, unsigned key_lo, unsigned key_hi, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dout <= 0) return 0;
-  const dim3 grid((Din + 1 + DT - 1) / DT, (Dout + DT - 1) / DT);
-  k_prng_dparam<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, x, rho_w, rho_b, dmu_w, drho_w, dmu_b, drho_b, S, N, Din, Dout,
-      Key{key_lo, key_hi});
+  if (S > 0) {
+    const int zs = S * n_splits;
+    const dim3 grid((Din + 1 + DT - 1) / DT, (Dout + DT - 1) / DT, zs < 65535 ? zs : 65535);
+    k_prng_dparam_partial<<<grid, THREADS, 0, st>>>(g, x, part, S, N, Din, Dout, n_splits,
+                                                    rows_of_float4(g, Dout),
+                                                    rows_of_float4(x, Din));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long E1 = (long long)Dout * (Din + 1);
+  const long long need = (E1 + THREADS - 1) / THREADS;
+  const int blocks = static_cast<int>(need < (1 << 20) ? need : (1 << 20));
+  k_prng_dparam_reduce<<<blocks, THREADS, 0, st>>>(part, rho_w, rho_b, dmu_w, drho_w, dmu_b,
+                                                   drho_b, S, Din, Dout, n_splits,
+                                                   Key{key_lo, key_hi});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,8 +12,12 @@ For every sample s, with ε_s drawn from (seed, s)::
     y_s = x_s·W_sᵀ + b_s
     nkl_s = Σ_layer log N(θ_s; 0, σ_p²) − log N(θ_s; μ, softplus(ρ)²)
 
-The four CUDA kernels (``csrc/sampled_linear_prng.cu``) draw ε themselves:
-it is never read from or written to device memory.
+The CUDA kernels (``csrc/sampled_linear_prng.cu``) draw ε themselves: it is
+never read from or written to device memory. dx builds each block's columns
+of W_s once in shared memory over a split of N (:func:`_dx_plan`); dparam
+runs as two kernels, ``k_prng_dparam_partial`` (g_sᵀx_s over splits of N,
+:func:`_dparam_plan`) and ``k_prng_dparam_reduce`` (the sum over splits in a
+fixed order, ε, σ(ρ)), counted as one launch.
 
 **The noise.** The TPU kernels seed the TPU's own generator with (seed,
 sample); those bits cannot be had off the TPU. Here ε is a pure function of
@@ -174,6 +178,69 @@ def vi_linear_nkl_prng_reference(mu_w, rho_w, mu_b, rho_b, seed, mc_samples, pri
 
 
 # ----------------------------------------------------------------------
+# The launch plans of B4b and B4c: plain functions of the shape, so that a
+# rerun launches the same grid and gives the same bits.
+
+#: SMs of an H100 SXM: a wave of blocks, one on each.
+SMS = 132
+#: Output tile of dparam's pass 1 (both sides) and input columns of a dx block.
+DPARAM_TILE = DX_TILE = 64
+#: Fewest points a split of N keeps (dx: one 64-point tile).
+DPARAM_MIN_POINTS, DX_MIN_POINTS = 32, 64
+#: Most points a split of dparam's pass 1 walks: a sweep of its split count
+#: on an H100 found longer splits slower at fc1 and at N = 1024 (PERF.md).
+DPARAM_MAX_POINTS = 256
+#: Blocks each plan's grid reaches where N allows: dparam one wave; dx one
+#: and a half, where the same sweep found its time lowest at fc1 and at
+#: N = 1024.
+DPARAM_BLOCKS, DX_BLOCKS = SMS, 3 * SMS // 2
+#: Most splits of dx: they form one thread block cluster, at most 8 blocks.
+DX_MAX_SPLITS = 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _n_splits(blocks_per_split, N, min_points, blocks, most=None, max_points=None):
+    """The fewest splits of N whose grid, ``blocks_per_split`` blocks a
+    split, reaches ``blocks`` and whose splits hold at most ``max_points``
+    points, with at least ``min_points`` points in every split (one split
+    where N has fewer) and at most ``most`` splits."""
+    cap = max(1, min(most or N, N // min_points))
+    want = _cdiv(blocks, max(1, blocks_per_split))
+    if max_points is not None:
+        want = max(want, _cdiv(N, max_points))
+    return max(1, min(cap, want))
+
+
+def _dparam_plan(S, N, Din, Dout):
+    """Splits of N for ``k_prng_dparam_partial``, whose grid is
+    (Din + 1) / 64 × Dout / 64 × S·n_splits."""
+    return _n_splits(_cdiv(Din + 1, DPARAM_TILE) * _cdiv(Dout, DPARAM_TILE) * S, N,
+                     DPARAM_MIN_POINTS, DPARAM_BLOCKS, max_points=DPARAM_MAX_POINTS)
+
+
+def _dx_plan(S, N, Din, Dout):
+    """Splits of N for ``k_prng_dx``, whose grid is Din / 64 × n_splits × S
+    in clusters of n_splits blocks."""
+    return _n_splits(_cdiv(Din, DX_TILE) * S, N, DX_MIN_POINTS, DX_BLOCKS, DX_MAX_SPLITS)
+
+
+def _split_bounds(N, n_splits, unit=1):
+    """[n0, n1) of each split as the kernels cut N: dparam's as evenly as
+    points allow (``unit`` 1), dx's in whole 64-point tiles (``unit`` 64)."""
+    units = _cdiv(N, unit)
+    return [(min(N, unit * (k * units // n_splits)), min(N, unit * ((k + 1) * units // n_splits)))
+            for k in range(n_splits)]
+
+
+def _dparam_scratch_shape(S, N, Din, Dout):
+    """Pass 1's partial products part[s][k][o][i], i ≤ Din (the bias column)."""
+    return (S, _dparam_plan(S, N, Din, Dout), Dout, Din + 1)
+
+
+# ----------------------------------------------------------------------
 # The CUDA wrappers.
 
 
@@ -184,11 +251,12 @@ def _lib():
     if not getattr(lib, "_psvi_typed", False):
         i, u = ctypes.c_int, ctypes.c_uint32
         key = [u, u]
-        # tensors | S N Din Dout (nkl: S Din Dout, prior_sd; bits: n) | key | stream
+        # tensors | S N Din Dout (dx, dparam: and n_splits; nkl: S Din Dout,
+        # prior_sd; bits: n) | key | stream
         lib.psvi_philox_bits.argtypes = [_P, _P, i, u, u, _P]
         lib.psvi_prng_fwd.argtypes = [_P] * 6 + [i] * 4 + key + [_P]
-        lib.psvi_prng_dx.argtypes = [_P] * 4 + [i] * 4 + key + [_P]
-        lib.psvi_prng_dparam.argtypes = [_P] * 8 + [i] * 4 + key + [_P]
+        lib.psvi_prng_dx.argtypes = [_P] * 4 + [i] * 5 + key + [_P]
+        lib.psvi_prng_dparam.argtypes = [_P] * 9 + [i] * 5 + key + [_P]
         lib.psvi_prng_nkl.argtypes = [_P] * 5 + [i] * 3 + [ctypes.c_float] + key + [_P]
         for fn in ("psvi_philox_bits", "psvi_prng_fwd", "psvi_prng_dx", "psvi_prng_dparam",
                    "psvi_prng_nkl"):
@@ -205,16 +273,14 @@ def _layer_key(seed, Dout, Din):
     return philox_key(seed)
 
 
-def _launch(name, args, outs, scalars, key, dtype=_F):
-    """Check ``args`` (name, tensor, shape), all of ``dtype``, then launch
-    ``psvi_<name>`` on the current stream with the outputs, the scalars and
-    the key; raise on a launch error."""
-    dev = _check([(nm, t, dtype, shape) for nm, t, shape in args])
+def _launch(name, dev, tensors, scalars, key):
+    """Launch ``psvi_<name>`` on ``dev``'s current stream with the tensors'
+    pointers, the scalars and the key (the tensors checked by the caller);
+    raise on a launch error."""
     fn = getattr(_lib(), "psvi_" + name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[_P(t.data_ptr()) for t in [a[1] for a in args] + outs], *scalars, *key,
-                _P(stream))
+        rc = fn(*[_P(t.data_ptr()) for t in tensors], *scalars, *key, _P(stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     if name in LAUNCHES:
@@ -227,8 +293,9 @@ def _philox_bits_cuda(counter, key):
     (n, 4) int32. For holding the generator to :func:`philox4x32` bit for
     bit."""
     n = counter.shape[0]
-    out = torch.empty((n, 4), dtype=torch.int32, device=counter.device)
-    _launch("philox_bits", [("counter", counter, (n, 4))], [out], (n,), key, torch.int32)
+    dev = _check([("counter", counter, torch.int32, (n, 4))])
+    out = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    _launch("philox_bits", dev, [counter, out], (n,), key)
     return out
 
 
@@ -237,34 +304,44 @@ def _prng_fwd_cuda(x, mu_w, rho_w, mu_b, rho_b, seed):
     S, N, Din = x.shape
     Dout = mu_w.shape[0]
     key = _layer_key(seed, Dout, Din)
-    y = torch.empty((S, N, Dout), dtype=_F, device=x.device)
-    _launch("prng_fwd", [("x", x, (S, N, Din)), ("mu_w", mu_w, (Dout, Din)),
-                         ("rho_w", rho_w, (Dout, Din)), ("mu_b", mu_b, (Dout,)),
-                         ("rho_b", rho_b, (Dout,))], [y], (S, N, Din, Dout), key)
+    dev = _check([("x", x, _F, (S, N, Din)), ("mu_w", mu_w, _F, (Dout, Din)),
+                  ("rho_w", rho_w, _F, (Dout, Din)), ("mu_b", mu_b, _F, (Dout,)),
+                  ("rho_b", rho_b, _F, (Dout,))])
+    y = torch.empty((S, N, Dout), dtype=_F, device=dev)
+    _launch("prng_fwd", dev, [x, mu_w, rho_w, mu_b, rho_b, y], (S, N, Din, Dout), key)
     return y
 
 
 def _prng_dx_cuda(g, mu_w, rho_w, seed):
-    """B4b: dx (S, N, Din)."""
+    """B4b: dx (S, N, Din), over :func:`_dx_plan`'s splits of N."""
     S, N, Dout = g.shape
     Din = mu_w.shape[1]
     key = _layer_key(seed, Dout, Din)
-    dx = torch.empty((S, N, Din), dtype=_F, device=g.device)
-    _launch("prng_dx", [("g", g, (S, N, Dout)), ("mu_w", mu_w, (Dout, Din)),
-                        ("rho_w", rho_w, (Dout, Din))], [dx], (S, N, Din, Dout), key)
+    dev = _check([("g", g, _F, (S, N, Dout)), ("mu_w", mu_w, _F, (Dout, Din)),
+                  ("rho_w", rho_w, _F, (Dout, Din))])
+    dx = torch.empty((S, N, Din), dtype=_F, device=dev)
+    _launch("prng_dx", dev, [g, mu_w, rho_w, dx],
+            (S, N, Din, Dout, _dx_plan(S, N, Din, Dout)), key)
     return dx
 
 
 def _prng_dparam_cuda(g, x, rho_w, rho_b, seed):
-    """B4c: dμ_w, dρ_w (Dout, Din), dμ_b, dρ_b (Dout,), σ(ρ) applied."""
+    """B4c: dμ_w, dρ_w (Dout, Din), dμ_b, dρ_b (Dout,), σ(ρ) applied. One
+    call is two kernels, ``k_prng_dparam_partial`` (P over
+    :func:`_dparam_plan`'s splits of N, into a scratch of
+    :func:`_dparam_scratch_shape`) and ``k_prng_dparam_reduce``; it counts
+    as one launch of ``prng_dparam``."""
     S, N, Dout = g.shape
     Din = x.shape[2]
     key = _layer_key(seed, Dout, Din)
-    outs = [torch.empty(shape, dtype=_F, device=g.device)
+    dev = _check([("g", g, _F, (S, N, Dout)), ("x", x, _F, (S, N, Din)),
+                  ("rho_w", rho_w, _F, (Dout, Din)), ("rho_b", rho_b, _F, (Dout,))])
+    outs = [torch.empty(shape, dtype=_F, device=dev)
             for shape in ((Dout, Din), (Dout, Din), (Dout,), (Dout,))]
-    _launch("prng_dparam", [("g", g, (S, N, Dout)), ("x", x, (S, N, Din)),
-                            ("rho_w", rho_w, (Dout, Din)), ("rho_b", rho_b, (Dout,))],
-            outs, (S, N, Din, Dout), key)
+    part_shape = _dparam_scratch_shape(S, N, Din, Dout)
+    part = torch.empty(part_shape, dtype=_F, device=dev)
+    _launch("prng_dparam", dev, [g, x, rho_w, rho_b, *outs, part],
+            (S, N, Din, Dout, part_shape[1]), key)
     return tuple(outs)
 
 
@@ -272,10 +349,11 @@ def _prng_nkl_cuda(mu_w, rho_w, mu_b, rho_b, seed, mc_samples, prior_sd=1.0):
     """B4d: nkl (mc_samples,)."""
     Dout, Din = mu_w.shape
     key = _layer_key(seed, Dout, Din)
-    out = torch.empty((mc_samples,), dtype=_F, device=mu_w.device)
-    _launch("prng_nkl", [("mu_w", mu_w, (Dout, Din)), ("rho_w", rho_w, (Dout, Din)),
-                         ("mu_b", mu_b, (Dout,)), ("rho_b", rho_b, (Dout,))],
-            [out], (mc_samples, Din, Dout, float(prior_sd)), key)
+    dev = _check([("mu_w", mu_w, _F, (Dout, Din)), ("rho_w", rho_w, _F, (Dout, Din)),
+                  ("mu_b", mu_b, _F, (Dout,)), ("rho_b", rho_b, _F, (Dout,))])
+    out = torch.empty((mc_samples,), dtype=_F, device=dev)
+    _launch("prng_nkl", dev, [mu_w, rho_w, mu_b, rho_b, out],
+            (mc_samples, Din, Dout, float(prior_sd)), key)
     return out
 
 

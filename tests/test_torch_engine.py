@@ -6,7 +6,11 @@
   batch and noise injected, match the JAX ``_nested_step`` on the loss,
   the hypergradients handed to the hyper-Adam update, u, v, α and the
   parameters; for LeNet on synth_mnist, at the JAX tests' toy size,
-  ``_nested_step`` and ``_nested_step_fused_lenet``.
+  ``_nested_step`` and ``_nested_step_fused_lenet``. The dense methods
+  include the four that fix u, v's rescaling or v's softmax
+  (``psvi_fixed_u``, ``psvi_alpha_fixed_u``, ``psvi_no_rescaling``,
+  ``psvi_free_v``); ``psvi_free_v`` starts with weights below one Adam
+  step, so that the v ≥ 0 clamp after the step acts.
 - ``run_psvi`` on halfmoon logistic regression (M=30, 101 outer steps)
   lands in the documented accuracy band and returns the JAX engine's
   results-dict keys.
@@ -52,16 +56,33 @@ def _cos(a, b):
     return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
 
 
+# the hypergradients each method hands to the hyper-Adam update (JAX's
+# _hyper_tree: u unless fixed, v where learned, α where learned)
+HYPERS = {"psvi_alpha_v": {"u", "v", "alpha"}, "psvi_learn_v": {"u", "v"},
+          "psvi_fixed_u": {"v"}, "psvi_alpha_fixed_u": {"v", "alpha"},
+          "psvi_no_rescaling": {"u"}, "psvi_free_v": {"u", "v"}}
+
+
 @pytest.mark.parametrize("method,dataset,arch", [
     ("psvi_alpha_v", "halfmoon", "logistic_regression"),
     ("psvi_learn_v", "four_blobs", "fn"),
     ("psvi_learn_v", "synth_mnist", "lenet"),
+    ("psvi_fixed_u", "four_blobs", "fn"),
+    ("psvi_alpha_fixed_u", "four_blobs", "fn"),
+    ("psvi_no_rescaling", "halfmoon", "logistic_regression"),
+    ("psvi_free_v", "four_blobs", "fn"),
 ])
 def test_engine_step_matches_jax(method, dataset, arch):
     lenet = arch == "lenet"
     kw = LENET_KW if lenet else KW
     jeng = JPSVI(jax_read_dataset(dataset), method=method, architecture=arch,
                  fused_inner=False, **kw)
+    if method == "psvi_free_v":
+        # every other weight below one Adam step (lr0v = 1e-3): where g_v > 0
+        # the step takes it negative and the v ≥ 0 clamp sets it to 0
+        v = np.asarray(jeng.state.v).copy()
+        v[::2] = 1e-4
+        jeng.state = jeng.state._replace(v=jax.numpy.asarray(v))
     jgrads = _capture_hypergrads(jeng)
     key = jax.random.PRNGKey(3)
     # the batch and the noise the JAX step draws from this key
@@ -74,7 +95,10 @@ def test_engine_step_matches_jax(method, dataset, arch):
     jstate1, jaux = jeng._nested_step(jeng.state, key, batch=(xb, yb))
 
     jgrads = dict(jgrads)
-    assert set(jgrads) == ({"u", "v", "alpha"} if method == "psvi_alpha_v" else {"u", "v"})
+    assert set(jgrads) == HYPERS[method]
+    if method == "psvi_free_v":
+        clamped = np.asarray(jstate1.v) == 0.0
+        assert clamped.any() and (np.asarray(jstate1.v) >= 0).all()
 
     peng = PSVI(read_dataset(dataset), method=method, architecture=arch, device="cpu", **kw)
     pgrads = _capture_hypergrads(peng)
@@ -89,7 +113,7 @@ def test_engine_step_matches_jax(method, dataset, arch):
         # T-deep unroll (largest gap measured: ū of the LeNet kernel pair's
         # plain versions, 1 − cos 2.6e-6, max|Δ| 3.3e-3·max|ref|)
         assert set(pgrads) == set(jgrads)
-        for k in ("u", "v"):
+        for k in sorted(set(jgrads) - {"alpha"}):
             assert _cos(pgrads[k], jgrads[k]) > 0.999, (step.__name__, k)
             assert (np.abs(pgrads[k] - jgrads[k]).max()
                     <= 1e-2 * np.abs(jgrads[k]).max()), (step.__name__, k)
@@ -116,6 +140,8 @@ def test_engine_step_matches_jax(method, dataset, arch):
             np.testing.assert_allclose(s1.u.numpy(), np.asarray(jstate1.u), atol=1e-6)
             np.testing.assert_allclose(s1.v.numpy(), np.asarray(jstate1.v), atol=1e-5)
             np.testing.assert_allclose(s1.alpha.numpy(), np.asarray(jstate1.alpha), atol=1e-5)
+            if method == "psvi_free_v":  # the clamp, on the same entries
+                np.testing.assert_array_equal(s1.v.numpy() == 0.0, clamped)
             # paramsT: tolerances of tests/test_fused_nested.py
             for tp, jp in zip(s1.params, jstate1.params):
                 for k in tp:

@@ -3,7 +3,9 @@
 - ``fused_nested_outer(backend="torch")`` (the plain versions of the three
   CUDA kernels, hand-derived math) and ``backend="autograd"`` (the oracle)
   each match JAX ``fused_nested_outer(..., backend="xla")`` on the six
-  categorical configs of ``tests/test_fused_nested.py``, from the same
+  categorical configs of ``tests/test_fused_nested.py`` and on
+  ``psvi_fixed_u``, ``psvi_alpha_fixed_u``, ``psvi_no_rescaling`` and
+  ``psvi_free_v`` (g_v of unnormalised weights), from the same
   NumPy inputs, with that file's tolerances, and on the Gaussian
   (regressor) configs — the three regressor methods on sinus with the
   1-20-1 net of ``tests/test_fused_nested.py:186-213`` and a 1-40-40-1 net
@@ -32,8 +34,10 @@ from psvi_tpu.models import networks as JN
 from psvi_tpu.ops import elbo as JE
 from psvi_tpu.ops import fused_nested as JFN
 from psvi_tpu.ops import optim as JO
+from psvi_tpu.utils.config import METHOD_SPECS
 
-# the six configs of tests/test_fused_nested.py:130-141, at its sizes
+# the six configs of tests/test_fused_nested.py:130-141, at its sizes, then
+# the four methods that fix u, v's rescaling or v's softmax
 T, S, M, B = 5, 6, 20, 64
 CONFIGS = [
     ("psvi_learn_v", "halfmoon", "logistic_regression"),
@@ -42,6 +46,10 @@ CONFIGS = [
     ("psvi_learn_v", "four_blobs", "logistic_regression"),
     ("psvi_learn_v", "halfmoon", "fn"),
     ("psvi_learn_v", "four_blobs", "fn"),
+    ("psvi_fixed_u", "four_blobs", "fn"),
+    ("psvi_alpha_fixed_u", "halfmoon", "fn"),
+    ("psvi_no_rescaling", "halfmoon", "logistic_regression"),
+    ("psvi_free_v", "four_blobs", "fn"),
 ]
 
 
@@ -53,10 +61,10 @@ def _cos(a, b):
 def _inputs(method, dataset, arch, seed=0):
     data = read_dataset(dataset)
     widths = (data.D, data.nc) if arch == "logistic_regression" else (data.D, 40, data.nc)
-    parameterised = method != "psvi"
+    spec = METHOD_SPECS[method]
+    parameterised = spec.parameterised
     cfg = FN.FusedCfg(T=T, S=S, widths=widths, M=M, B=B, N=float(data.N),
-                      parameterised=parameterised, use_alpha=method == "psvi_alpha_v",
-                      prior_sd=1.0)
+                      parameterised=parameterised, use_alpha=spec.learn_alpha, prior_sd=1.0)
     rng = np.random.default_rng(seed)
     rho0 = math.log(math.expm1(1e-3))
     f32 = np.float32
@@ -72,7 +80,15 @@ def _inputs(method, dataset, arch, seed=0):
         eps_out.append({"w": rng.standard_normal((S, o, i)).astype(f32),
                         "b": rng.standard_normal((S, o)).astype(f32)})
     iu, ib = rng.choice(data.N, M, replace=False), rng.choice(data.N, B, replace=False)
-    v = (0.1 * rng.standard_normal(M)).astype(f32) if parameterised else np.full(M, 1 / M, f32)
+    if parameterised:
+        v = (0.1 * rng.standard_normal(M)).astype(f32)
+    elif spec.no_rescaling:  # the engine's v = 1/(M·N) (psvi.py:565-566)
+        v = np.full(M, 1 / (M * data.N), f32)
+    elif spec.learn_v:  # free weights, drifted apart from 1/M, one of them 0
+        v = (rng.uniform(0.0, 2.0, M) / M).astype(f32)
+        v[0] = 0.0
+    else:
+        v = np.full(M, 1 / M, f32)
     arrays = dict(layers=layers, eps_in=eps_in, eps_out=eps_out, u=data.x[iu],
                   z=data.y[iu], xb=data.x[ib], yb=data.y[ib], v=v,
                   alpha=np.array([0.1 if cfg.use_alpha else 0.0], f32), lr=1e-3)
@@ -146,6 +162,8 @@ def test_fused_matches_jax(method, dataset, arch, backend):
     assert _cos(g_u, j_gu) > 0.999
     np.testing.assert_allclose(g_u.numpy(), j_gu, atol=2e-5 * float(1.0 + np.abs(j_gu).max()))
     assert _cos(g_v, j_gv) > 0.999
+    if not cfg.parameterised:  # g_v of the raw weights, as the v ≥ 0 clamp sees it
+        assert _agrees(g_v.numpy(), j_gv.reshape(g_v.shape))
     if cfg.use_alpha:
         # ∂/∂α sums N-scaled terms with heavy cancellation: a few % in f32
         assert np.isclose(float(g_a[0]), float(j_ga.ravel()[0]), rtol=0.05, atol=1e-6)

@@ -343,6 +343,99 @@ def test_composed_stack_matches_jax_on_the_same_eps():
 
 
 # ----------------------------------------------------------------------
+# The launch plans of B4b (dx) and B4c (dparam): functions of the shape only
+
+# (S, N, Din, Dout): the LeNet fc layers at N = 356, 400→120 at N = 104 and
+# 1024, the ragged and edge shapes, and a Dout past dx's 384 resident rows
+PLAN_SHAPES = [(10, 356, 400, 120), (10, 356, 120, 84), (10, 356, 84, 10), (10, 104, 400, 120),
+               (10, 1024, 400, 120), (10, 1, 400, 120), (10, 7, 84, 10), (10, 356, 40, 1),
+               (1, 356, 120, 84), (64, 2048, 400, 120), (2, 64, 64, 2048)]
+# plan, the grid's blocks a split, the split unit, the fewest points a
+# split, the blocks the grid reaches where N allows, the most splits, the
+# most points a split
+PLANS = {
+    "dparam": (SLP._dparam_plan, lambda S, Din, Dout: -(-(Din + 1) // 64) * -(-Dout // 64) * S,
+               1, 32, 132, None, 256),
+    "dx": (SLP._dx_plan, lambda S, Din, Dout: -(-Din // 64) * S, 64, 64, 198, 8, None),
+}
+
+
+@pytest.mark.parametrize("kind", PLANS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_puts_every_point_in_one_split(shape, kind):
+    """The kernels' grid runs z = s·n_splits + k (dparam) or (k, s) (dx):
+    each (s, n) falls in exactly one split."""
+    S, N, Din, Dout = shape
+    plan, _, unit, *_ = PLANS[kind]
+    ns = plan(*shape)
+    seen = np.zeros((S, N), int)
+    for z in range(S * ns):
+        s, k = divmod(z, ns)
+        n0, n1 = SLP._split_bounds(N, ns, unit)[k]
+        seen[s, n0:n1] += 1
+    assert (seen == 1).all()
+
+
+def test_plans_depend_only_on_the_shape(monkeypatch):
+    """Nothing of the card or the run enters a plan: with every CUDA query
+    broken, the plans give what they gave, call after call."""
+    want = [(SLP._dparam_plan(*sh), SLP._dx_plan(*sh)) for sh in PLAN_SHAPES]
+
+    def broken(*a, **k):
+        raise AssertionError("a plan asked the device")
+
+    for name in ("is_available", "device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, broken)
+    for _ in range(2):
+        assert [(SLP._dparam_plan(*sh), SLP._dx_plan(*sh)) for sh in PLAN_SHAPES] == want
+
+
+@pytest.mark.parametrize("kind", PLANS)
+def test_splits_keep_the_fewest_points(kind):
+    """Every split holds at least the plan's minimum (all of N when N is
+    smaller), for every N up to 3000 at the narrowest layer (the most
+    splits) and at fc1, and for every split count the cap allows."""
+    plan, _, unit, least, *_ = PLANS[kind]
+    for N in range(1, 3001):
+        counts = {plan(1, N, 84, 10), plan(10, N, 400, 120)} | set(range(1, max(1, N // least) + 1))
+        for ns in counts:
+            sizes = [n1 - n0 for n0, n1 in SLP._split_bounds(N, ns, unit)]
+            assert min(sizes) >= min(least, N), (N, ns, sizes)
+
+
+@pytest.mark.parametrize("kind,want", [("dparam", (2, 4, 7, 4)), ("dx", (3, 5, 5, 3))])
+def test_grids_cover_the_sms_where_n_allows(kind, want):
+    """At fc1–fc3 (N = 356) and 400→120 at N = 1024 the grid reaches its
+    target (dparam one wave of 132 SMs with at most 256 points a split, dx
+    one and a half waves), or the split count stops at the fewest points a
+    split or at dx's cluster of 8; and no smaller count would do. Every
+    grid has at least 132 blocks where N allows."""
+    plan, blocks, _, least, target, most, widest = PLANS[kind]
+    assert (SLP.DPARAM_BLOCKS, SLP.DX_BLOCKS, SLP.DX_MAX_SPLITS,
+            SLP.DPARAM_MAX_POINTS) == (132, 198, 8, 256)
+    shapes = [PLAN_SHAPES[i] for i in (0, 1, 2, 4)]
+    assert tuple(plan(*sh) for sh in shapes) == want
+    for S, N, Din, Dout in PLAN_SHAPES:
+        ns, per = plan(S, N, Din, Dout), blocks(S, Din, Dout)
+        cap = min(max(1, N // least), most or N)
+        assert (per * ns >= target and -(-N // ns) <= (widest or N)) or ns == cap
+        assert per * ns >= SLP.SMS or ns == cap
+        assert ns == 1 or per * (ns - 1) < target or -(-N // (ns - 1)) > (widest or N)
+
+
+@pytest.mark.parametrize("shape,mb", [((10, 356, 400, 120), 3.8496), ((10, 356, 120, 84), 1.62624),
+                                      ((10, 356, 84, 10), 0.238), ((10, 1024, 400, 120), 7.6992)])
+def test_dparam_scratch_matches_its_formula(shape, mb):
+    """S·n_splits·Dout·(Din + 1) floats: 3.8 MB at fc1, 1.6 MB at fc2, 0.24
+    MB at fc3, 7.7 MB at N = 1024, all inside the 50 MB L2."""
+    S, N, Din, Dout = shape
+    sh = SLP._dparam_scratch_shape(*shape)
+    assert sh == (S, SLP._dparam_plan(*shape), Dout, Din + 1)
+    assert 4 * math.prod(sh) == 4 * S * sh[1] * Dout * (Din + 1)
+    assert 4 * math.prod(sh) / 1e6 == pytest.approx(mb)
+
+
+# ----------------------------------------------------------------------
 # The CUDA wrappers check what they are given before any pointer is passed
 
 
