@@ -8,7 +8,8 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
 1. device  — the card's name and power limit (nvidia-smi), versions;
 2. build   — nvcc builds every kernel of the main paths from the sources in
              the checkout (``psvi_torch/ops/csrc``), one nvcc per source, all
-             started at once; ``k_prng_dx``, ``k_prng_dparam_partial`` and
+             started at once; ``k_sampled_linear``, ``k_prng_fwd``,
+             ``k_prng_dx``, ``k_prng_dparam_partial`` and
              ``k_prng_dparam_reduce`` must report no spill bytes;
 3. kernels — each dense CUDA kernel against its plain PyTorch version on the
              same CUDA inputs (the outer step's cotangents also against the
@@ -26,8 +27,11 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
    sampled_linear — kernel B3 against its plain version (max |Δ| ≤ 1e-5·max
              |ref|, and a rerun bit for bit) at the LeNet fc shapes (S=10,
              N=356), fn's second layer (40→4, N=176) and ragged and edge shapes
-             (N = 1 and 7, Dout = 1, S = 1, S = 64 with N = 2048); its
-             Function's backward against autograd through the plain version;
+             (N = 1 and 7, Dout = 1, S = 1, S = 64 with N = 2048, 2048→64,
+             which runs the forward's Din-chunk branch, and 37→20, its
+             4-byte copies), with the split counts of its plan; its
+             Function's backward against autograd through the plain
+             version;
    sampled_linear_prng — kernel B4 (four kernels, one Philox generator):
              their Philox words against the plain generator's, bit for bit;
              ε as the kernels see it (W_s, b_s recovered from the forward at
@@ -35,8 +39,8 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              ≤ 1e-5·max |ref|, a rerun bit for bit) at the LeNet fc shapes,
              the JAX docstring's 400→120 at N = 104 and 1024, B3's ragged
              and edge shapes and 64→2048 (dx's Dout-chunk branch), with the
-             split counts of dx's and dparam's plans, the NKL at S = 10 and
-             at S = 4000; the
+             split counts of the forward's, dx's and dparam's plans, the NKL
+             at S = 10 and at S = 4000; the
              statistical tests of tests/test_pallas.py:60-124; then B4's
              path, the composed 400-120-84-10 step (S=10, N=356, synth_mnist)
              through ``sampled_linear_prng`` and ``vi_linear_nkl_prng`` with
@@ -78,7 +82,7 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
    profile — torch.profiler's device time by CUDA kernel over one call of
              each LeNet kernel, one fused LeNet engine step, one LeNet
              joint step with each backend, and 20 calls each of B4c (its
-             two passes) and B4b at fc1.
+             two passes), B4b, B4a and B3 at fc1.
 
 Then, as its last three lines: the ``kernels`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Any failed check
@@ -110,8 +114,10 @@ import torch
 #   JAX reference documents the same f32 spread, tests/test_fused_nested.py).
 RTOL_LOSS, RTOL_P, ATOL_P, COS_MIN, REL_G, RTOL_ALPHA = 1e-5, 2e-4, 1e-6, 0.9999, 1e-3, 0.05
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
+# TF32 on them, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 TPU_KERNEL = "psvi_tpu/ops/fused_nested.py:448"
@@ -127,11 +133,15 @@ SL_REPLACES = "psvi_tpu/ops/pallas_vi.py:84"
 # each gradient of the backward (which also needs cosine > 0.99999).
 REL_B3, COS_B3 = 1e-5, 0.99999
 # (label, S, N, Din, Dout): the LeNet fc layers at N = M + B = 356, S = 10;
-# fn's second layer (40→4) at N = 48 + 128; then ragged and edge shapes
+# fn's second layer (40→4) at N = 48 + 128; then ragged and edge shapes; a
+# Din past the 512 columns of W_s the forward keeps resident, so that its
+# Din-chunk branch runs; and a Din that is no multiple of 4, so that the
+# forward's 4-byte copies and loads run
 SL_SHAPES = [
     ("fc1", 10, 356, 400, 120), ("fc2", 10, 356, 120, 84), ("fc3", 10, 356, 84, 10),
     ("fn 40-4", 10, 176, 40, 4), ("N=1", 10, 1, 400, 120), ("N=7", 10, 7, 84, 10),
     ("Dout=1", 10, 356, 40, 1), ("S=1", 1, 356, 120, 84), ("S=64 N=2048", 64, 2048, 400, 120),
+    ("Din=2048", 2, 64, 2048, 64), ("Din=37", 10, 356, 37, 20),
 ]
 
 SLP_SOURCE = "psvi_torch/ops/csrc/sampled_linear_prng.cu"
@@ -141,7 +151,9 @@ SLP_REPLACES = {"prng_fwd": "psvi_tpu/ops/pallas_vi.py:285",
                 "prng_nkl": "psvi_tpu/ops/pallas_vi.py:369"}
 # B4 (sampled_linear_prng), each kernel against its plain version at REL_B3:
 # the LeNet fc shapes at N = 356, the JAX docstring's S=10 400→120
-# (pallas_vi.py:25-28) at N = 104 and 1024, and B3's ragged and edge shapes;
+# (pallas_vi.py:25-28) at N = 104 and 1024, and B3's ragged and edge shapes
+# (Din=2048 and Din=37 among them: the forward's Din-chunk branch and its
+# 4-byte copies);
 # the NKL at S = 10 on the fc shapes and at S = 4000 on 64→32 (the KL check's);
 # last, a Dout past what dx keeps of W_s in shared memory at once (384 rows),
 # so that its Dout-chunk branch runs
@@ -155,8 +167,9 @@ NKL_SHAPES = [(label, 10, Din, Dout) for label, _, _, Din, Dout in SL_SHAPES[:3]
 # conversions, three scalings and an add, log, sqrt, cos and the product,
 # each counted once).
 GEN_OPS = 98 + 13
-# the B4 kernels redesigned for the card, which must build with no spills
-B4_NO_SPILL = ("k_prng_dx", "k_prng_dparam_partial", "k_prng_dparam_reduce")
+# the B3 and B4 kernels redesigned for the card, which must build with no spills
+B3_NO_SPILL = ("k_sampled_linear",)
+B4_NO_SPILL = ("k_prng_fwd", "k_prng_dx", "k_prng_dparam_partial", "k_prng_dparam_reduce")
 
 
 _T0 = time.perf_counter()
@@ -622,7 +635,8 @@ def check_sampled_linear(SL, chk, dev):
             if not (c > COS_B3 and rg <= REL_B3):
                 raise AssertionError(f"sampled_linear backward {label}/{nm}: cos {c}, rel {rg}")
             bwd[nm] = {"cos": c, "rel": rg}
-        rep["shapes"][label] = {"S": S, "N": N, "Din": Din, "Dout": Dout, "max_abs": e,
+        rep["shapes"][label] = {"S": S, "N": N, "Din": Din, "Dout": Dout,
+                                "n_splits": SL._fwd_plan(S, N, Din, Dout), "max_abs": e,
                                 "rel": r, "backward": bwd}
     emit(rep)
 
@@ -840,7 +854,7 @@ def check_sampled_linear_prng(SLP, SL, VILinear, softplus, mnist, chk, dev):
         a = sl_inputs(S, N, Din, Dout, 500 + seed, dev)[:5]
         g = torch.randn((S, N, Dout), generator=torch.Generator(dev).manual_seed(seed), device=dev)
         rep["shapes"][label] = {"S": S, "N": N, "Din": Din, "Dout": Dout, "n_splits": {
-            "prng_dx": SLP._dx_plan(S, N, Din, Dout),
+            "prng_fwd": SLP._fwd_plan(S, N, Din, Dout), "prng_dx": SLP._dx_plan(S, N, Din, Dout),
             "prng_dparam": SLP._dparam_plan(S, N, Din, Dout)}, **{
             name: check_against_plain(chk, name, label, kern, plain)
             for name, (kern, plain) in slp_calls(SLP, a, g, -seed).items()}}
@@ -860,7 +874,9 @@ def slp_work(name, S, N, Din, Dout):
     add into dμ and the multiply-add into dρ); the products' multiply-adds
     count 2, the bias add or sum one a term; the NKL's two densities and the
     sum 12 a term (softplus is not counted, as in sl_work). Bytes: each input
-    read once, each output written once; no ε."""
+    read once, each output written once; no ε. Last, the operations among
+    them that run as a 3xTF32 product on the tensor cores (the forward's
+    product; dx and dparam keep fp32 FMA loops)."""
     W, E = Dout * Din, Dout * Din + Dout
     prod = 2 * S * N * Din * Dout
     ops = {"prng_fwd": prod + S * N * Dout + S * E * (GEN_OPS + 2),
@@ -871,32 +887,38 @@ def slp_work(name, S, N, Din, Dout):
                 "prng_dx": S * N * Dout + 2 * W + S * N * Din,
                 "prng_dparam": S * N * Dout + S * N * Din + E + 2 * E,
                 "prng_nkl": 2 * E + S}[name]
-    return ops, byts
+    return ops, byts, prod if name == "prng_fwd" else 0
 
 
-def queued_row(name, source, replaces, kern, plain, lib_fn, ops, byts, launches, chk,
+def queued_row(name, source, replaces, kern, plain, lib_fn, ops, byts, mma_ops, launches, chk,
                kernel, **extra):
     """The kernels-line entry of a kernel whose one call costs more host
     time than device time: the kernel, its plain version and a library call
-    (or None) timed with ``queued_ms``."""
+    (or None) timed with ``queued_ms``. Its bound takes the ``mma_ops`` of
+    its ``ops`` as three TF32 passes at the tensor cores' rate (a 3xTF32
+    product), the rest at the fp32 rate."""
     ms, q_k = queued_ms(kern)
     plain_ms, q_p = queued_ms(plain)
     lib_ms, q_l = queued_ms(lib_fn) if lib_fn else (None, True)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, byts / PEAK_BYTES * 1e3
+    t_ops = ((ops - mma_ops) / PEAK_FP32_FLOPS + 3 * mma_ops / PEAK_TF32_FLOPS) * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": chk.max_abs[kernel], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms,
-            "queued_ahead": q_k and q_p and q_l, "ops": ops, "bytes": byts, **extra}
+            "queued_ahead": q_k and q_p and q_l, "ops": ops, "mma_ops": mma_ops, "bytes": byts,
+            **extra}
 
 
 def sl_work(S, N, Din, Dout):
     """B3's fp32 operations (the product's multiply-adds count 2, the
     sampling a multiply and an add per sampled weight and bias, the bias add
-    one) and bytes (each input read once, the output written once)."""
-    ops = 2 * S * N * Din * Dout + 2 * S * Dout * (Din + 1) + S * N * Dout
+    one), bytes (each input read once, the output written once) and the
+    product's operations, which run as a 3xTF32 product on the tensor cores."""
+    prod = 2 * S * N * Din * Dout
+    ops = prod + 2 * S * Dout * (Din + 1) + S * N * Dout
     byts = 4 * (S * N * Din + 2 * Dout * Din + 2 * Dout + S * Dout * Din + S * Dout + S * N * Dout)
-    return ops, byts
+    return ops, byts, prod
 
 
 def b3_expected(data, kw, forwards_per_step, retrain=False):
@@ -1100,13 +1122,14 @@ def timed_kernel(name, kern, plain, ops, byts, launches, chk, source, replaces, 
             "ops": ops, "bytes": byts}
 
 
-def profile_calls(calls):
+def profile_calls(calls, sums=None):
     """Device time by CUDA kernel over one call of each function, from
     torch.profiler: the device events' own time summed by name (ms; host
     ranges such as an autograd Function's are left out, so nothing counts
-    twice), the launch counts, and the host wall time of the call.
-    ``device_ms`` is None where the profiler saw no device time (not
-    measured)."""
+    twice), the launch counts, and the host wall time of the call; for each
+    ``sums`` entry (key: a substring of kernel names) the device time of
+    every kernel whose name holds it. ``device_ms`` is None where the
+    profiler saw no device time (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -1125,7 +1148,9 @@ def profile_calls(calls):
                       key=lambda r: -r[1])
         device_ms = sum(r[1] for r in rows) or None
         out[name] = {"wall_ms_profiled": wall_ms, "device_ms": device_ms,
-                     "top": [{"kernel": k, "ms": ms, "launches": c} for k, ms, c in rows[:14]]}
+                     "top": [{"kernel": k, "ms": ms, "launches": c} for k, ms, c in rows[:14]],
+                     **{key: sum(ms for k, ms, _ in rows if sub in k)
+                        for key, sub in (sums or {}).items()}}
     return out
 
 
@@ -1159,11 +1184,13 @@ def main() -> int:
         built = list(pool.map(_build.build, sources))
     ptxas = {src: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for src, (_, log) in zip(sources, built)}
-    slp_log = built[sources.index("sampled_linear_prng")][1]
     # an empty log means the library was already built (no ptxas report)
-    spills = check_no_spills(slp_log, B4_NO_SPILL) if slp_log else "not rebuilt"
+    spills = {src: check_no_spills(built[sources.index(src)][1], kernels)
+              if built[sources.index(src)][1] else "not rebuilt"
+              for src, kernels in (("sampled_linear", B3_NO_SPILL),
+                                   ("sampled_linear_prng", B4_NO_SPILL))}
     emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas, "b4_spill_bytes": spills})
+          "ptxas": ptxas, "spill_bytes": spills})
 
     # 3. kernels against their plain versions on the card
     halfmoon, blobs = read_dataset("halfmoon"), read_dataset("four_blobs")
@@ -1325,10 +1352,11 @@ def main() -> int:
         kernels += [timed_kernel(name, kern, plain, lops[name], lbyts[name], launches_l, chk,
                                  LENET_SOURCE, LENET_REPLACES[name], 10)
                     for name, (kern, plain) in lcalls.items()]
-        # B3 at the LeNet fc shapes: the kernel, its plain version and one
-        # cuBLAS product on pre-sampled weights (sampling excluded)
+        # B3 at the LeNet fc shapes and at B4's 400→120, N = 1024: the
+        # kernel, its plain version and one cuBLAS product on pre-sampled
+        # weights (sampling excluded)
         b3_ms = {}
-        for label, S, N, Din, Dout in SL_SHAPES[:3]:
+        for label, S, N, Din, Dout in SL_SHAPES[:3] + [SLP_SHAPES[4]]:
             a = sl_inputs(S, N, Din, Dout, 200, dev)
             w_t = (a[1][None] + softplus(a[2])[None] * a[5]).transpose(1, 2)
             b = (a[3][None] + softplus(a[4])[None] * a[6])[:, None, :]
@@ -1336,10 +1364,11 @@ def main() -> int:
                 f"sampled_linear_{label}", SL_SOURCE, SL_REPLACES,
                 lambda: SL._sampled_linear_cuda(*a), lambda: SL.sampled_linear_reference(*a),
                 lambda: torch.baddbmm(b, a[0], w_t), *sl_work(S, N, Din, Dout),
-                shapes_lj[f"{S}x{N}x{Din}x{Dout}"], chk, "sampled_linear",
+                shapes_lj.get(f"{S}x{N}x{Din}x{Dout}", 0), chk, "sampled_linear",
                 library="torch.baddbmm on pre-sampled W (cuBLAS product only, sampling "
                         "excluded)",
                 shape=f"S={S} N={N} {Din}->{Dout}", launches_of="LeNet joint run",
+                n_splits=SL._fwd_plan(S, N, Din, Dout),
                 per_call_ms=median_ms(lambda: SL._sampled_linear_cuda(*a))))
         # B4a-c at the fc shapes and the docstring's N = 1024: each beside its
         # plain version, one cuBLAS product on pre-sampled weights (sampling
@@ -1347,7 +1376,8 @@ def main() -> int:
         b4_of = "composed 400-120-84-10 step (one launch at each fc shape)"
         libs = {"prng_fwd": "torch.baddbmm on pre-sampled W", "prng_dx": "torch.bmm(g, W)",
                 "prng_dparam": "torch.bmm(g^T, x)"}
-        plans = {"prng_dx": SLP._dx_plan, "prng_dparam": SLP._dparam_plan}
+        plans = {"prng_fwd": SLP._fwd_plan, "prng_dx": SLP._dx_plan,
+                 "prng_dparam": SLP._dparam_plan}
         for label, S, N, Din, Dout in SLP_SHAPES[:3] + [SLP_SHAPES[4]]:
             a = sl_inputs(S, N, Din, Dout, 300, dev)
             g = torch.randn((S, N, Dout), generator=torch.Generator(dev).manual_seed(3),
@@ -1359,8 +1389,8 @@ def main() -> int:
                    "prng_dparam": lambda: torch.bmm(g.transpose(1, 2), a[0])}
             b3_ms[label] = queued_ms(lambda: SL._sampled_linear_cuda(*a))[0]
             for name, (kern, plain) in slp_calls(SLP, a[:5], g, 300).items():
-                extra = ({"b3_ms": b3_ms[label]} if name == "prng_fwd" else
-                         {"n_splits": plans[name](S, N, Din, Dout)})
+                extra = {"n_splits": plans[name](S, N, Din, Dout),
+                         **({"b3_ms": b3_ms[label]} if name == "prng_fwd" else {})}
                 kernels.append(queued_row(
                     f"{name}_{label}", SLP_SOURCE, SLP_REPLACES[name], kern, plain, lib[name],
                     *slp_work(name, S, N, Din, Dout), launches_b4[name], chk, name,
@@ -1416,23 +1446,25 @@ def main() -> int:
         prof = profile_calls({name: kern for name, (kern, _) in lcalls.items()})
     prof.update(profile_calls(
         {"lenet_step_fused": lambda: eng_l._nested_step_fused_lenet(st_lf, batch_l)}))
-    # B4c and B4b at fc1: the split of dparam's call between its two passes.
-    # 20 calls a window: the profiler has seen no device time in a window
-    # of one 35 µs call
+    # B4c, B4b, B4a and B3 at fc1: the split of dparam's call between its
+    # two passes, and each kernel's device time. 20 calls a window: the
+    # profiler has seen no device time in a window of one 35 µs call
     _, S, N, Din, Dout = SLP_SHAPES[0]
-    a = sl_inputs(S, N, Din, Dout, 300, dev)[:5]
+    a = sl_inputs(S, N, Din, Dout, 300, dev)
     g = torch.randn((S, N, Dout), generator=torch.Generator(dev).manual_seed(3), device=dev)
-    b4 = slp_calls(SLP, a, g, 300)
+    fc1 = {name: kern for name, (kern, _) in slp_calls(SLP, a[:5], g, 300).items()}
+    fc1["sampled_linear"] = lambda: SL._sampled_linear_cuda(*a)
     with torch.no_grad():
         prof.update(profile_calls({
-            f"{name}_fc1_x20": lambda f=b4[name][0]: [f() for _ in range(20)]
-            for name in ("prng_dparam", "prng_dx")}))
+            f"{name}_fc1_x20": lambda f=fc1[name]: [f() for _ in range(20)]
+            for name in ("prng_dparam", "prng_dx", "prng_fwd", "sampled_linear")}))
     # one LeNet joint step with each backend: B3's share and the busy share
     eng_jx = PSVI(mnist, **{**lj_kw, "backend": "xla"})
     st_jp, st_jx = eng_lj.state, eng_jx.state
     prof.update(profile_calls({
         "lenet_joint_step_pallas": lambda: eng_lj._joint_step(st_jp, batch_l),
-        "lenet_joint_step_xla": lambda: eng_jx._joint_step(st_jx, batch_l)}))
+        "lenet_joint_step_xla": lambda: eng_jx._joint_step(st_jx, batch_l)},
+        sums={"b3_ms": "sampled_linear"}))
     for backend in ("pallas", "xla"):
         p = prof[f"lenet_joint_step_{backend}"]
         if p["device_ms"]:
@@ -1441,7 +1473,6 @@ def main() -> int:
             p["busy_share"] = p["device_ms"] / p["wall_ms_profiled"]
             p["busy_share_of_step"] = p["device_ms"] / float(
                 np.median(fo["lenet_joint_step_ms"][backend]))
-            p["b3_ms"] = sum(r["ms"] for r in p["top"] if "sampled_linear" in r["kernel"])
     emit({"phase": "profile", "card": card, "config": "synth_mnist LeNet M=100 S=10 T=20 B=256",
           **prof})
 

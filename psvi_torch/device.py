@@ -7,6 +7,16 @@ Every product on the nested path runs in true float32: a single bf16 or
 TF32 pass in the second-order terms collapses the u-hypergradient (the JAX
 kernel measured cosine 0.29 against its oracle with one bf16 pass). So
 :func:`resolve_device` turns TF32 off for both matmuls and cuDNN.
+
+One exception, and only one: the forward kernels of the first-order dense
+op, B3 (``ops/csrc/sampled_linear.cu``) and B4a
+(``ops/csrc/sampled_linear_prng.cu``), run their product as corrected
+3xTF32 on the tensor cores (``ops/csrc/sampled_linear_gemm.cuh``): each
+operand split into two TF32 parts, three passes, fp32 accumulation. It
+holds their gate of 1e-5·max|ref| against the plain fp32 version, which a
+single TF32 pass does not. Both ops are ``once_differentiable``, so no
+second-order term passes through them; no kernel of the nested path (B1,
+B2) uses TF32.
 """
 
 from __future__ import annotations

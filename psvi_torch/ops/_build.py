@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc for
 Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, then loaded with
-``ctypes``. The hash is of the source, so an edited source rebuilds; the
-build directory is listed in ``.gitignore``. Nothing here runs at import.
+``ctypes``. The hash is of the source, of every header under ``csrc/`` that
+it includes (``#include "..."``, followed through the headers) and of the
+flags, so an edited source or header rebuilds; the build directory is
+listed in ``.gitignore``. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,10 +39,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _local_headers(path: Path) -> list[Path]:
+    """The headers of ``csrc/`` that ``path`` includes, directly or through
+    another such header, sorted by name."""
+    found, todo = set(), [path]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_bytes()):
+            dep = (_CSRC / inc.decode()).resolve()
+            if dep.is_file() and dep not in found:
+                found.add(dep)
+                todo.append(dep)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD / f"lib{name}-{digest}.so"
+    src = _CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for dep in _local_headers(src):
+        h.update(dep.name.encode() + b"\0" + dep.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:

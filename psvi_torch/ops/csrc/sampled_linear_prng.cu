@@ -42,45 +42,16 @@
 // no atomics: every output is one fixed-order chain of operations, so a rerun
 // gives the same bits.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "sampled_linear_gemm.cuh"  // cp.async, rows_of_float4, softplus_f, the forward
 
 constexpr int THREADS = 256;
+static_assert(THREADS == slgemm::THREADS, "k_prng_dx draws W_s with the forward's cluster helper");
 constexpr int PAD = 4;  // keeps shared rows 16-byte aligned and spreads the banks
-constexpr int TM = 4;   // register micro-tile side per thread (every GEMM below)
-
-// cp.async: a copy from device memory into shared memory that the issuing
-// thread does not wait for. A commit closes a group of the copies issued so
-// far; wait<n> holds the thread until all but the newest n groups have
-// landed, and a barrier after it shows them to the whole block. The 16-byte
-// form needs both addresses 16-byte aligned; the 4-byte form takes any float.
-static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-static __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-static __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int n>
-static __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
-
-// Rows of length D whose every row starts 16-byte aligned: the 16-byte copies.
-static bool rows_of_float4(const void* p, int D) {
-  return D % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
+constexpr int TM = 4;   // register micro-tile side per thread (dx's and dparam's GEMMs)
 
 struct Key {
   unsigned lo, hi;
@@ -109,10 +80,6 @@ static __device__ __forceinline__ float normal_at(Key k, int s, unsigned e) {
   return sqrtf(-2.f * logf(u1)) * cosf(6.28318530717958647692f * u2);
 }
 
-static __device__ __forceinline__ float softplus_f(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
 __global__ void k_philox_bits(const unsigned* __restrict__ ctr, Key k, unsigned* __restrict__ out,
                               int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -126,87 +93,83 @@ __global__ void k_philox_bits(const unsigned* __restrict__ ctr, Key k, unsigned*
 }
 
 // ---------------------------------------------------------------------------
-// k_prng_fwd: kernel B3's tiling (sampled_linear.cu) with eps drawn in place
-// of read.
+// k_prng_fwd: y[s] = x[s] . W_s^T + b_s with eps drawn in place of read: the
+// block and the product loop of sampled_linear_gemm.cuh, which kernel B3
+// (sampled_linear.cu) shares.
 //
 // What bounds it on this card: operations. At fc1 of the LeNet main path
-// (S = 10, N = 356, 400 -> 120) the product is 2*S*N*Din*Dout = 0.342 GFLOP and
+// (S = 10, N = 356, 400 -> 120) the product is 2*S*N*Din*Dout = 0.342 GFLOP,
+// run as three TF32 passes on the tensor cores, 2.07 us at 495 TFLOP/s, and
 // drawing each eps once is S*(Dout*Din + Dout) normals of about 110 operations,
-// 0.053 G; 5.9 us at 67 TFLOP/s against 7.8 MB of x, y and parameters, 2.3 us at
-// 3.35 TB/s. Without eps the bytes are S*Dout*Din*4 = 1.9 MB fewer than B3's.
+// 0.053 G, 0.8 us at 67 TFLOP/s fp32: 2.9 us against 7.8 MB of x, y and
+// parameters, 2.3 us at 3.35 TB/s. Without eps the bytes are S*Dout*Din*4 =
+// 1.9 MB fewer than B3's.
 //
-// What the design does about it, simply: each block owns one 64 x 64 output
-// tile of one sample and walks the reduction in chunks of 16; it stages the
-// activation chunk and builds the W_s chunk, mu_w + softplus(rho_w) * eps, in
-// shared memory from eps it draws itself, then each of its 256 threads
-// accumulates a 4 x 4 register micro-tile with fp32 FMA. eps never touches
-// device memory. The price is drawing every eps once per tile of the other
-// dimension (ceil(N / 64) times): a later PR can build W_s once per block, as
-// k_prng_dx below does, or draw two normals from one Philox call.
-// No TF32 and no tensor cores: the port holds true fp32.
-constexpr int BT = 64;  // rows (points) and columns (outputs) per block
-constexpr int BK = 16;  // reduction chunk staged in shared memory
+// What the design does about it. A block owns (sample, 32 outputs, a split of
+// N from _fwd_plan in ../sampled_linear.py) and builds its tile of W_s once
+// in shared memory; the n_splits blocks of one (output tile, sample) form a
+// thread block cluster that shares the draws, as k_prng_dx's does
+// (slgemm::cluster_draw_rows, rows in groups of 4): each eps is drawn once
+// for its sample, where a block per (N tile, output tile) would draw it
+// ceil(N / 64) times. Each block draws its 32 biases itself. x streams
+// through a cp.async ring whose
+// first stages are issued before the draws, and the product runs as 3xTF32
+// mma.sync on the tensor cores with fp32 accumulation: allowed here, on a
+// first-order once_differentiable op, and only on B3 and B4
+// (psvi_torch/device.py); it holds the gate of 1e-5 * max|ref| against the
+// plain fp32 version, which one TF32 pass does not.
+//
+// The draws: each eps still costs about 110 dependent operations, so
+// building W_s takes longer here than B3's reads of eps (PERF.md).
+// W_s[o, i] of sample s: mu_w + softplus(rho_w) * eps, eps drawn here.
+static __device__ __forceinline__ float draw_w(const float* mu_w, const float* rho_w, Key key,
+                                               int s, int Din, int o, int i) {
+  const unsigned idx = (unsigned)o * Din + i;
+  return mu_w[idx] + softplus_f(rho_w[idx]) * normal_at(key, s, idx);
+}
 
-__global__ void __launch_bounds__(THREADS)
+// The forward's W_s tile: rows in groups of 4, shared over the cluster.
+struct DrawW {
+  const float* mu_w;
+  const float* rho_w;
+  Key key;
+  int Din, Dout, n_splits;
+
+  __device__ __forceinline__ void operator()(float* ws, int ldw, int s, int k0, int cols,
+                                             int rows) const {
+    const int o0 = blockIdx.x * slgemm::BO;
+    slgemm::cluster_draw_rows(ws, ldw, cols, rows, 4, n_splits, [&](int r, int c) {
+      const int o = o0 + r, k = k0 + c;
+      return o < Dout && k < Din ? draw_w(mu_w, rho_w, key, s, Din, o, k) : 0.f;
+    });
+  }
+};
+
+struct DrawB {
+  const float* mu_b;
+  const float* rho_b;
+  Key key;
+  int Din, Dout;
+
+  __device__ __forceinline__ void operator()(float* bs, int s) const {
+    const int r = threadIdx.x, o = blockIdx.x * slgemm::BO + r;
+    if (r < slgemm::BO) {
+      bs[r] = o < Dout ? mu_b[o] + softplus_f(rho_b[o]) *
+                                       normal_at(key, s, (unsigned)Dout * Din + o)
+                       : 0.f;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(slgemm::THREADS)
 k_prng_fwd(const float* __restrict__ x, const float* __restrict__ mu_w,
            const float* __restrict__ rho_w, const float* __restrict__ mu_b,
-           const float* __restrict__ rho_b, float* __restrict__ y, int N, int Din, int Dout,
-           Key key) {
-  // both tiles k-major: xs[k][n], ws[k][o]
-  __shared__ __align__(16) float xs[BK][BT + PAD];
-  __shared__ __align__(16) float ws[BK][BT + PAD];
-  const int s = blockIdx.z, n0 = blockIdx.y * BT, o0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int tn = tid / (BT / TM), to = tid % (BT / TM);
-  const float* xg = x + (long long)s * N * Din;
-  float acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < Din; k0 += BK) {
-    // neighbouring threads read neighbouring k of one row (coalesced)
-    for (int e = tid; e < BT * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK, n = n0 + r, k = k0 + kk;
-      xs[kk][r] = (n < N && k < Din) ? xg[(long long)n * Din + k] : 0.f;
-    }
-    for (int e = tid; e < BT * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK, o = o0 + r, k = k0 + kk;
-      float w = 0.f;
-      if (o < Dout && k < Din) {
-        const unsigned i = (unsigned)o * Din + k;
-        w = mu_w[i] + softplus_f(rho_w[i]) * normal_at(key, s, i);
-      }
-      ws[kk][r] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][tn * TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][to * TM]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TM] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < TM; ++j) {
-    const int o = o0 + to * TM + j;
-    if (o >= Dout) continue;
-    const unsigned eb = (unsigned)Dout * Din + o;
-    const float bias = mu_b[o] + softplus_f(rho_b[o]) * normal_at(key, s, eb);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int n = n0 + tn * TM + i;
-      if (n < N) y[((long long)s * N + n) * Dout + o] = acc[i][j] + bias;
-    }
-  }
+           const float* __restrict__ rho_b, float* __restrict__ y, int S, int N, int Din,
+           int Dout, int n_splits, int x_vec, Key key) {
+  extern __shared__ float4 w_dyn[];
+  slgemm::sampled_fwd_block(x, y, reinterpret_cast<float*>(w_dyn), S, N, Din, Dout, n_splits,
+                            x_vec != 0, DrawW{mu_w, rho_w, key, Din, Dout, n_splits},
+                            DrawB{mu_b, rho_b, key, Din, Dout});
 }
 
 // ---------------------------------------------------------------------------
@@ -226,11 +189,12 @@ k_prng_fwd(const float* __restrict__ x, const float* __restrict__ mu_w,
 // and one column tile form a thread block cluster.
 //   Phase 1 builds W_s[:, i0 .. i0 + 63] for all Dout rows in each block's
 //   dynamic shared memory (Dout * 256 bytes, 30 KB at fc1). The cluster's
-//   blocks share the draws: each draws its share of the rows, then copies
-//   the others' rows out of their shared memory (distributed shared memory),
-//   so each eps is drawn once for its sample, where a block per (sample,
-//   N tile) drew it ceil(N / 64) times. Where W_s has fewer 16-row chunks
-//   than the cluster has blocks (fc3), each block draws all of it instead.
+//   blocks share the draws (slgemm::cluster_draw_rows, rows in chunks of
+//   16): each draws its share of the rows, then copies the others' rows out
+//   of their shared memory (distributed shared memory), so each eps is drawn
+//   once for its sample, where a block per (sample, N tile) drew it
+//   ceil(N / 64) times. Where W_s has fewer 16-row chunks than the cluster
+//   has blocks (fc3), each block draws all of it instead.
 //   Phase 2 walks the split's N tiles, each through Dout in chunks of 16: the
 //   g chunks (64 points x 16 outputs, row-major as g) come through a ring of
 //   six stages filled with cp.async, five chunks in flight while one is
@@ -238,10 +202,8 @@ k_prng_fwd(const float* __restrict__ x, const float* __restrict__ mu_w,
 //   overlap the draws; each of the 256 threads accumulates a 4 x 4 register
 //   micro-tile against the resident W tile. The generator's registers are
 //   free again by then: drawing and the FMA loop share no loop.
-// A draw is a long dependent chain behind two loads, so each thread runs
-// four side by side. g's chunks go by 16-byte copies when its rows are a
-// multiple of 4 floats and 16-byte aligned, else by 4-byte copies (Dout = 10
-// at fc3). Where Dout * 256 bytes exceed 96 KB (Dout > 384), the block walks
+// g's chunks go by 16-byte copies when its rows are a multiple of 4 floats
+// and 16-byte aligned, else by 4-byte copies (Dout = 10 at fc3). Where Dout * 256 bytes exceed 96 KB (Dout > 384), the block walks
 // Dout in chunks of 384 rows, builds each chunk of W_s in turn and adds its
 // sum into the dx rows it owns: one block owns them, so the order is fixed.
 constexpr int XI = 64;   // input columns a block
@@ -289,9 +251,6 @@ k_prng_dx(const float* __restrict__ g, const float* __restrict__ mu_w,
   const int tiles = (N + XN - 1) / XN;
   const int t_begin = (int)((long long)blockIdx.y * tiles / n_splits);
   const int t_end = (int)((long long)(blockIdx.y + 1) * tiles / n_splits);
-  // the cluster is the n_splits blocks of one sample and one column tile
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
   float acc[TM][TM];
 
   for (int s = blockIdx.z; s < S; s += gridDim.z) {
@@ -313,43 +272,14 @@ k_prng_dx(const float* __restrict__ g, const float* __restrict__ mu_w,
         if (j < steps) stage(j);
         cp_async_commit();
       }
-      // phase 1: where W_s has at least a chunk for each of the cluster's
-      // blocks, they share the draws: block `rank` draws the rows of chunks
-      // [rank, rank + 1) * chunks / n_splits into its own W_s; else each
-      // block draws every row itself (fc3's 16 rows: two cluster barriers
-      // cost more than the draws they save). Neighbouring threads draw
-      // neighbouring inputs i of a row o, four independent draws a thread at
-      // a time (a chunk is 16 rows, four for each thread); rows past o_end
-      // and columns past Din are 0.
-      const bool share = n_splits > 1 && chunks >= n_splits;
-      const int c_lo = share ? rank * chunks / n_splits : 0;
-      const int c_hi = share ? (rank + 1) * chunks / n_splits : chunks;
-      for (int e0 = c_lo * XK * XI + tid; e0 < c_hi * XK * XI; e0 += 4 * THREADS) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e = e0 + u * THREADS, o = d0 + e / XI, i = i0 + e % XI;
-          float w = 0.f;
-          if (o < o_end && i < Din) {
-            const unsigned idx = (unsigned)o * Din + i;
-            w = mu_w[idx] + softplus_f(rho_w[idx]) * normal_at(key, s, idx);
-          }
-          ws[e] = w;
-        }
-      }
-      // then each block copies the other blocks' rows from their shared
-      // memory into its own
-      if (share) {
-        cluster.sync();  // every block's rows are written
-        for (int q = 0; q < n_splits; ++q) {
-          if (q == rank) continue;
-          const float4* src = reinterpret_cast<const float4*>(cluster.map_shared_rank(ws, q));
-          float4* dst = reinterpret_cast<float4*>(ws);
-          const int lo = q * chunks / n_splits * (XK * XI / 4);
-          const int hi = (q + 1) * chunks / n_splits * (XK * XI / 4);
-          for (int v = lo + tid; v < hi; v += THREADS) dst[v] = src[v];
-        }
-        cluster.sync();  // no block writes its W_s again, or exits, while another reads it
-      }
+      // phase 1: W_s[d0 .., i0 .. i0 + 63] in chunks of 16 rows, drawn once
+      // for the cluster where it has a chunk for each block (else, as fc3's
+      // 16 rows, by each block alone); rows past o_end and columns past Din
+      // are 0
+      slgemm::cluster_draw_rows(ws, XI, XI, chunks * XK, XK, n_splits, [&](int r, int c) {
+        const int o = d0 + r, i = i0 + c;
+        return o < o_end && i < Din ? draw_w(mu_w, rho_w, key, s, Din, o, i) : 0.f;
+      });
       // phase 2
       for (int j = 0; j < steps; ++j) {
         cp_async_wait<XSTAGES - 2>();
@@ -637,14 +567,36 @@ extern "C" int psvi_philox_bits(const unsigned* ctr, unsigned* out, int n, unsig
   return static_cast<int>(cudaGetLastError());
 }
 
+// n_splits: _fwd_plan's splits of N (1 <= n_splits <= min(8, ceil(N / 64))),
+// which is also the cluster size.
 extern "C" int psvi_prng_fwd(const float* x, const float* mu_w, const float* rho_w,
                              const float* mu_b, const float* rho_b, float* y, int S, int N,
-                             int Din, int Dout, unsigned key_lo, unsigned key_hi, void* stream) {
+                             int Din, int Dout, int n_splits, unsigned key_lo, unsigned key_hi,
+                             void* stream) {
   if (S <= 0 || N <= 0 || Dout <= 0) return 0;
-  const dim3 grid((Dout + BT - 1) / BT, (N + BT - 1) / BT, S);
-  k_prng_fwd<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, mu_w, rho_w, mu_b, rho_b, y, N, Din, Dout, Key{key_lo, key_hi});
-  return static_cast<int>(cudaGetLastError());
+  if (n_splits < 1 || n_splits > 8 || n_splits > slgemm::cdiv(N, slgemm::BN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = slgemm::smem_bytes(Din, Dout);
+  const cudaError_t err = slgemm::allow_smem(k_prng_fwd, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a cluster of the n_splits blocks of one (output tile, sample)
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = n_splits;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(slgemm::cdiv(Dout, slgemm::BO), n_splits, S < 65535 ? S : 65535);
+  cfg.blockDim = dim3(slgemm::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, k_prng_fwd, x, mu_w, rho_w, mu_b, rho_b, y, S,
+                                             N, Din, Dout, n_splits,
+                                             static_cast<int>(rows_of_float4(x, Din)),
+                                             Key{key_lo, key_hi}));
 }
 
 // n_splits: _dx_plan's splits of N (1 <= n_splits <= min(8, ceil(N / 64))),

@@ -9,7 +9,9 @@ kernel ``_fwd_kernel`` :57, called at :84) and its plain reference
 
 x (S, N, Din), μ_w/ρ_w (Dout, Din), μ_b/ρ_b (Dout,), ε_w (S, Dout, Din),
 ε_b (S, Dout) → y (S, N, Dout), all float32. The CUDA kernel
-(``csrc/sampled_linear.cu``) builds each W_s tile in shared memory and never
+(``csrc/sampled_linear.cu``, on the block and 3xTF32 product loop of
+``csrc/sampled_linear_gemm.cuh`` that B4a shares) builds each block's W_s
+tile once in shared memory over a split of N (:func:`_fwd_plan`) and never
 writes the (S, Dout, Din) sampled weights to device memory, as the TPU
 kernel keeps them in VMEM.
 
@@ -49,6 +51,61 @@ def reset_launches():
     LAUNCH_SHAPES.clear()
 
 
+# ----------------------------------------------------------------------
+# Launch plans: plain functions of the shape, so that a rerun launches the
+# same grid and gives the same bits. The forward's is here, where B3 and
+# B4a (``ops/sampled_linear_prng.py``, which imports this module) both
+# reach it; B4's backward plans are beside their kernels.
+
+#: SMs of an H100 SXM: a wave of blocks, one on each.
+SMS = 132
+#: Outputs of a forward block.
+FWD_OUT_TILE = 32
+#: Fewest points a split of the forward keeps: one 64-point tile.
+FWD_MIN_POINTS = 64
+#: Blocks the forward's grid reaches where N allows, before the splits are
+#: evened out: two and a half waves of two blocks a SM. A sweep of the split
+#: count on an H100 (``scripts/torch_b4_backward_sweep.py``, PERF.md) found
+#: the forward's time set by the most 64-point tiles a split walks; B4a's
+#: clusters of 6 or 7 blocks slower than of 8 at N = 1024 (the cap binds
+#: there); and at S = 64, N = 2048, where this target binds, its 2 splits
+#: faster than 8 (5 % for B3, 10 % for B4a): more splits than fill the card
+#: only build each W_s tile again.
+FWD_BLOCKS = 5 * SMS // 2
+#: Most splits of the forward: B4a's form one thread block cluster, at most 8.
+FWD_MAX_SPLITS = 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _n_splits(blocks_per_split, N, min_points, blocks, most=None, max_points=None):
+    """The fewest splits of N whose grid, ``blocks_per_split`` blocks a
+    split, reaches ``blocks`` and whose splits hold at most ``max_points``
+    points, with at least ``min_points`` points in every split (one split
+    where N has fewer) and at most ``most`` splits."""
+    cap = max(1, min(most or N, N // min_points))
+    want = _cdiv(blocks, max(1, blocks_per_split))
+    if max_points is not None:
+        want = max(want, _cdiv(N, max_points))
+    return max(1, min(cap, want))
+
+
+def _fwd_plan(S, N, Din, Dout):
+    """Splits of N for the forward kernels (B3's ``k_sampled_linear`` and
+    B4a's ``k_prng_fwd``), whose grid is Dout / 32 × n_splits × S; B4a's
+    n_splits blocks of one (output tile, sample) form a cluster. The splits
+    that reach ``FWD_BLOCKS``, then the fewest that keep their most 64-point
+    tiles a split: a block walks its split's tiles one after another, so a
+    split with one tile more than the others sets the time (6 tiles over 5
+    splits take as long as over 3)."""
+    ns = _n_splits(_cdiv(Dout, FWD_OUT_TILE) * S, N, FWD_MIN_POINTS, FWD_BLOCKS,
+                   FWD_MAX_SPLITS)
+    tiles = _cdiv(N, FWD_MIN_POINTS)
+    return _cdiv(tiles, _cdiv(tiles, ns))
+
+
 def sampled_linear_reference(x, mu_w, rho_w, mu_b, rho_b, eps_w, eps_b):
     """The plain version (JAX ``sampled_linear_reference``): the sampled
     weights materialised, one batched product."""
@@ -62,17 +119,18 @@ def _lib():
 
     lib = load_library("sampled_linear")
     if not getattr(lib, "_psvi_typed", False):
-        # x mu_w rho_w mu_b rho_b eps_w eps_b | y | S N Din Dout | stream
-        lib.psvi_sampled_linear.argtypes = [_P] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # x mu_w rho_w mu_b rho_b eps_w eps_b | y | S N Din Dout n_splits | stream
+        lib.psvi_sampled_linear.argtypes = [_P] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.psvi_sampled_linear.restype = ctypes.c_int
         lib._psvi_typed = True
     return lib
 
 
 def _sampled_linear_cuda(x, mu_w, rho_w, mu_b, rho_b, eps_w, eps_b):
-    """Launch the kernel on the current stream. x usually arrives as a
-    non-contiguous view (``torch.cat`` rows, ``Flatten``), so every input is
-    made contiguous first; any dtype other than float32 raises."""
+    """Launch the kernel on the current stream over :func:`_fwd_plan`'s
+    splits of N. x usually arrives as a non-contiguous view (``torch.cat``
+    rows, ``Flatten``), so every input is made contiguous first; any dtype
+    other than float32 raises."""
     S, N, Din = x.shape
     Dout = mu_w.shape[0]
     args = [(name, t.contiguous(), _F, shape) for name, t, shape in (
@@ -85,7 +143,7 @@ def _sampled_linear_cuda(x, mu_w, rho_w, mu_b, rho_b, eps_w, eps_b):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.psvi_sampled_linear(*[_P(a[1].data_ptr()) for a in args], _P(y.data_ptr()),
-                                     S, N, Din, Dout, _P(stream))
+                                     S, N, Din, Dout, _fwd_plan(S, N, Din, Dout), _P(stream))
     if rc != 0:
         raise RuntimeError(f"sampled_linear kernel launch failed with CUDA error {rc}")
     LAUNCHES["sampled_linear"] += 1

@@ -13,8 +13,10 @@ For every sample s, with ε_s drawn from (seed, s)::
     nkl_s = Σ_layer log N(θ_s; 0, σ_p²) − log N(θ_s; μ, softplus(ρ)²)
 
 The CUDA kernels (``csrc/sampled_linear_prng.cu``) draw ε themselves: it is
-never read from or written to device memory. dx builds each block's columns
-of W_s once in shared memory over a split of N (:func:`_dx_plan`); dparam
+never read from or written to device memory. The forward builds each
+block's tile of W_s once in shared memory over a split of N
+(:func:`_fwd_plan`), with B3's 3xTF32 product loop; dx builds each block's
+columns of W_s once over a split of N (:func:`_dx_plan`); dparam
 runs as two kernels, ``k_prng_dparam_partial`` (g_sᵀx_s over splits of N,
 :func:`_dparam_plan`) and ``k_prng_dparam_reduce`` (the sum over splits in a
 fixed order, ε, σ(ρ)), counted as one launch.
@@ -56,7 +58,8 @@ from torch.autograd.function import once_differentiable
 from psvi_torch.models.layers import softplus
 from psvi_torch.ops.elbo import HALF_LOG_2PI
 from psvi_torch.ops.fused_nested import _F, _P, _check
-from psvi_torch.ops.sampled_linear import sampled_linear_reference
+from psvi_torch.ops.sampled_linear import (SMS, _cdiv, _fwd_plan, _n_splits,
+                                           sampled_linear_reference)
 
 #: Launch count of each kernel: its wrapper adds one where it launches it.
 LAUNCHES = {"prng_fwd": 0, "prng_dx": 0, "prng_dparam": 0, "prng_nkl": 0}
@@ -179,10 +182,9 @@ def vi_linear_nkl_prng_reference(mu_w, rho_w, mu_b, rho_b, seed, mc_samples, pri
 
 # ----------------------------------------------------------------------
 # The launch plans of B4b and B4c: plain functions of the shape, so that a
-# rerun launches the same grid and gives the same bits.
+# rerun launches the same grid and gives the same bits (B4a's, _fwd_plan,
+# is B3's, in ops/sampled_linear.py).
 
-#: SMs of an H100 SXM: a wave of blocks, one on each.
-SMS = 132
 #: Output tile of dparam's pass 1 (both sides) and input columns of a dx block.
 DPARAM_TILE = DX_TILE = 64
 #: Fewest points a split of N keeps (dx: one 64-point tile).
@@ -196,22 +198,6 @@ DPARAM_MAX_POINTS = 256
 DPARAM_BLOCKS, DX_BLOCKS = SMS, 3 * SMS // 2
 #: Most splits of dx: they form one thread block cluster, at most 8 blocks.
 DX_MAX_SPLITS = 8
-
-
-def _cdiv(a, b):
-    return -(-a // b)
-
-
-def _n_splits(blocks_per_split, N, min_points, blocks, most=None, max_points=None):
-    """The fewest splits of N whose grid, ``blocks_per_split`` blocks a
-    split, reaches ``blocks`` and whose splits hold at most ``max_points``
-    points, with at least ``min_points`` points in every split (one split
-    where N has fewer) and at most ``most`` splits."""
-    cap = max(1, min(most or N, N // min_points))
-    want = _cdiv(blocks, max(1, blocks_per_split))
-    if max_points is not None:
-        want = max(want, _cdiv(N, max_points))
-    return max(1, min(cap, want))
 
 
 def _dparam_plan(S, N, Din, Dout):
@@ -251,10 +237,10 @@ def _lib():
     if not getattr(lib, "_psvi_typed", False):
         i, u = ctypes.c_int, ctypes.c_uint32
         key = [u, u]
-        # tensors | S N Din Dout (dx, dparam: and n_splits; nkl: S Din Dout,
-        # prior_sd; bits: n) | key | stream
+        # tensors | S N Din Dout (fwd, dx, dparam: and n_splits; nkl: S Din
+        # Dout, prior_sd; bits: n) | key | stream
         lib.psvi_philox_bits.argtypes = [_P, _P, i, u, u, _P]
-        lib.psvi_prng_fwd.argtypes = [_P] * 6 + [i] * 4 + key + [_P]
+        lib.psvi_prng_fwd.argtypes = [_P] * 6 + [i] * 5 + key + [_P]
         lib.psvi_prng_dx.argtypes = [_P] * 4 + [i] * 5 + key + [_P]
         lib.psvi_prng_dparam.argtypes = [_P] * 9 + [i] * 5 + key + [_P]
         lib.psvi_prng_nkl.argtypes = [_P] * 5 + [i] * 3 + [ctypes.c_float] + key + [_P]
@@ -300,7 +286,7 @@ def _philox_bits_cuda(counter, key):
 
 
 def _prng_fwd_cuda(x, mu_w, rho_w, mu_b, rho_b, seed):
-    """B4a: y (S, N, Dout)."""
+    """B4a: y (S, N, Dout), over :func:`_fwd_plan`'s splits of N."""
     S, N, Din = x.shape
     Dout = mu_w.shape[0]
     key = _layer_key(seed, Dout, Din)
@@ -308,7 +294,8 @@ def _prng_fwd_cuda(x, mu_w, rho_w, mu_b, rho_b, seed):
                   ("rho_w", rho_w, _F, (Dout, Din)), ("mu_b", mu_b, _F, (Dout,)),
                   ("rho_b", rho_b, _F, (Dout,))])
     y = torch.empty((S, N, Dout), dtype=_F, device=dev)
-    _launch("prng_fwd", dev, [x, mu_w, rho_w, mu_b, rho_b, y], (S, N, Din, Dout), key)
+    _launch("prng_fwd", dev, [x, mu_w, rho_w, mu_b, rho_b, y],
+            (S, N, Din, Dout, _fwd_plan(S, N, Din, Dout)), key)
     return y
 
 

@@ -169,3 +169,68 @@ def test_cuda_wrapper_validates(bad, match):
     with pytest.raises(ValueError, match=match):
         SL._sampled_linear_cuda(*a)
     assert SL.LAUNCHES["sampled_linear"] == 0
+
+
+# ----------------------------------------------------------------------
+# The forward kernels' product (B3's k_sampled_linear and B4a's k_prng_fwd,
+# csrc/sampled_linear_gemm.cuh) runs as 3xTF32 on the tensor cores. Its
+# arithmetic, emulated here on the CPU (nowhere else: no path runs it),
+# against float64.
+
+def _tf32(a):
+    """cvt.rna.tf32.f32 on a float32 tensor: round to 10 stored mantissa
+    bits, ties away from zero (add half of the dropped bits' range to the
+    magnitude, then clear the low 13 bits)."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _emulated_product(x, w, passes):
+    """y = x·wᵀ as the kernel forms it, x (S, N, Din), w (S, Dout, Din) float32:
+    each operand split a = hi + lo (hi = tf32(a), lo = tf32(a − hi)); for
+    each 8 columns of Din, one m16n8k8 step a pass, its 8 products summed
+    exactly and added to an fp32 accumulator with one rounding (small gets
+    hi·lo and lo·hi, big hi·hi); then big + small. ``passes`` 1 is one plain
+    TF32 pass (big alone)."""
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    big = torch.zeros(x.shape[0], x.shape[1], w.shape[1], dtype=torch.float32)
+    small = torch.zeros_like(big)
+
+    def step(acc, a, b, k):
+        part = torch.bmm(a[..., k:k + 8].double(), b[..., k:k + 8].double().transpose(1, 2))
+        return (acc.double() + part).float()
+
+    for k in range(0, x.shape[2], 8):
+        if passes == 3:
+            small = step(small, xh, wl, k)
+            small = step(small, xl, wh, k)
+        big = step(big, xh, wh, k)
+    return big + small
+
+
+@pytest.mark.parametrize("shape", [(10, 356, 400, 120), (10, 356, 120, 84), (10, 356, 84, 10),
+                                   (10, 1024, 400, 120)], ids=["fc1", "fc2", "fc3", "N=1024"])
+def test_3xtf32_product_keeps_fp32_accuracy(shape):
+    """At the LeNet fc shapes and 400→120 at N = 1024, on inputs built as
+    chip_smoke.py's sl_inputs builds them (post-ReLU x, ρ spread by 3 around
+    softplus⁻¹(1e-3), N(0, 1) noise), the 3xTF32 product is within
+    2e-6·max|ref| of float64; the dropped lo·lo term and the rounding of lo
+    are each about 2⁻²² of a product. One TF32 pass is outside the kernels'
+    gate of 1e-5·max|ref|. This is an error-budget model of the kernels'
+    arithmetic, emulated here: it calls no kernel, and holds whatever the
+    kernels do. Their own accuracy is checked only on the card, by
+    chip_smoke.py's gate of 1e-5·max|ref| against the plain fp32 version."""
+    S, N, Din, Dout = shape
+    rng = np.random.default_rng(7)
+    bnd = 1.0 / np.sqrt(Din)
+    x = torch.from_numpy(np.maximum(rng.standard_normal((S, N, Din)), 0.0).astype(np.float32))
+    mu = torch.from_numpy(rng.uniform(-bnd, bnd, (Dout, Din)).astype(np.float32))
+    rho = torch.from_numpy((RHO0 + 3.0 * rng.standard_normal((Dout, Din))).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((S, Dout, Din)).astype(np.float32))
+    w = mu[None] + SL.softplus(rho)[None] * eps  # W_s as the kernels build it, in fp32
+    ref = torch.bmm(x.double(), w.double().transpose(1, 2))
+    scale = float(ref.abs().max())
+    err3 = float((_emulated_product(x, w, 3).double() - ref).abs().max()) / scale
+    err1 = float((_emulated_product(x, w, 1).double() - ref).abs().max()) / scale
+    assert err3 <= 2e-6, err3
+    assert err1 > 1e-5, err1

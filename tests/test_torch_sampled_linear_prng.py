@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from psvi_torch.models.layers import VILinear
+from psvi_torch.ops import sampled_linear as SL
 from psvi_torch.ops import sampled_linear_prng as SLP
 from psvi_tpu.models.layers import VILinear as JVILinear
 from psvi_tpu.ops import pallas_vi as PV
@@ -343,13 +344,15 @@ def test_composed_stack_matches_jax_on_the_same_eps():
 
 
 # ----------------------------------------------------------------------
-# The launch plans of B4b (dx) and B4c (dparam): functions of the shape only
+# The launch plans of B4a and B3 (the forward), B4b (dx) and B4c (dparam):
+# functions of the shape only
 
 # (S, N, Din, Dout): the LeNet fc layers at N = 356, 400→120 at N = 104 and
-# 1024, the ragged and edge shapes, and a Dout past dx's 384 resident rows
+# 1024, the ragged and edge shapes, a Dout past dx's 384 resident rows and a
+# Din past the forward's 512 resident columns
 PLAN_SHAPES = [(10, 356, 400, 120), (10, 356, 120, 84), (10, 356, 84, 10), (10, 104, 400, 120),
                (10, 1024, 400, 120), (10, 1, 400, 120), (10, 7, 84, 10), (10, 356, 40, 1),
-               (1, 356, 120, 84), (64, 2048, 400, 120), (2, 64, 64, 2048)]
+               (1, 356, 120, 84), (64, 2048, 400, 120), (2, 64, 64, 2048), (2, 64, 2048, 64)]
 # plan, the grid's blocks a split, the split unit, the fewest points a
 # split, the blocks the grid reaches where N allows, the most splits, the
 # most points a split
@@ -357,7 +360,16 @@ PLANS = {
     "dparam": (SLP._dparam_plan, lambda S, Din, Dout: -(-(Din + 1) // 64) * -(-Dout // 64) * S,
                1, 32, 132, None, 256),
     "dx": (SLP._dx_plan, lambda S, Din, Dout: -(-Din // 64) * S, 64, 64, 198, 8, None),
+    "fwd": (SLP._fwd_plan, lambda S, Din, Dout: -(-Dout // 32) * S, 64, 64, 330, 8, None),
 }
+
+
+def _unevened(kind, S, N, Din, Dout):
+    """The split count a plan picks before the forward evens out its tiles
+    (dx's and dparam's plans pick it as it is)."""
+    if kind != "fwd":
+        return PLANS[kind][0](S, N, Din, Dout)
+    return SLP._n_splits(-(-Dout // 32) * S, N, 64, SL.FWD_BLOCKS, 8)
 
 
 @pytest.mark.parametrize("kind", PLANS)
@@ -379,7 +391,7 @@ def test_plan_puts_every_point_in_one_split(shape, kind):
 def test_plans_depend_only_on_the_shape(monkeypatch):
     """Nothing of the card or the run enters a plan: with every CUDA query
     broken, the plans give what they gave, call after call."""
-    want = [(SLP._dparam_plan(*sh), SLP._dx_plan(*sh)) for sh in PLAN_SHAPES]
+    want = [(SLP._dparam_plan(*sh), SLP._dx_plan(*sh), SLP._fwd_plan(*sh)) for sh in PLAN_SHAPES]
 
     def broken(*a, **k):
         raise AssertionError("a plan asked the device")
@@ -387,7 +399,8 @@ def test_plans_depend_only_on_the_shape(monkeypatch):
     for name in ("is_available", "device_count", "get_device_properties", "current_device"):
         monkeypatch.setattr(torch.cuda, name, broken)
     for _ in range(2):
-        assert [(SLP._dparam_plan(*sh), SLP._dx_plan(*sh)) for sh in PLAN_SHAPES] == want
+        assert [(SLP._dparam_plan(*sh), SLP._dx_plan(*sh), SLP._fwd_plan(*sh))
+                for sh in PLAN_SHAPES] == want
 
 
 @pytest.mark.parametrize("kind", PLANS)
@@ -403,24 +416,34 @@ def test_splits_keep_the_fewest_points(kind):
             assert min(sizes) >= min(least, N), (N, ns, sizes)
 
 
-@pytest.mark.parametrize("kind,want", [("dparam", (2, 4, 7, 4)), ("dx", (3, 5, 5, 3))])
+@pytest.mark.parametrize("kind,want", [("dparam", (2, 4, 7, 4)), ("dx", (3, 5, 5, 3)),
+                                       ("fwd", (3, 3, 3, 8))])
 def test_grids_cover_the_sms_where_n_allows(kind, want):
     """At fc1–fc3 (N = 356) and 400→120 at N = 1024 the grid reaches its
     target (dparam one wave of 132 SMs with at most 256 points a split, dx
-    one and a half waves), or the split count stops at the fewest points a
-    split or at dx's cluster of 8; and no smaller count would do. Every
-    grid has at least 132 blocks where N allows."""
+    one and a half waves, the forward two and a half waves of two blocks a
+    SM), or the split count stops at the fewest points a split or at a
+    cluster of 8; and no smaller count would do. Every grid has at least 132
+    blocks where N allows. The forward then takes the fewest splits whose
+    largest holds no more 64-point tiles (6 tiles: 3 splits, not 5)."""
     plan, blocks, _, least, target, most, widest = PLANS[kind]
-    assert (SLP.DPARAM_BLOCKS, SLP.DX_BLOCKS, SLP.DX_MAX_SPLITS,
-            SLP.DPARAM_MAX_POINTS) == (132, 198, 8, 256)
+    assert (SLP.DPARAM_BLOCKS, SLP.DX_BLOCKS, SLP.DX_MAX_SPLITS, SLP.DPARAM_MAX_POINTS,
+            SL.FWD_BLOCKS, SL.FWD_MAX_SPLITS) == (132, 198, 8, 256, 330, 8)
     shapes = [PLAN_SHAPES[i] for i in (0, 1, 2, 4)]
     assert tuple(plan(*sh) for sh in shapes) == want
     for S, N, Din, Dout in PLAN_SHAPES:
-        ns, per = plan(S, N, Din, Dout), blocks(S, Din, Dout)
+        ns, per = _unevened(kind, S, N, Din, Dout), blocks(S, Din, Dout)
         cap = min(max(1, N // least), most or N)
         assert (per * ns >= target and -(-N // ns) <= (widest or N)) or ns == cap
         assert per * ns >= SLP.SMS or ns == cap
         assert ns == 1 or per * (ns - 1) < target or -(-N // (ns - 1)) > (widest or N)
+        evened = plan(S, N, Din, Dout)
+        if kind == "fwd":
+            tiles = -(-N // 64)
+            assert -(-tiles // evened) == -(-tiles // ns) and evened <= ns
+            assert evened == 1 or -(-tiles // (evened - 1)) > -(-tiles // ns)
+        else:
+            assert evened == ns
 
 
 @pytest.mark.parametrize("shape,mb", [((10, 356, 400, 120), 3.8496), ((10, 356, 120, 84), 1.62624),
