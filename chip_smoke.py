@@ -10,13 +10,18 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              the checkout (``psvi_torch/ops/csrc``), one nvcc per source, all
              started at once; ``k_sampled_linear``, ``k_prng_fwd``,
              ``k_prng_dx``, ``k_prng_dparam_partial``,
-             ``k_prng_dparam_reduce`` and the redesigned LeNet kernels
+             ``k_prng_dparam_reduce``, the redesigned LeNet kernels
              (``k_conv1``, ``k_conv2``, ``k_conv2_back``, ``k_conv2_wpart``,
              ``k_ubar_part``, ``k_ubar_sum``, ``k_gemm``, each instantiation)
-             must report no spill bytes;
+             and the redesigned dense ``nested_fwd_kernel`` and
+             ``nested_rev_kernel`` must report no spill bytes; the last two's
+             stack-frame bytes are reported;
 3. kernels — each dense CUDA kernel against its plain PyTorch version on the
              same CUDA inputs (the outer step's cotangents also against the
-             plain version in float64), and the composed step against the
+             plain version in float64), ``nested_fwd`` and ``nested_rev``
+             also against a rerun of themselves, bit for bit, with their
+             cluster plans (``_nested_plan``) on each config's line, and the
+             composed step against the
              plain and the autograd-oracle backends (TF32 off): three configs
              of the categorical head, and three of the Gaussian head on
              sinus (1-40-1 psvi_learn_v_regressor τ=0.1, the regression main
@@ -75,7 +80,8 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              with B3's launch count derived from the loops; no engine run
              launches B4;
 5. times   — CUDA-event medians of each kernel (each head at its main
-             path's shapes), its plain version, the fused engine steps and
+             path's shapes; the dense ones also as 50 calls queued behind a
+             device sleep), its plain version, the fused engine steps and
              the plain autograd engine steps; B3, its plain version and a
              cuBLAS product on pre-sampled weights at the LeNet fc shapes
              (calls queued back to back behind a device sleep), and so B4a–c
@@ -178,6 +184,9 @@ B4_NO_SPILL = ("k_prng_fwd", "k_prng_dx", "k_prng_dparam_partial", "k_prng_dpara
 # and weight gradient and ū from shared-memory tiles; the fc GEMM)
 LENET_NO_SPILL = ("k_conv1", "k_conv2", "k_conv2_back", "k_conv2_wpart", "k_ubar_part",
                   "k_ubar_sum", "k_gemm")
+# the dense kernels redesigned for the card (a cluster, the per-parameter sums
+# spread over threads), which must build with no spills
+NESTED_NO_SPILL = ("nested_fwd_kernel", "nested_rev_kernel")
 
 
 _T0 = time.perf_counter()
@@ -197,18 +206,32 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_spills(log):
-    """{mangled kernel name: (spill store bytes, spill load bytes)} from
-    nvcc's ``-Xptxas -v`` output, where each "Function properties for
-    <name>" line is followed by its stack and spill line."""
+def ptxas_properties(log):
+    """{mangled kernel name: its stack and spill line} from nvcc's ``-Xptxas
+    -v`` output, where each "Function properties for <name>" line is
+    followed by that line."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Function properties for" in ln:
             name = ln.split("Function properties for")[1].strip()
         elif name and "spill stores" in ln:
-            out[name] = tuple(int(n) for n in re.findall(r"(\d+) bytes spill", ln))
+            out[name] = ln
             name = None
     return out
+
+
+def ptxas_spills(log):
+    """{mangled kernel name: (spill store bytes, spill load bytes)}."""
+    return {name: tuple(int(n) for n in re.findall(r"(\d+) bytes spill", ln))
+            for name, ln in ptxas_properties(log).items()}
+
+
+def ptxas_stack(log, kernels):
+    """Each kernel's stack-frame bytes, one entry per instantiation (matched
+    as ``check_no_spills`` matches)."""
+    stack = {name: int(re.search(r"(\d+) bytes stack frame", ln).group(1))
+             for name, ln in ptxas_properties(log).items()}
+    return {k: [v for m, v in stack.items() if f"{len(k)}{k}" in m] for k in kernels}
 
 
 def check_no_spills(log, kernels):
@@ -344,9 +367,10 @@ def check_kernels(FN, chk, name, cfg, a):
         "p0", "u", "z", "xb", "yb", "v", "alpha", "e_in", "e_out", "lr"))
     fwd, outer, rev = (branch(cfg, k) for k in ("nested_fwd", "nested_outer", "nested_rev"))
     rep = {"phase": "kernels", "config": name, "widths": list(cfg.widths), "M": cfg.M,
-           "likelihood": cfg.likelihood}
-    # nested_fwd
+           "likelihood": cfg.likelihood, "plans": nested_plans(FN, cfg)}
+    # nested_fwd, and a rerun bit for bit
     l_k, h_k, cw_k = FN._nested_fwd_cuda(p0, u, z, v, al, e_in, lr, cfg)
+    same_bits(FN._nested_fwd_cuda(p0, u, z, v, al, e_in, lr, cfg), (l_k, h_k, cw_k), fwd)
     l_t, h_t, cw_t = FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)
     torch.cuda.synchronize()
     rep["fwd"] = {
@@ -377,10 +401,12 @@ def check_kernels(FN, chk, name, cfg, a):
         nm: {"kernel": _rel(o_k[i].double(), o_64[i]), "plain": _rel(o_t[i].double(), o_64[i])}
         for i, nm in enumerate(("pbar", "ubar", "cwbar", "zbar"), 1)
         if i < 4 or cfg.learn_z}
-    # nested_rev on the plain versions' history and cotangents
+    # nested_rev on the plain versions' history and cotangents, and a rerun
     zbar0 = torch.zeros_like(o_t[4])
-    r_k = FN._nested_rev_cuda(h_t, o_t[1].contiguous(), o_t[2].contiguous(),
-                              o_t[3].contiguous(), zbar0, u, z, cw_t, v, al, e_in, lr, cfg)
+    rev_args = (h_t, o_t[1].contiguous(), o_t[2].contiguous(), o_t[3].contiguous(), zbar0, u,
+                z, cw_t, v, al, e_in, lr, cfg)
+    r_k = FN._nested_rev_cuda(*rev_args)
+    same_bits(FN._nested_rev_cuda(*rev_args), r_k, rev)
     r_t = FN.nested_rev_torch(h_t, o_t[1], o_t[2], o_t[3], zbar0, u, z, cw_t, v, al, e_in, lr,
                               cfg)
     torch.cuda.synchronize()
@@ -396,6 +422,18 @@ def check_kernels(FN, chk, name, cfg, a):
     rep["step"] = {ref: compare_steps(chk, f"step_vs_{ref}", cfg, outs["cuda"], outs[ref])
                    for ref in ("torch", "autograd")}
     emit(rep)
+
+
+def nested_plans(FN, cfg):
+    """The launch plans of nested_fwd and nested_rev at ``cfg``
+    (``_nested_plan``): the cluster's blocks C, the samples a block holds at
+    most, and whether the maps lie in shared memory."""
+    out = {}
+    for kernel in ("nested_fwd", "nested_rev"):
+        p = FN._nested_plan(cfg, kernel)
+        out[kernel] = {"blocks": p.blocks, "samples_per_block": p.samples_per_block,
+                       "maps": "shared" if p.shared else "global", "smem_bytes": p.smem_bytes}
+    return out
 
 
 def centring_effect(FN, cfg, a):
@@ -1118,7 +1156,8 @@ def lenet_work(cfg):
     return ops, byts
 
 
-def timed_kernel(name, kern, plain, ops, byts, launches, chk, source, replaces, reps):
+def timed_kernel(name, kern, plain, ops, byts, launches, chk, source, replaces, reps,
+                 **extra):
     """The kernels-line entry of one kernel: its median time and its plain
     version's on the same inputs, beside the bound from ops and bytes."""
     ms, plain_ms = median_ms(kern, reps=reps, warmup=2), median_ms(plain, reps=reps, warmup=2)
@@ -1128,7 +1167,7 @@ def timed_kernel(name, kern, plain, ops, byts, launches, chk, source, replaces, 
             "launches": launches[name], "max_abs_err": chk.max_abs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
-            "ops": ops, "bytes": byts}
+            "ops": ops, "bytes": byts, **extra}
 
 
 def profile_calls(calls, sums=None):
@@ -1198,9 +1237,13 @@ def main() -> int:
               if built[sources.index(src)][1] else "not rebuilt"
               for src, kernels in (("sampled_linear", B3_NO_SPILL),
                                    ("sampled_linear_prng", B4_NO_SPILL),
-                                   ("fused_lenet", LENET_NO_SPILL))}
+                                   ("fused_lenet", LENET_NO_SPILL),
+                                   ("fused_nested", NESTED_NO_SPILL))}
+    nested_log = built[sources.index("fused_nested")][1]
     emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas, "spill_bytes": spills})
+          "ptxas": ptxas, "spill_bytes": spills,
+          "stack_bytes": ptxas_stack(nested_log, NESTED_NO_SPILL) if nested_log
+          else "not rebuilt"})
 
     # 3. kernels against their plain versions on the card
     halfmoon, blobs = read_dataset("halfmoon"), read_dataset("four_blobs")
@@ -1360,8 +1403,12 @@ def main() -> int:
         kernels = []
         for c, data, runs in ((cfg, blobs, launches), (rcfg, sinus, launches_r)):
             ops, byts = work(c)
+            plans = nested_plans(FN, c)
+            # the median of single calls, and 50 calls queued behind a device
+            # sleep (a call's host cost, about its device time, stays out)
             kernels += [timed_kernel(branch(c, name), kern, plain, ops[name], byts[name], runs,
-                                     chk, SOURCE, TPU_KERNEL, 60)
+                                     chk, SOURCE, TPU_KERNEL, 60, queued_ms=queued_ms(kern)[0],
+                                     **({"plan": plans[name]} if name in plans else {}))
                         for name, (kern, plain) in dense_calls(
                             FN, c, kernel_inputs(FN, c, data.x, data.y, 1, dev)).items()]
         kernels += [timed_kernel(name, kern, plain, lops[name], lbyts[name], launches_l, chk,

@@ -44,6 +44,11 @@ noise draw (per layer ``w (S,o,i), b (S,o)``). The TPU kernel's
 sample-major/class-major rank-2 layouts and 0/1 mask matmuls were Mosaic
 workarounds and are not carried over.
 
+``nested_fwd`` and ``nested_rev`` run as one thread block cluster whose
+blocks each hold a group of the S samples; ``_nested_plan`` works out its
+size, the samples a block holds and whether their maps fit in shared memory
+from the config alone.
+
 Backends of :func:`fused_nested_outer`: ``"cuda"`` (the hand-written
 kernels, CUDA tensors only), ``"torch"`` (the plain versions),
 ``"autograd"`` (the ``_nested_core`` math through ``torch.autograd`` with
@@ -68,13 +73,22 @@ from psvi_torch.ops.optim import _sqrt_safe
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
-# Caps of the CUDA design (enforced by supports()): one thread block of
-# 1024 threads runs a whole step; per-sample reductions use one warp per
-# sample and shared arrays of MAX_SAMPLES; the net struct holds MAX_LAYERS.
+# Caps of the CUDA design (enforced by supports()): nested_outer runs in one
+# thread block of 1024 threads with per-sample shared arrays of MAX_SAMPLES;
+# nested_fwd and nested_rev index samples in shared tables of MAX_SAMPLES;
+# the net struct holds MAX_LAYERS.
 MAX_LAYERS = 8
 MAX_SAMPLES = 32
 MAX_WIDTH_X_S = 2048  # S·max(width), as the JAX gate
 MAX_POINTS = 2048  # M + B, as the JAX gate
+
+# nested_fwd and nested_rev run as one thread block cluster (csrc:
+# MAX_CLUSTER, SMEM_CAP, NTHREADS): at most 8 blocks (the portable cluster
+# size), each with at most SMEM_CAP bytes of dynamic shared memory (the
+# card's 232,448 a block less room for its static arrays) and 32 warps.
+MAX_CLUSTER = 8
+SMEM_CAP = 232448 - 1024
+NWARPS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -501,14 +515,18 @@ def reset_launches():
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # p0 u y v alpha eps | losses hist cw | theta z delta
-    "psvi_nested_fwd": [_P] * 12,
+    # p0 u y v alpha eps | losses hist cw | theta z delta xg lpart bcs
+    "psvi_nested_fwd": [_P] * 15,
     # pT u y cw xb yb eps | loss pbar ubar cwbar zbar | theta z delta nll
     "psvi_nested_outer": [_P] * 16,
     # hist pbar ubar cwbar zbar u y cw v alpha eps | g_u g_v g_alpha g_z |
-    # theta thetad z delta zd deltad nlld h gbar pbar mbar nbar cwbar
-    "psvi_nested_rev": [_P] * 28,
+    # theta thetad z delta zd deltad nlld h gbar pbar mbar nbar cwbar xg bcs
+    "psvi_nested_rev": [_P] * 30,
 }
+
+
+# the entries that also take a plan (_nested_plan) before dims
+_PLANNED = ("psvi_nested_fwd", "psvi_nested_rev")
 
 
 def _lib():
@@ -518,8 +536,9 @@ def _lib():
     if not getattr(lib, "_psvi_typed", False):
         for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.argtypes = args + [ctypes.POINTER(ctypes.c_int),
-                                  ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+            plan = [ctypes.POINTER(ctypes.c_int)] if name in _PLANNED else []
+            fn.argtypes = args + plan + [ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._psvi_typed = True
     return lib
@@ -554,11 +573,17 @@ def _check(args):
     return dev
 
 
-def _launch(name, dev, args, cfg, lr):
+def _launch(name, dev, args, cfg, lr, plan=None):
+    """Launch ``psvi_<name>`` on ``args`` (tensors, or addresses as ints)
+    and, for nested_fwd and nested_rev, ``plan``."""
     fn = getattr(_lib(), "psvi_" + name)
+    ptrs = [_P(a if isinstance(a, int) else a.data_ptr()) for a in args]
+    if plan is not None:
+        ptrs.append((ctypes.c_int * 4)(plan.blocks, plan.samples_per_block, int(plan.shared),
+                                       plan.smem_bytes))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[_P(a.data_ptr()) for a in args], _dims(cfg), _hyper(cfg, lr), _P(stream))
+        rc = fn(*ptrs, _dims(cfg), _hyper(cfg, lr), _P(stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
     LAUNCHES[name + ("_gaussian" if cfg.gaussian else "")] += 1
@@ -582,13 +607,80 @@ def _inner_args(cfg, u, y, v, alpha, eps_in):
             ("alpha", alpha, _F, (1,)), ("eps_in", eps_in, _F, (cfg.T, cfg.n_eps))]
 
 
+@dataclasses.dataclass(frozen=True)
+class NestedPlan:
+    """How ``nested_fwd`` or ``nested_rev`` runs: one cluster of ``blocks``
+    blocks, block r holding samples [r·S/C, (r+1)·S/C), at most
+    ``samples_per_block``; their θ, maps and per-sample sums in shared
+    memory (``shared``) or in the global scratch; ``smem_bytes`` of dynamic
+    shared memory a block."""
+
+    blocks: int
+    samples_per_block: int
+    shared: bool
+    smem_bytes: int
+
+
+def _plan_floats(cfg: FusedCfg, kernel: str):
+    """The kernel's shared-memory layout (csrc: nested_fwd_kernel,
+    nested_rev_kernel): floats a block, and floats for each sample it holds
+    where the maps live there. nE = E / S elements a sample, U units a
+    point."""
+    nE, MU = cfg.n_eps // cfg.S, cfg.M * cfg.n_units
+    if kernel == "nested_fwd":  # cw; θ, z, δ, G with G·ε
+        return (cfg.M + 3) // 4 * 4, 3 * nE + 2 * MU
+    if kernel == "nested_rev":  # θ, θ̇, z, δ, ż, δ̇, G and Ġ with ·ε, ū_s, the tangent NLL
+        return 0, 6 * nE + 4 * MU + cfg.M * cfg.D + cfg.M
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def _nested_plan(cfg: FusedCfg, kernel: str, blocks=None, shared=None) -> NestedPlan:
+    """The launch plan of ``nested_fwd`` or ``nested_rev`` at ``cfg``, from
+    the config alone: as many blocks as the portable cluster holds, up to one
+    a sample (min(8, S); at S = 10 two blocks hold two samples, and all ran
+    as fast as five blocks of two or faster, the owners' slices being
+    smaller), and the maps in shared memory where ⌈S/C⌉ samples' fit in
+    SMEM_CAP bytes, else in global scratch. ``blocks`` and ``shared``
+    override the choice (to measure other plans)."""
+    S = cfg.S
+    if blocks is None:
+        blocks = min(MAX_CLUSTER, S)
+    if not 1 <= blocks <= min(MAX_CLUSTER, S):
+        raise ValueError(f"a cluster of {blocks} blocks for S={S}: 1..{min(MAX_CLUSTER, S)}")
+    spb = -(-S // blocks)
+    fixed, per = _plan_floats(cfg, kernel)
+    fits = 4 * (fixed + spb * per) <= SMEM_CAP
+    if shared is None:
+        shared = fits
+    elif shared and not fits:
+        raise ValueError(f"{spb} samples' maps of {kernel} do not fit {SMEM_CAP} bytes")
+    return NestedPlan(blocks, spb, shared, 4 * (fixed + (spb * per if shared else 0)))
+
+
+def _scratch(dev, sizes):
+    """One float32 workspace holding arrays of ``sizes`` floats end to end:
+    the tensor (keep it until the launch is queued) and each array's
+    address. An array of size 0 is never touched by the kernel."""
+    ws = torch.empty(max(sum(sizes), 1), dtype=_F, device=dev)
+    addr, out = ws.data_ptr(), []
+    for n in sizes:
+        out.append(addr)
+        addr += 4 * n
+    return ws, out
+
+
 def _nested_fwd_cuda(p0, u, y, v, alpha, eps_in, lr, cfg):
     dev = _check([("p0", p0, _F, (cfg.n_params,))] + _inner_args(cfg, u, y, v, alpha, eps_in))
     T, P, M, S = cfg.T, cfg.n_params, cfg.M, cfg.S
+    plan = _nested_plan(cfg, "nested_fwd")
     out = (_empty(dev, T), _empty(dev, T + 1, 3, P), _empty(dev, M))
-    scratch = (_empty(dev, cfg.n_eps), _empty(dev, S * M * cfg.n_units),
-               _empty(dev, S * M * cfg.n_units))
-    _launch("nested_fwd", dev, (p0, u, y, v, alpha, eps_in) + out + scratch, cfg, lr)
+    g = 0 if plan.shared else 1  # the maps' global copies, used only outside shared memory
+    MU = M * cfg.n_units
+    # theta z delta xg lpart bcs
+    ws, scratch = _scratch(dev, (g * cfg.n_eps, g * S * MU, g * S * MU, g * 2 * cfg.n_eps,
+                                 T * plan.blocks * NWARPS, 2 * T * plan.blocks))
+    _launch("nested_fwd", dev, (p0, u, y, v, alpha, eps_in) + out + tuple(scratch), cfg, lr,
+            plan)
     return out
 
 
@@ -613,14 +705,16 @@ def _nested_rev_cuda(hist, pbar, ubar, cwbar, zbar, u, y, cw, v, alpha, eps_in, 
                   ("ubar", ubar, _F, (M, cfg.D)), ("cwbar", cwbar, _F, (M,)),
                   ("zbar", zbar, _F, (M,)), ("cw", cw, _F, (M,))]
                  + _inner_args(cfg, u, y, v, alpha, eps_in))
-    Z = S * M * cfg.n_units
+    plan = _nested_plan(cfg, "nested_rev")
     out = (_empty(dev, M, cfg.D), _empty(dev, M), _empty(dev, 1), _empty(dev, M))
-    scratch = (_empty(dev, E), _empty(dev, E), _empty(dev, Z), _empty(dev, Z),
-               _empty(dev, Z), _empty(dev, Z), _empty(dev, S * M),
-               _empty(dev, P), _empty(dev, P), _empty(dev, P), _empty(dev, P),
-               _empty(dev, P), _empty(dev, M))
+    g = 0 if plan.shared else 1  # the maps' global copies, used only outside shared memory
+    Z = g * S * M * cfg.n_units
+    # theta thetad z delta zd deltad nlld | h gbar pbar mbar nbar cwbar | xg bcs
+    ws, scratch = _scratch(dev, (g * E, g * E, Z, Z, Z, Z, g * S * M, P, P, P, P, P, M,
+                                 g * (4 * E + S * M * cfg.D), 2 * cfg.T * plan.blocks))
     _launch("nested_rev", dev,
-            (hist, pbar, ubar, cwbar, zbar, u, y, cw, v, alpha, eps_in) + out + scratch, cfg, lr)
+            (hist, pbar, ubar, cwbar, zbar, u, y, cw, v, alpha, eps_in) + out + tuple(scratch),
+            cfg, lr, plan)
     return out
 
 

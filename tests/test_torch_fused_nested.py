@@ -13,11 +13,20 @@
 - one inner iteration's hand-derived VJP (``rev_iter_torch``) matches
   ``jax.vjp`` of the same one-iteration body and ``torch.autograd``, for
   both heads (z̄ included for the Gaussian one);
-- ``supports()`` gates what the CUDA design can run.
+- ``supports()`` gates what the CUDA design can run;
+- ``_nested_plan`` gives the CUDA ``nested_fwd``/``nested_rev`` a portable
+  cluster that holds every sample once, with the maps in shared memory
+  where they fit (both main paths and every cap of ``chip_smoke.py``);
+- the redesigned kernels' summation order (per sample over the points,
+  then over the samples, in fp32) keeps one iteration's gradient, p̄ and ū
+  within ``chip_smoke.py``'s gates of float64 (an emulation: no kernel
+  runs here).
 """
 
 import dataclasses
+import importlib.util
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,8 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from psvi_torch.data import read_dataset, read_regression_dataset
-from psvi_torch.inference.psvi import PSVI
+from psvi_torch.data import DataBundle, read_dataset, read_regression_dataset
+from psvi_torch.inference.psvi import PSVI, make_psvi_engine
 from psvi_torch.models.networks import make_dense
 from psvi_torch.ops import elbo as TE
 from psvi_torch.ops import fused_nested as FN
@@ -411,3 +420,200 @@ def test_unported_options_raise():
         PSVI(data, method="psvi_ablated", **ENGINE_KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PSVI(data, prune=True, **ENGINE_KW)
+
+
+# ---------------------------------------------------------------------------
+# the cluster plan of nested_fwd and nested_rev, and the error budget of
+# their summation order
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its cap configs and input makers)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
+MAIN_PATHS = {  # widths, M, B, likelihood: the dense and the regression main path
+    "four_blobs fn 2-40-4 M=48": ((2, 40, 4), 48, 128, "categorical"),
+    "sinus 1-40-1 M=10": ((1, 40, 1), 10, 64, "gaussian"),
+}
+
+
+def _plan_cfg(name):
+    """The step config the engine hands the kernels at a main path or at a
+    cap of chip_smoke.py (the engine built on the CPU as check_caps builds it
+    on the card)."""
+    if name in MAIN_PATHS:
+        widths, M, B, lik = MAIN_PATHS[name]
+        return FN.FusedCfg(T=10, S=10, widths=widths, M=M, B=B, N=800.0, parameterised=True,
+                           use_alpha=False, prior_sd=1.0, likelihood=lik,
+                           learn_z=lik == "gaussian")
+    seed, (_, D, nc, kw) = next((i, c) for i, c in enumerate(CS.CAPS) if c[0] == name)
+    data = (CS.regression_bundle(DataBundle, D, seed=seed) if nc == 1
+            else CS.synthetic_bundle(DataBundle, D, nc, seed=seed))
+    eng = make_psvi_engine(data, inner_it=10, init_sd=1e-3, seed=seed, device="cpu", **kw)
+    assert FN.supports(eng)
+    return eng._fused_cfg(eng.data_minibatch)
+
+
+@pytest.mark.parametrize("name", list(MAIN_PATHS) + [c[0] for c in CS.CAPS])
+def test_nested_plan(name):
+    """_nested_plan from the config alone: a portable cluster (C <= 8), every
+    sample held by exactly one block with at most ⌈S/C⌉ a block, the shared
+    bytes the kernel's layout takes (within the card's 232,448 a block), the
+    maps in shared memory wherever they fit and at both main paths."""
+    cfg = _plan_cfg(name)
+    for kernel in ("nested_fwd", "nested_rev"):
+        plan = FN._nested_plan(cfg, kernel)
+        assert 1 <= plan.blocks <= FN.MAX_CLUSTER and plan.blocks <= cfg.S
+        # block r holds samples [r·S/C, (r+1)·S/C) (csrc: make_ctx)
+        C = plan.blocks
+        blocks = [range(r * cfg.S // C, (r + 1) * cfg.S // C) for r in range(C)]
+        assert sorted(s for b in blocks for s in b) == list(range(cfg.S))
+        assert max(len(b) for b in blocks) == plan.samples_per_block
+        assert plan.samples_per_block == -(-cfg.S // plan.blocks)
+        fixed, per = FN._plan_floats(cfg, kernel)
+        fits = 4 * (fixed + plan.samples_per_block * per) <= FN.SMEM_CAP
+        assert plan.shared == fits
+        assert plan.smem_bytes == 4 * (fixed + (plan.samples_per_block * per if fits else 0))
+        assert plan.smem_bytes <= 232448
+        if name in MAIN_PATHS:
+            assert plan.shared and plan.blocks == 8 and plan.samples_per_block == 2
+    with pytest.raises(ValueError):
+        FN._nested_plan(cfg, "nested_rev", blocks=FN.MAX_CLUSTER + 1)
+
+
+def _seq(x, dim):
+    """Σ over ``dim`` one term at a time in index order, in x's dtype (the
+    kernels' order; each product here is rounded before it is added, where a
+    kernel's fmaf rounds once)."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for k in range(x.shape[dim]):
+        acc = acc + x.select(dim, k)
+    return acc
+
+
+def _kernel_order_grad(c, u, cfg):
+    """The inner gradient as nested_fwd and nested_rev sum it: per sample
+    over the points in order (blk_sample_sums), then over the samples in
+    order (sum_peers_eps), from the maps of ``_inner_value_grad``'s cache."""
+    sp2 = cfg.prior_sd ** 2
+    quads = []
+    for l, ((mw, rw, mb, rb), (sw, sb), (ew, eb)) in enumerate(
+            zip(c["prm"], c["sds"], c["eps"])):
+        d = c["deltas"][l]  # (S, M, o)
+        a = FN._layer_input(c["zs"], u, l)
+        a = a.expand(d.shape[0], *a.shape) if a.dim() == 2 else a
+        GW = _seq(d[..., :, None] * a[..., None, :], 1)  # (S, o, i)
+        Gb = _seq(d, 1)
+        out = []
+        for G, e, mu, rho, sd in ((GW, ew, mw, rw, sw), (Gb, eb, mb, rb, sb)):
+            gs, gse = _seq(G, 0), _seq(G * e, 0)
+            out += [gs + mu / sp2, torch.sigmoid(rho) * (gse - 1.0 / sd + sd / sp2)]
+        quads.append((out[0], out[1], out[2], out[3]))
+    return FN._pack4(quads)
+
+
+def _kernel_order_rev(t, p, m_t, n_t, pbar, u, Y, cw, eps_t, lr, cfg):
+    """One reverse iteration's p̄ increment H·ḡ_t (p̄_{t-1} − p̄_t) and ū, and
+    the recomputed gradient, as nested_rev sums them: the
+    recomputed gradient in the kernels' order, the Adam VJP, the tangent
+    pass, then per sample over the points (Ġ, blk_tangent_sums) or over the
+    units (ū), and over the samples in order. Zero incoming m̄, n̄."""
+    sp2 = cfg.prior_sd ** 2
+    _, _, c = FN._inner_value_grad(p, eps_t, u, Y, cw, cfg)
+    g = _kernel_order_grad(c, u, cfg)
+    bc1, bc2s = cfg.bias_corrections(t)
+    den = FN._sqrt_safe(n_t) / bc2s + cfg.adam_eps
+    mbar = -pbar * lr / (bc1 * den)
+    pos = n_t > 0
+    dsq = torch.where(pos, 0.5 / torch.sqrt(torch.where(pos, n_t, 1.0)), 0.0)
+    nbar = pbar * lr * (m_t / bc1) / (den * den) * dsq / bc2s
+    gbar = (1.0 - cfg.b1) * mbar + 2.0 * (1.0 - cfg.b2) * g * nbar
+    # the tangent pass in direction ḡ (rev_iter_torch's)
+    prm, eps, Ws, zs, hvp, deltas = (c[k] for k in ("prm", "eps", "Ws", "zs", "hvp", "deltas"))
+    dirs = FN._mu_rho(gbar, cfg)
+    Wd = [gmw + torch.sigmoid(rw) * grw * ew
+          for (gmw, grw, _, _), (_, rw, _, _), (ew, _) in zip(dirs, prm, eps)]
+    bd = [gmb + torch.sigmoid(rb) * grb * eb
+          for (_, _, gmb, grb), (_, _, _, rb), (_, eb) in zip(dirs, prm, eps)]
+    zd = []
+    for l in range(cfg.L):
+        if l == 0:
+            zl = torch.einsum("pi,soi->spo", u, Wd[0])
+        else:
+            zl = (torch.matmul(zd[-1] * (zs[l - 1] > 0), Ws[l].transpose(1, 2))
+                  + torch.matmul(torch.relu(zs[l - 1]), Wd[l].transpose(1, 2)))
+        zd.append(zl + bd[l][:, None, :])
+    dd = [None] * cfg.L
+    dd[-1] = cw[None, :, None] * hvp(zd[-1])
+    for l in range(cfg.L - 1, 0, -1):
+        dd[l - 1] = (torch.matmul(dd[l], Ws[l]) + torch.matmul(deltas[l], Wd[l])) * (zs[l - 1] > 0)
+    # ū_s[m, k] = Σ_oo δ̇·W + δ·Ẇ, the two terms of each unit in turn
+    terms = torch.stack([dd[0][..., :, None] * Ws[0][:, None], deltas[0][..., :, None] * Wd[0][:, None]],
+                        dim=3)  # (S, M, o, 2, D)
+    ubar = _seq(_seq(terms.flatten(2, 3), 2), 0)
+    hv = []
+    for l, ((gmw, grw, gmb, grb), (mw, rw, mb, rb), (sw, sb), (ew, eb), (hw, hb)) in enumerate(
+            zip(dirs, prm, c["sds"], eps, c["hs"])):
+        e, d = dd[l], deltas[l]
+        if l == 0:
+            a = u.expand(e.shape[0], *u.shape)
+            GWd = _seq(e[..., :, None] * a[..., None, :], 1)
+        else:
+            a, ad = torch.relu(zs[l - 1]), zd[l - 1] * (zs[l - 1] > 0)
+            pair = torch.stack([e[..., :, None] * a[..., None, :], d[..., :, None] * ad[..., None, :]],
+                               dim=2)  # (S, M, 2, o, i)
+            GWd = _seq(pair.flatten(1, 2), 1)
+        Gbd = _seq(e, 1)
+        quad = []
+        for G, gm, gr, rho, sd, ep, h in ((GWd, gmw, grw, rw, sw, ew, hw),
+                                          (Gbd, gmb, grb, rb, sb, eb, hb)):
+            sg = torch.sigmoid(rho)
+            quad += [_seq(G, 0) + gm / sp2,
+                     sg * (1.0 - sg) * gr * h + sg * (_seq(G * ep, 0) + (1.0 / (sd * sd) + 1.0 / sp2) * sg * gr)]
+        hv.append(tuple(quad))
+    return FN._pack4(hv), ubar, g
+
+
+def test_kernel_summation_order_keeps_fp32_accuracy():
+    """At four_blobs fn 2-40-4 (M=48, S=10, T=10, chip_smoke.py's inputs of
+    the kernels phase), the summation order of the redesigned nested_fwd and
+    nested_rev — each per-parameter sum over (sample, point) taken per
+    sample over the points in order, then over the samples in order — run in
+    fp32 on the CPU keeps one inner iteration's gradient, one reverse
+    iteration's p̄ increment H·ḡ_t (p̄ itself is 10³ times larger, and its
+    own rounding would hide the sums' error) and its ū (t = T) within
+    chip_smoke.py's gates of the plain version run in float64: cosine >
+    0.9999 and max |Δ| <= 1e-3·max |ref| (they come out near 1e-6). This is
+    an error-budget model of the kernels' arithmetic, emulated here: it
+    calls no kernel, and holds whatever the kernels do. Their own results
+    are checked only on the card, by chip_smoke.py against the plain fp32
+    versions."""
+    blobs = read_dataset("four_blobs")
+    cfg = CS.main_cfg(FN, blobs, [2, 40, 4], 48, True, False)
+    a = CS.kernel_inputs(FN, cfg, blobs.x, blobs.y, 1, torch.device("cpu"))
+    p0, u, z, xb, yb, v, al, e_in, e_out, lr = (a[k] for k in (
+        "p0", "u", "z", "xb", "yb", "v", "alpha", "e_in", "e_out", "lr"))
+    _, hist, cw = FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)
+    pbar = FN.nested_outer_torch(hist[cfg.T, 0], u, z, cw, xb, yb, e_out, cfg)[1]
+    Y = FN._targets(z, cfg)
+    t = cfg.T
+    args = (hist[t - 1, 0], hist[t, 1], hist[t, 2], pbar, u, Y, cw, e_in[t - 1])
+    pb32, ub32, g32 = _kernel_order_rev(t, *args, lr, cfg)
+    d64 = [x.double() for x in args]
+    _, g64, _ = FN._inner_value_grad(d64[0], d64[7], d64[4], d64[5], d64[6], cfg)
+    zero = torch.zeros_like(d64[3])
+    pb64, _, _, ub64, _, _ = FN.rev_iter_torch(t, d64[0], d64[1], d64[2], d64[3], zero, zero,
+                                              d64[4], d64[5], d64[6], d64[7], lr, cfg)
+    for name, x, ref in (("g", g32, g64), ("pbar increment", pb32, pb64 - d64[3]),
+                         ("ubar", ub32, ub64)):
+        x, ref = x.double().numpy(), ref.numpy()
+        assert _cos(x, ref) > 0.9999, name
+        assert np.abs(x - ref).max() <= 1e-3 * np.abs(ref).max(), name
