@@ -10,17 +10,19 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              the checkout (``psvi_torch/ops/csrc``), one nvcc per source, all
              started at once; ``k_sampled_linear``, ``k_prng_fwd``,
              ``k_prng_dx``, ``k_prng_dparam_partial``,
-             ``k_prng_dparam_reduce``, the redesigned LeNet kernels
+             ``k_prng_dparam_reduce``, ``k_prng_nkl``,
+             ``k_prng_nkl_reduce``, the redesigned LeNet kernels
              (``k_conv1``, ``k_conv2``, ``k_conv2_back``, ``k_conv2_wpart``,
              ``k_ubar_part``, ``k_ubar_sum``, ``k_gemm``, each instantiation)
-             and the redesigned dense ``nested_fwd_kernel`` and
-             ``nested_rev_kernel`` must report no spill bytes; the last two's
-             stack-frame bytes are reported;
+             and the redesigned dense ``nested_fwd_kernel``,
+             ``nested_outer_kernel`` and ``nested_rev_kernel`` must report no
+             spill bytes; the last three's stack-frame bytes are reported;
 3. kernels — each dense CUDA kernel against its plain PyTorch version on the
              same CUDA inputs (the outer step's cotangents also against the
-             plain version in float64), ``nested_fwd`` and ``nested_rev``
-             also against a rerun of themselves, bit for bit, with their
-             cluster plans (``_nested_plan``) on each config's line, and the
+             plain version in float64), ``nested_fwd``, ``nested_outer`` and
+             ``nested_rev`` also against a rerun of themselves, bit for bit,
+             with their cluster plans (``_nested_plan``: blocks, samples a
+             block, maps shared or global) on each config's line, and the
              composed step against the
              plain and the autograd-oracle backends (TF32 off): three configs
              of the categorical head, and three of the Gaussian head on
@@ -48,7 +50,9 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              the JAX docstring's 400→120 at N = 104 and 1024, B3's ragged
              and edge shapes and 64→2048 (dx's Dout-chunk branch), with the
              split counts of the forward's, dx's and dparam's plans, the NKL
-             at S = 10 and at S = 4000; the
+             at S = 10 on the fc shapes, at S = 4000, at a ragged E (37→20:
+             760 elements, no multiple of the 256-element tile) and at S = 1,
+             with the tile and group counts of its plan (``_nkl_plan``); the
              statistical tests of tests/test_pallas.py:60-124; then B4's
              path, the composed 400-120-84-10 step (S=10, N=356, synth_mnist)
              through ``sampled_linear_prng`` and ``vi_linear_nkl_prng`` with
@@ -86,7 +90,7 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              cuBLAS product on pre-sampled weights at the LeNet fc shapes
              (calls queued back to back behind a device sleep), and so B4a–c
              at fc1–fc3 and N = 1024 beside B3 and a cuBLAS product, B4d at
-             the fc shapes and S = 4000; the LeNet
+             the fc shapes and S = 4000 with its plan; the LeNet
              joint and alternating steps with ``backend="pallas"`` against
              ``backend="xla"``;
    profile — torch.profiler's device time by CUDA kernel over one call of
@@ -164,13 +168,16 @@ SLP_REPLACES = {"prng_fwd": "psvi_tpu/ops/pallas_vi.py:285",
 # (pallas_vi.py:25-28) at N = 104 and 1024, and B3's ragged and edge shapes
 # (Din=2048 and Din=37 among them: the forward's Din-chunk branch and its
 # 4-byte copies);
-# the NKL at S = 10 on the fc shapes and at S = 4000 on 64→32 (the KL check's);
+# the NKL at S = 10 on the fc shapes and at S = 4000 on 64→32 (the KL check's),
+# timed; checked also at a ragged E (37→20: 760 elements, three tiles, the
+# last ragged) and at S = 1;
 # last, a Dout past what dx keeps of W_s in shared memory at once (384 rows),
 # so that its Dout-chunk branch runs
 SLP_SHAPES = (SL_SHAPES[:3] + [("N=104", 10, 104, 400, 120), ("N=1024", 10, 1024, 400, 120)]
               + SL_SHAPES[4:] + [("Dout=2048", 2, 64, 64, 2048)])
 NKL_SHAPES = [(label, 10, Din, Dout) for label, _, _, Din, Dout in SL_SHAPES[:3]] + [
     ("S=4000 64-32", 4000, 64, 32)]
+NKL_CHECK_SHAPES = NKL_SHAPES + [("E=760 37-20", 10, 37, 20), ("S=1", 1, 400, 120)]
 # Operations of one normal of the in-kernel generator: Philox4x32-10 is 98
 # (each of ten rounds two 32-bit multiplies for the low and high words and
 # four XORs, nine key bumps of two adds), Box–Muller 13 (two shifts, two
@@ -179,14 +186,15 @@ NKL_SHAPES = [(label, 10, Din, Dout) for label, _, _, Din, Dout in SL_SHAPES[:3]
 GEN_OPS = 98 + 13
 # the B3 and B4 kernels redesigned for the card, which must build with no spills
 B3_NO_SPILL = ("k_sampled_linear",)
-B4_NO_SPILL = ("k_prng_fwd", "k_prng_dx", "k_prng_dparam_partial", "k_prng_dparam_reduce")
+B4_NO_SPILL = ("k_prng_fwd", "k_prng_dx", "k_prng_dparam_partial", "k_prng_dparam_reduce",
+               "k_prng_nkl", "k_prng_nkl_reduce")
 # the LeNet sub-kernels redesigned for the card (the convs, conv2's backward
 # and weight gradient and ū from shared-memory tiles; the fc GEMM)
 LENET_NO_SPILL = ("k_conv1", "k_conv2", "k_conv2_back", "k_conv2_wpart", "k_ubar_part",
                   "k_ubar_sum", "k_gemm")
 # the dense kernels redesigned for the card (a cluster, the per-parameter sums
 # spread over threads), which must build with no spills
-NESTED_NO_SPILL = ("nested_fwd_kernel", "nested_rev_kernel")
+NESTED_NO_SPILL = ("nested_fwd_kernel", "nested_outer_kernel", "nested_rev_kernel")
 
 
 _T0 = time.perf_counter()
@@ -380,9 +388,10 @@ def check_kernels(FN, chk, name, cfg, a):
         "n": chk.grad(fwd, "n", h_k[:, 2], h_t[:, 2]),
         "cw": chk.allclose(fwd, "cw", cw_k, cw_t, RTOL_LOSS),
     }
-    # nested_outer on the plain version's paramsT and core weights
+    # nested_outer on the plain version's paramsT and core weights, and a rerun
     pT = h_t[cfg.T, 0].contiguous()
     o_k = FN._nested_outer_cuda(pT, u, z, cw_t, xb, yb, e_out, cfg)
+    same_bits(FN._nested_outer_cuda(pT, u, z, cw_t, xb, yb, e_out, cfg), o_k, outer)
     o_t = FN.nested_outer_torch(pT, u, z, cw_t, xb, yb, e_out, cfg)
     torch.cuda.synchronize()
     rep["outer"] = {
@@ -425,11 +434,11 @@ def check_kernels(FN, chk, name, cfg, a):
 
 
 def nested_plans(FN, cfg):
-    """The launch plans of nested_fwd and nested_rev at ``cfg``
+    """The launch plans of the three dense kernels at ``cfg``
     (``_nested_plan``): the cluster's blocks C, the samples a block holds at
     most, and whether the maps lie in shared memory."""
     out = {}
-    for kernel in ("nested_fwd", "nested_rev"):
+    for kernel in ("nested_fwd", "nested_outer", "nested_rev"):
         p = FN._nested_plan(cfg, kernel)
         out[kernel] = {"blocks": p.blocks, "samples_per_block": p.samples_per_block,
                        "maps": "shared" if p.shared else "global", "smem_bytes": p.smem_bytes}
@@ -729,6 +738,12 @@ def nkl_call(SLP, p, seed, S):
             lambda: SLP.vi_linear_nkl_prng_reference(*p, seed, S))
 
 
+def nkl_plan(SLP, S, Din, Dout):
+    """B4d's grid (``_nkl_plan``): element tiles, sample groups, samples a
+    group."""
+    return dict(zip(("tiles", "groups", "samples_per_group"), SLP._nkl_plan(S, Din, Dout)))
+
+
 def check_against_plain(chk, name, label, kern, plain):
     """One kernel against its plain version at REL_B3 on every output, and a
     rerun bit for bit. Returns max |Δ|/max |ref| over the outputs."""
@@ -879,7 +894,7 @@ def check_sampled_linear_prng(SLP, SL, VILinear, softplus, mnist, chk, dev):
     """Kernel B4 on the card: the generator's bits; ε as the kernels see it
     (W_s and b_s recovered from B4a at x = I and x = 0, against the plain
     ε); each kernel against its plain version and a rerun at SLP_SHAPES and
-    NKL_SHAPES; the statistical tests; the composed stack. Returns B4's
+    NKL_CHECK_SHAPES; the statistical tests; the composed stack. Returns B4's
     launches in the composed step."""
     rep = {"phase": "sampled_linear_prng", "gate_rel": REL_B3,
            "bits": philox_bits_check(SLP, dev), "eps": {}, "shapes": {}, "nkl": {}}
@@ -905,10 +920,11 @@ def check_sampled_linear_prng(SLP, SL, VILinear, softplus, mnist, chk, dev):
             "prng_dparam": SLP._dparam_plan(S, N, Din, Dout)}, **{
             name: check_against_plain(chk, name, label, kern, plain)
             for name, (kern, plain) in slp_calls(SLP, a, g, -seed).items()}}
-    for seed, (label, S, Din, Dout) in enumerate(NKL_SHAPES):
+    for seed, (label, S, Din, Dout) in enumerate(NKL_CHECK_SHAPES):
         p = sl_inputs(1, 1, Din, Dout, 600 + seed, dev)[1:5]
-        rep["nkl"][label] = {"S": S, "Din": Din, "Dout": Dout, "rel": check_against_plain(
-            chk, "prng_nkl", label, *nkl_call(SLP, p, 2**40 + seed, S))}
+        rep["nkl"][label] = {"S": S, "Din": Din, "Dout": Dout, "plan": nkl_plan(SLP, S, Din, Dout),
+                             "rel": check_against_plain(chk, "prng_nkl", label,
+                                                        *nkl_call(SLP, p, 2**40 + seed, S))}
     rep["statistics"] = prng_statistics(SLP, VILinear, dev)
     rep["composed"], launches = composed_prng_check(SLP, SL, VILinear, mnist, dev)
     emit(rep)
@@ -1464,7 +1480,8 @@ def main() -> int:
                 f"prng_nkl_{label}", SLP_SOURCE, SLP_REPLACES["prng_nkl"],
                 *nkl_call(SLP, p, 301, S), None, *slp_work("prng_nkl", S, 1, Din, Dout),
                 launches_b4["prng_nkl"], chk, "prng_nkl", library=None,
-                shape=f"S={S} {Din}->{Dout}", launches_of=b4_of))
+                shape=f"S={S} {Din}->{Dout}", launches_of=b4_of,
+                plan=nkl_plan(SLP, S, Din, Dout)))
     # whole engine steps on the same card: fused kernels vs plain autograd
     steps = {}
     for key, e, data, kw in (("nested", eng, blobs, main_kw), ("regressor", eng_r, sinus, reg_kw)):

@@ -40,13 +40,17 @@
 // in global memory, 72 % of nested_fwd and 79 % of nested_rev went to the
 // per-parameter sums over (sample, point): one thread walked all S·M pairs
 // for a parameter, each step a trip to L2. Most of the rest went to the
-// layer passes over the same maps in L2; a barrier cost under a µs.
+// layer passes over the same maps in L2; a barrier cost under a µs. The
+// same design of nested_outer spent 58 % of its 0.376 ms at four_blobs
+// (M + B = 176 points) in p̄_T's one-thread S·(M+B) sums and 33 % in the
+// forward and backward over maps in L2.
 //
-// What the design does about it. nested_fwd and nested_rev each launch once
-// per outer step as a thread block cluster of C <= 8 blocks (_nested_plan in
+// What the design does about it. Each kernel launches once per outer step
+// as a thread block cluster of C <= 8 blocks (_nested_plan in
 // ../fused_nested.py: C, the samples a block holds, where the maps live).
 // - Block r holds samples [r·S/C, (r+1)·S/C): their θ_s (and θ̇_s), their
-//   maps z, δ (and ż, δ̇) at the inner points and their per-sample partial
+//   maps z, δ (and ż, δ̇) at the inner points (nested_outer: the M + B
+//   points of u and the minibatch) and their per-sample partial
 //   sums, in dynamic shared memory where they fit (227 KB), else in the
 //   global scratch the wrapper allocates; the same code reads either through
 //   generic pointers. Sampling, the layer passes, the head and the per-sample
@@ -54,13 +58,19 @@
 //   none spills), a thread an output, separated by __syncthreads(). So a
 //   sample's passes run on an SM of their own.
 // - The per-sample sums (G_s = Σ_pt δ·a of every weight and bias with
-//   G_s·ε_s, their tangents, the per-sample ū) are spread a thread a
-//   (sample, parameter), each over the points in order.
+//   G_s·ε_s, their tangents, the per-sample ū; nested_outer's NLLs, NKL and
+//   p̄_T terms) are spread a thread a (sample, parameter), each over the
+//   points in order.
 // - Block r owns a slice of the parameters (and of ū's, c̄w's and z̄'s
 //   entries): it adds the S per-sample partials in sample order, reading the
 //   other blocks' shared memory (distributed shared memory), a lane a sample
-//   and all in one round, then runs Adam (nested_fwd) or the Adam VJP and p̄'s update
-//   (nested_rev) for its slice and writes its slice of the history.
+//   and all in one round, then runs Adam (nested_fwd) or the Adam VJP and p̄'s
+//   update (nested_rev) for its slice and writes its slice of the history;
+//   nested_outer's owners write their slices of p̄_T, ū, c̄w (the NLL centred
+//   over the samples) and z̄. Between its two phases every block reads the S
+//   samples' (pseudo, data, NKL) sums and works out the IW coefficients in
+//   one thread, in sample order, with d centred in two passes: the same bits
+//   in every block.
 //   cluster.sync() separates the phases that need every sample; p_t and ḡ_t
 //   cross in global memory, read after the cluster barrier's release/acquire
 //   with ld.global.cg. Adam's bias corrections (double pow) are worked out
@@ -76,14 +86,15 @@
 //   run-time layer reads the parameter bank, with no copy to a local stack.
 // What is left an iteration is the layer passes of a block's samples (an
 // instruction-bound thread an output, index arithmetic included), the
-// owners' sums, and two (nested_fwd) or three (nested_rev) cluster barriers.
-// nested_outer is still one block of 1024 threads over maps in global memory.
+// owners' sums, and two (nested_fwd) or three (nested_rev) cluster barriers;
+// nested_outer has three barriers in its one pass.
 //
 // Layouts: params flat, per layer [mu_w (o,i) | rho_w (o,i) | mu_b (o) |
 // rho_b (o)]; a noise draw flat, per layer [w (S,o,i) | b (S,o)]; one
 // sample's θ, and any per-parameter per-sample array, per layer [w (o,i) |
 // b (o)] (its element index q = qoff[l] + j); one sample's maps per layer
-// (M, o); nested_outer's θ and maps as the noise draw and (S, NP, o).
+// (NP, o): NP = M (nested_fwd, nested_rev) or M + B (nested_outer: u's rows,
+// then the minibatch's).
 //
 // Each C entry launches one kernel on the given stream, allocates nothing,
 // and returns the launch's error code.
@@ -96,13 +107,13 @@ namespace cg = cooperative_groups;
 
 #define MAXL 8
 #define MAXS 32
-#define NTHREADS 1024     // nested_outer's block
+#define OUTER_THREADS 1024  // a block of nested_outer's cluster
 #define FWD_THREADS 1024  // a block of nested_fwd's cluster
 // a block of nested_rev's cluster: it takes about 106 registers a thread,
 // and at 1024 threads (64 registers each) it spills
 #define REV_THREADS 512
 #define MAX_CLUSTER 8     // the portable cluster size
-// dynamic shared memory a block of nested_fwd/nested_rev may take: the
+// dynamic shared memory a block of a kernel's cluster may take: the
 // card's 232,448 bytes a block less room for the static arrays
 #define SMEM_CAP (232448 - 1024)
 
@@ -112,7 +123,6 @@ struct Net {
   int in[MAXL], out[MAXL];
   int poff[MAXL];  // layer offset in the flat parameter vector
   int eoff[MAXL];  // layer offset in a flat noise draw / θ
-  int zoff[MAXL];  // layer offset in the activation buffers
   int qoff[MAXL];  // layer offset in one sample's θ (element index)
   int cumo[MAXL];  // units before layer l: layer offset in one point's maps
   int P, E, nE, U;  // nE = E / S elements a sample, U = Σ out units a point
@@ -121,7 +131,7 @@ struct Net {
   double b1, b2;
 };
 
-// The launch plan of nested_fwd/nested_rev (_nested_plan): C blocks in one
+// The launch plan of a kernel (_nested_plan): C blocks in one
 // cluster, spb = ⌈S/C⌉ the most samples a block holds, the maps in shared
 // memory or not, and the dynamic shared bytes a block.
 struct Plan {
@@ -213,53 +223,6 @@ __device__ float block_max(float v, float* sh) {
   return sh[32];
 }
 
-// Input of layer l at (sample s, point pt, feature k): the data point for
-// l = 0 (u rows first, then minibatch rows), relu(z^{l-1}) otherwise.
-__device__ __forceinline__ float act_in(const Net& n, int l, int s, int pt, int k,
-                                        const float* X0, const float* X1, const float* z) {
-  if (l == 0) return pt < n.M ? X0[pt * n.in[0] + k] : X1[(pt - n.M) * n.in[0] + k];
-  const float a = z[n.zoff[l - 1] + (s * n.NP + pt) * n.in[l] + k];
-  return a > 0.f ? a : 0.f;
-}
-
-// θ = μ + softplus(ρ)·ε for every layer and sample.
-__device__ void sample_theta(const Net& n, const float* p, const float* eps, float* theta) {
-  for (int l = 0; l < n.L; ++l) {
-    const int o = n.out[l], nw = o * n.in[l];
-    const float* pl = p + n.poff[l];
-    const float* el = eps + n.eoff[l];
-    float* tl = theta + n.eoff[l];
-    for (int j = threadIdx.x; j < n.S * nw; j += blockDim.x) {
-      const int k = j % nw;
-      tl[j] = pl[k] + softplus_f(pl[nw + k]) * el[j];
-    }
-    for (int j = threadIdx.x; j < n.S * o; j += blockDim.x) {
-      const int k = j % o;
-      tl[n.S * nw + j] = pl[2 * nw + k] + softplus_f(pl[2 * nw + o + k]) * el[n.S * nw + j];
-    }
-  }
-  __syncthreads();
-}
-
-// z^l[s,pt,:] = a^{l-1}[s,pt,:]·W_sᵀ + b_s, layer by layer.
-__device__ void forward(const Net& n, const float* theta, const float* X0, const float* X1,
-                        float* z) {
-  for (int l = 0; l < n.L; ++l) {
-    const int i = n.in[l], o = n.out[l];
-    const float* W = theta + n.eoff[l];
-    const float* bb = W + n.S * o * i;
-    const int tot = n.S * n.NP * o;
-    for (int idx = threadIdx.x; idx < tot; idx += blockDim.x) {
-      const int oo = idx % o, sp = idx / o, pt = sp % n.NP, s = sp / n.NP;
-      const float* w = W + (s * o + oo) * i;
-      float acc = 0.f;
-      for (int k = 0; k < i; ++k) acc = fmaf(act_in(n, l, s, pt, k, X0, X1, z), w[k], acc);
-      z[n.zoff[l] + idx] = acc + bb[s * o + oo];
-    }
-    __syncthreads();
-  }
-}
-
 __device__ __forceinline__ float log_sum_exp(const float* Z, int nc) {
   float mx = Z[0];
   for (int c = 1; c < nc; ++c) mx = fmaxf(mx, Z[c]);
@@ -306,79 +269,14 @@ __device__ __forceinline__ float head_tangent(const Net& n, const float* Z, cons
   return nd;
 }
 
-// g_z[m] −= Σ_s δ^L[s, m] over the first M points of a head δ (Gaussian
-// only: the targets carry no cotangent otherwise).
-__device__ void zbar_from_head(const Net& n, const float* delta, float* g_z) {
-  if (!n.gaussian) return;
-  for (int m = threadIdx.x; m < n.M; m += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < n.S; ++s) acc += delta[n.zoff[n.L - 1] + s * n.NP + m];
-    g_z[m] -= acc;
-  }
-}
-
-// δ^{l-1} = (δ^l·W_s) ⊙ 1[z^{l-1} > 0], for l = L-1..1. dd/thetad non-null
-// selects the tangent: δ̇^{l-1} = (δ̇^l·W + δ^l·Ẇ) ⊙ 1[z^{l-1} > 0].
-__device__ void backward(const Net& n, const float* theta, const float* z, float* delta,
-                         const float* thetad, float* dd) {
-  for (int l = n.L - 1; l >= 1; --l) {
-    const int i = n.in[l], o = n.out[l];
-    const float* W = theta + n.eoff[l];
-    const float* Wd = thetad ? thetad + n.eoff[l] : nullptr;
-    const int tot = n.S * n.NP * i;
-    for (int idx = threadIdx.x; idx < tot; idx += blockDim.x) {
-      const int k = idx % i, sp = idx / i, s = sp / n.NP;
-      const float* d = delta + n.zoff[l] + sp * o;
-      const float* w = W + s * o * i + k;
-      float acc = 0.f;
-      if (dd) {
-        const float* ddl = dd + n.zoff[l] + sp * o;
-        const float* wd = Wd + s * o * i + k;
-        for (int oo = 0; oo < o; ++oo) {
-          acc = fmaf(ddl[oo], w[oo * i], acc);
-          acc = fmaf(d[oo], wd[oo * i], acc);
-        }
-        dd[n.zoff[l - 1] + idx] = z[n.zoff[l - 1] + idx] > 0.f ? acc : 0.f;
-      } else {
-        for (int oo = 0; oo < o; ++oo) acc = fmaf(d[oo], w[oo * i], acc);
-        delta[n.zoff[l - 1] + idx] = z[n.zoff[l - 1] + idx] > 0.f ? acc : 0.f;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Σ_pt δ^l[s,pt,oo]·a^{l-1}[s,pt,k] (k < 0: the bias, Σ_pt δ).
-__device__ __forceinline__ float grad_sample(const Net& n, int l, int s, int oo, int k,
-                                             const float* delta, const float* z,
-                                             const float* X0, const float* X1) {
-  const int o = n.out[l];
-  const float* d = delta + n.zoff[l] + s * n.NP * o + oo;
-  float acc = 0.f;
-  if (k < 0) {
-    for (int pt = 0; pt < n.NP; ++pt) acc += d[pt * o];
-  } else {
-    for (int pt = 0; pt < n.NP; ++pt)
-      acc = fmaf(d[pt * o], act_in(n, l, s, pt, k, X0, X1, z), acc);
-  }
-  return acc;
-}
-
-// Element j of layer l's weight+bias block: indices of μ and ρ in the
-// layer's parameters, of sample s's noise, and the (unit, feature) pair.
+// Element j of layer l's weight+bias block (weights, then biases): the
+// indices of its μ and ρ in the layer's parameters.
 struct Elem {
-  int jm, jr, oo, k;
+  int jm, jr;
   __device__ Elem(const Net& n, int l, int j) {
-    const int o = n.out[l], nw = o * n.in[l];
-    if (j < nw) {
-      jm = j; jr = nw + j; oo = j / n.in[l]; k = j % n.in[l];
-    } else {
-      jm = 2 * nw + (j - nw); jr = 2 * nw + o + (j - nw); oo = j - nw; k = -1;
-    }
-  }
-  __device__ int eidx(const Net& n, int l, int s) const {
-    const int o = n.out[l], nw = o * n.in[l];
-    return k >= 0 ? s * nw + oo * n.in[l] + k : n.S * nw + s * o + oo;
+    const int nw = n.out[l] * n.in[l];
+    jm = j < nw ? j : nw + j;
+    jr = j < nw ? nw + j : nw + n.out[l] + j;
   }
 };
 
@@ -492,11 +390,12 @@ __device__ __forceinline__ void blk_sample(const Net& n, const Ctx& c, const flo
   __syncthreads();
 }
 
-// z^l_i[pt,:] = a^{l-1}_i[pt,:]·W_iᵀ + b_i layer by layer (a^{-1} = u), a
-// thread an output.
+// z^l_i[pt,:] = a^{l-1}_i[pt,:]·W_iᵀ + b_i layer by layer, a thread an
+// output, over the NP points: the inner kernels' M points of u, or
+// nested_outer's M points of u and then the B rows of xb.
 __device__ __forceinline__ void blk_forward(const Net& n, const Ctx& c, const float* u,
-                                            const Slot& TH, const Slot& Z) {
-  const int M = n.M;
+                                            const float* xb, const Slot& TH, const Slot& Z) {
+  const int M = n.NP;
   for (int l = 0; l < n.L; ++l) {
     const int in = n.in[l], o = n.out[l], per = M * o;
     for (int idx = threadIdx.x; idx < c.ns * per; idx += blockDim.x) {
@@ -506,7 +405,7 @@ __device__ __forceinline__ void blk_forward(const Net& n, const Ctx& c, const fl
       float* z = c.mine(Z, i);
       float acc = 0.f;
       if (l == 0) {
-        const float* a = u + pt * in;
+        const float* a = pt < n.M ? u + pt * in : xb + (pt - n.M) * in;
         for (int k = 0; k < in; ++k) acc = fmaf(a[k], w[k], acc);
       } else {
         const float* a = z + M * n.cumo[l - 1] + pt * in;
@@ -569,12 +468,12 @@ __device__ __forceinline__ float blk_head(const Net& n, const Ctx& c, const void
 }
 
 // δ^{l-1}_i = (δ^l_i·W_i) ⊙ 1[z^{l-1}_i > 0] for l = L-1..1, a thread an
-// output; with THD and DD the tangent δ̇^{l-1} = (δ̇^l·W + δ^l·Ẇ) ⊙ 1[z > 0]
-// into DD instead.
+// output, over the NP points; with THD and DD the tangent δ̇^{l-1} =
+// (δ̇^l·W + δ^l·Ẇ) ⊙ 1[z > 0] into DD instead.
 __device__ __forceinline__ void blk_backward(const Net& n, const Ctx& c, const Slot& TH,
                                              const Slot& Z, const Slot& DL, const Slot* THD,
                                              const Slot* DD) {
-  const int M = n.M;
+  const int M = n.NP;
   for (int l = n.L - 1; l >= 1; --l) {
     const int in = n.in[l], o = n.out[l], per = M * in;
     for (int idx = threadIdx.x; idx < c.ns * per; idx += blockDim.x) {
@@ -806,7 +705,7 @@ nested_fwd_kernel(const __grid_constant__ Net n, const __grid_constant__ Plan pl
     const float* et = eps + (t - 1) * n.E;
     blk_sample(n, c, p, nullptr, et, TH);
     PHASE(2);
-    blk_forward(n, c, u, TH, Z);
+    blk_forward(n, c, u, u, TH, Z);
     PHASE(3);
     float part = blk_head(n, c, y, cws, Z, DL);
     PHASE(4);
@@ -860,59 +759,84 @@ nested_fwd_kernel(const __grid_constant__ Net n, const __grid_constant__ Plan pl
   PHASE_END;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-nested_outer_kernel(Net n, const float* __restrict__ pT, const float* __restrict__ u,
-                    const void* __restrict__ y, const float* __restrict__ cw,
-                    const float* __restrict__ xb, const void* __restrict__ yb,
-                    const float* __restrict__ eps, float* loss, float* pbar, float* ubar,
-                    float* cwbar, float* zbar, float* theta, float* z, float* delta,
-                    float* nll) {
-  __shared__ float sh_ps[MAXS], sh_da[MAXS], sh_nk[MAXS];
-  __shared__ float c_ps[MAXS], c_da[MAXS], c_nk[MAXS];
-  const int S = n.S, M = n.M, NP = n.NP, nc = n.out[n.L - 1];
-  const float sp = n.prior_sd;
-  const float hl2pi = 0.91893853320467274178f;  // ½·log 2π
-  sample_theta(n, pT, eps, theta);
-  forward(n, theta, u, xb, z);
-  for (int idx = threadIdx.x; idx < S * NP; idx += blockDim.x) {
-    const int pt = idx % NP;
-    const float* Z = z + n.zoff[n.L - 1] + idx * nc;
-    nll[idx] = pt < M ? head(n, Z, y, pt, 0.f, nullptr) : head(n, Z, yb, pt - M, 0.f, nullptr);
-  }
-  __syncthreads();
-  // per-sample pseudo NLL, data NLL and log p(θ_s) − log q(θ_s): a warp each
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
-  for (int s = wid; s < S; s += nwarp) {
-    float ps = 0.f, da = 0.f, nk = 0.f;
-    for (int pt = lane; pt < NP; pt += 32) {
-      const float x = nll[s * NP + pt];
-      if (pt < M) ps = fmaf(cw[pt], x, ps);
-      else da += x;
-    }
-    for (int l = 0; l < n.L; ++l) {
-      const int o = n.out[l], nw = o * n.in[l];
-      const float* pl = pT + n.poff[l];
-      const float* tl = theta + n.eoff[l];
-      for (int j = lane; j < nw + o; j += 32) {
-        const Elem e(n, l, j);
-        const float th = tl[e.eidx(n, l, s)];
-        const float mu = pl[e.jm], sd = softplus_f(pl[e.jr]);
-        const float a = th / sp, r = (th - mu) / sd;
-        nk += (-0.5f * a * a - logf(sp) - hl2pi) - (-0.5f * r * r - logf(sd) - hl2pi);
+// ---------------------------------------------------------------------------
+// nested_outer: a cluster of blocks, each over its own samples, one pass
+
+// Each own sample's NLL at every point (the pseudo points' into NL), and its
+// three per-sample sums into SC: the pseudo NLL Σ_m cw_m·NLL, the data NLL
+// N/B·Σ_b NLL and log p(θ) − log q(θ) over its nE elements. The block's warps
+// are dealt to its samples, ⌊32/ns⌋ each; a warp's lanes take the points and
+// the elements in a fixed stride, the warp adds its lanes by shuffles, and
+// thread i adds sample i's warps in order. red holds ≥ 96 floats.
+__device__ __forceinline__ void outer_nll_sums(const Net& n, const Ctx& c, const float* pT,
+                                               const float* cw, const void* y, const void* yb,
+                                               const Slot& TH, const Slot& Z, const Slot& NL,
+                                               const Slot& SC, float* red) {
+  const float sp = n.prior_sd, hl2pi = 0.91893853320467274178f;  // ½·log 2π
+  const int M = n.M, NP = n.NP, nc = n.out[n.L - 1], top = NP * n.cumo[n.L - 1];
+  const int lane = threadIdx.x & 31, nw = (blockDim.x >> 5) / c.ns;
+  const int i = (threadIdx.x >> 5) / nw, wi = (threadIdx.x >> 5) - i * nw;
+  float ps = 0.f, da = 0.f, nk = 0.f;
+  if (i < c.ns) {
+    const float* Z0 = c.mine(Z, i) + top;
+    for (int pt = wi * 32 + lane; pt < NP; pt += nw * 32) {
+      if (pt < M) {
+        const float x = head(n, Z0 + pt * nc, y, pt, 0.f, nullptr);
+        c.mine(NL, i)[pt] = x;
+        ps = fmaf(cw[pt], x, ps);
+      } else {
+        da += head(n, Z0 + pt * nc, yb, pt - M, 0.f, nullptr);
       }
     }
-    ps = warp_sum(ps);
-    da = warp_sum(da);
-    nk = warp_sum(nk);
-    if (lane == 0) {
-      sh_ps[s] = ps;
-      sh_da[s] = n.NB * da;
-      sh_nk[s] = nk;
+    const float* th = c.mine(TH, i);
+    for (int q = wi * 32 + lane; q < n.nE; q += nw * 32) {
+      const int l = layer_of(n, q);
+      const Elem e(n, l, q - n.qoff[l]);
+      const float* pl = pT + n.poff[l];
+      const float mu = pl[e.jm], sd = softplus_f(pl[e.jr]);
+      const float a = th[q] / sp, r = (th[q] - mu) / sd;
+      nk += (-0.5f * a * a - logf(sp) - hl2pi) - (-0.5f * r * r - logf(sd) - hl2pi);
     }
+  }
+  ps = warp_sum(ps);
+  da = warp_sum(da);
+  nk = warp_sum(nk);
+  if (lane == 0 && i < c.ns) {
+    float* rw = red + 3 * (i * nw + wi);
+    rw[0] = ps;
+    rw[1] = da;
+    rw[2] = nk;
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < c.ns) {
+    float sum[3] = {0.f, 0.f, 0.f};
+    for (int w = 0; w < nw; ++w)
+      for (int k = 0; k < 3; ++k) sum[k] += red[3 * (threadIdx.x * nw + w) + k];
+    float* sc = c.mine(SC, threadIdx.x);
+    sc[0] = sum[0];
+    sc[1] = n.NB * sum[1];
+    sc[2] = sum[2];
+  }
+}
+
+// The self-normalised IW weights of the S samples, the loss (block 0 writes
+// it) and ∂loss/∂{pseudo, data, nkl} of each sample into cf = [c_ps | c_da |
+// c_nk] (MAXS each): thread s < S reads sample s's sums into tr = [pseudo |
+// data | nkl], then thread 0 works them out in sample order, the same bits
+// in every block. Ends with a barrier.
+__device__ __forceinline__ void outer_coefficients(const Net& n, const Ctx& c, const Slot& SC,
+                                                   float* tr, float* cf, float* loss, int r) {
+  const int S = n.S;
+  float *sh_ps = tr, *sh_da = tr + MAXS, *sh_nk = tr + 2 * MAXS;
+  float *c_ps = cf, *c_da = cf + MAXS, *c_nk = cf + 2 * MAXS;
+  if ((int)threadIdx.x < S) {
+    const int s = threadIdx.x;
+    sh_ps[s] = c.peer(SC, s, 0);
+    sh_da[s] = c.peer(SC, s, 1);
+    sh_nk[s] = c.peer(SC, s, 2);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    // self-normalized IW weights, the loss and ∂loss/∂{pseudo, data, nkl}
     float mx = -INFINITY, mean_lw = 0.f;
     for (int s = 0; s < S; ++s) {
       const float lw = -sh_ps[s] + sh_nk[s];
@@ -936,70 +860,199 @@ nested_outer_kernel(Net n, const float* __restrict__ pT, const float* __restrict
       c_nk[s] = q;
       c_ps[s] = -c_da[s] - q;
     }
-    loss[0] = dref + dcbar - mean_lw;
+    if (r == 0) loss[0] = dref + dcbar - mean_lw;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < S * NP; idx += blockDim.x) {
-    const int s = idx / NP, pt = idx % NP;
-    const float* Z = z + n.zoff[n.L - 1] + idx * nc;
-    float* d = delta + n.zoff[n.L - 1] + idx * nc;
-    if (pt < M) head(n, Z, y, pt, c_ps[s] * cw[pt], d);
-    else head(n, Z, yb, pt - M, c_da[s] * n.NB, d);
+}
+
+// The head's δ of each own sample at every point: c_ps·cw_m·∂NLL/∂Z at the
+// pseudo points, c_da·N/B·∂NLL/∂Z at the minibatch rows.
+__device__ __forceinline__ void outer_head(const Net& n, const Ctx& c, const float* cw,
+                                           const void* y, const void* yb, const float* cf,
+                                           const Slot& Z, const Slot& DL) {
+  const int M = n.M, NP = n.NP, nc = n.out[n.L - 1], top = NP * n.cumo[n.L - 1];
+  for (int idx = threadIdx.x; idx < c.ns * NP; idx += blockDim.x) {
+    const int i = idx / NP, pt = idx - i * NP, s = c.s0 + i, q = top + pt * nc;
+    const float* Zp = c.mine(Z, i) + q;
+    float* d = c.mine(DL, i) + q;
+    if (pt < M) head(n, Zp, y, pt, cf[s] * cw[pt], d);
+    else head(n, Zp, yb, pt - M, cf[MAXS + s] * n.NB, d);
   }
-  // c̄w = Σ_s c_ps·NLL with the NLL centred over the samples: the c_ps sum
-  // to zero, so the value is the same, but the part of the NLL that all
-  // samples share (for a Gaussian head most of it, the log-normaliser) no
-  // longer cancels in fp32
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    float mean = 0.f;
-    for (int s = 0; s < S; ++s) mean += nll[s * NP + m];
+  __syncthreads();
+}
+
+// Each own sample's p̄_T partials and ū, one work list over the layers, a
+// thread an item (at the main paths every item has a thread of its own).
+// Element q of layer l: G = Σ_pt δ^l[pt,oo]·a^{l-1}[pt,k] over the NP points
+// in order (the bias: Σ_pt δ), then with the NKL's terms, thb = G +
+// c_nk·(−θ/σ_p² + r/σ), r = (θ − μ)/σ, the μ part thb − c_nk·r/σ into
+// X_i[q] and the σ part ε·thb + c_nk·(1 − r²)/σ into X_i[nE + q]. Item nE +
+// m·D + k: ū_i[m,k] = Σ_oo δ^0_i[m,oo]·W0_i[oo,k] into US. A cluster barrier
+// follows it.
+__device__ __forceinline__ void outer_sample_sums(const Net& n, const Ctx& c, const float* pT,
+                                                  const float* u, const float* xb,
+                                                  const float* eps, const float* c_nk,
+                                                  const Slot& TH, const Slot& Z, const Slot& DL,
+                                                  const Slot& X, const Slot& US) {
+  const int M = n.M, NP = n.NP, nE = n.nE, D = n.in[0], per = nE + M * D;
+  for (int idx = threadIdx.x; idx < c.ns * per; idx += blockDim.x) {
+    const int i = idx / per, q = idx - i * per, s = c.s0 + i;
+    const float* th = c.mine(TH, i);
+    if (q >= nE) {
+      const int r = q - nE, m = r / D, k = r - m * D, o = n.out[0];
+      const float* d = c.mine(DL, i) + m * o;
+      float acc = 0.f;
+      for (int oo = 0; oo < o; ++oo) acc = fmaf(d[oo], th[oo * D + k], acc);
+      c.mine(US, i)[r] = acc;
+      continue;
+    }
+    const int l = layer_of(n, q), j = q - n.qoff[l];
+    const int in = n.in[l], o = n.out[l], nw = o * in;
+    const int oo = j < nw ? j / in : j - nw, k = j - oo * in;
+    const float* d = c.mine(DL, i) + NP * n.cumo[l] + oo;
+    float acc = 0.f;
+    if (j >= nw) {
+      for (int pt = 0; pt < NP; ++pt) acc += d[pt * o];
+    } else if (l == 0) {
+      for (int pt = 0; pt < M; ++pt) acc = fmaf(d[pt * o], u[pt * in + k], acc);
+      for (int pt = M; pt < NP; ++pt) acc = fmaf(d[pt * o], xb[(pt - M) * in + k], acc);
+    } else {
+      const float* a = c.mine(Z, i) + NP * n.cumo[l - 1] + k;
+      for (int pt = 0; pt < NP; ++pt) {
+        const float x = a[pt * in];
+        acc = fmaf(d[pt * o], x > 0.f ? x : 0.f, acc);
+      }
+    }
+    const float* pl = pT + n.poff[l];
+    const Elem e(n, l, j);
+    const float mu = pl[e.jm], sd = softplus_f(pl[e.jr]);
+    const float r = (th[q] - mu) / sd, cn = c_nk[s];
+    const float thb = acc + cn * (-th[q] * n.sp2inv + r / sd);
+    float* x = c.mine(X, i) + q;
+    x[0] = thb - cn * r / sd;
+    x[nE] = eps_of(n, eps, l, j, s) * thb + cn * (1.f - r * r) / sd;
+  }
+}
+
+// The owned slice [mlo, mhi) of c̄w and z̄: c̄w_m = Σ_s c_ps·(NLL_s − mean_s
+// NLL), the NLL centred over the samples (the c_ps sum to zero, so the value
+// is the same, but the part of the NLL that all samples share — for a
+// Gaussian head most of it, the log-normaliser — no longer cancels in fp32),
+// and under the Gaussian head z̄_m = −Σ_s δ^L[s, m] (zeros for class labels).
+// by_groups' lanes: lane k of a group loads sample k's NLL and δ, the group
+// adds them in sample order with shuffles.
+__device__ __forceinline__ void outer_cwbar_zbar(const Net& n, const Ctx& c, const float* c_ps,
+                                                 const Slot& NL, const Slot& DL, int mlo, int mhi,
+                                                 float* cwbar, float* zbar) {
+  const int S = n.S, G = 32 / S, lane = threadIdx.x & 31, grp = lane / S, k = lane - grp * S;
+  const int src0 = (grp < G ? grp : 0) * S, top = n.NP * n.cumo[n.L - 1];
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5, count = mhi - mlo;
+  for (int w0 = warp * G; w0 < count; w0 += nwarps * G) {
+    const int m = mlo + w0 + grp;
+    const bool on = grp < G && w0 + grp < count;
+    float x = 0.f, xd = 0.f;
+    if (on) {
+      x = c.peer(NL, k, m);
+      if (n.gaussian) xd = c.peer(DL, k, top + m);
+    }
+    float mean = 0.f, zs = 0.f;
+    for (int s = 0; s < S; ++s) {
+      mean += __shfl_sync(0xffffffffu, x, src0 + s);
+      zs += __shfl_sync(0xffffffffu, xd, src0 + s);
+    }
     mean /= S;
     float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc = fmaf(c_ps[s], nll[s * NP + m] - mean, acc);
-    cwbar[m] = acc;
-    zbar[m] = 0.f;
-  }
-  __syncthreads();
-  zbar_from_head(n, delta, zbar);  // the head δ is final: backward writes below it
-  backward(n, theta, z, delta, nullptr, nullptr);
-  // p̄_T: likelihood terms through θ plus the NKL terms
-  for (int l = 0; l < n.L; ++l) {
-    const int o = n.out[l], nw = o * n.in[l];
-    const float* pl = pT + n.poff[l];
-    const float* el = eps + n.eoff[l];
-    const float* tl = theta + n.eoff[l];
-    for (int j = threadIdx.x; j < nw + o; j += blockDim.x) {
-      const Elem e(n, l, j);
-      const float mu = pl[e.jm], rho = pl[e.jr];
-      const float sd = softplus_f(rho);
-      float mub = 0.f, sdb = 0.f;
-      for (int s = 0; s < S; ++s) {
-        const int q = e.eidx(n, l, s);
-        const float g = grad_sample(n, l, s, e.oo, e.k, delta, z, u, xb);
-        const float th = tl[q], r = (th - mu) / sd, c = c_nk[s];
-        const float thb = g + c * (-th * n.sp2inv + r / sd);
-        mub += thb - c * r / sd;
-        sdb += el[q] * thb + c * (1.f - r * r) / sd;
-      }
-      pbar[n.poff[l] + e.jm] = mub;
-      pbar[n.poff[l] + e.jr] = sdb * sigmoid_f(rho);
+    for (int s = 0; s < S; ++s) {
+      acc = fmaf(c_ps[s], __shfl_sync(0xffffffffu, x, src0 + s) - mean, acc);
+    }
+    if (on && k == 0) {
+      cwbar[m] = acc;
+      zbar[m] = n.gaussian ? -zs : 0.f;
     }
   }
-  // direct ū = Σ_s δ^0[s, m, :]·W0_s
-  {
-    const int D = n.in[0], o = n.out[0];
-    const float* W = theta + n.eoff[0];
-    for (int idx = threadIdx.x; idx < M * D; idx += blockDim.x) {
-      const int m = idx / D, k = idx % D;
-      float acc = 0.f;
-      for (int s = 0; s < S; ++s) {
-        const float* d = delta + n.zoff[0] + (s * NP + m) * o;
-        const float* w = W + s * o * D + k;
-        for (int oo = 0; oo < o; ++oo) acc = fmaf(d[oo], w[oo * D], acc);
-      }
-      ubar[idx] = acc;
-    }
-  }
+}
+
+// nested_outer. Shared memory, with the maps there: spb copies each of θ
+// (nE), z and δ over the NP = M + B points (NP·U), the p̄_T partials (2·nE),
+// ū_i (M·D), the pseudo NLLs (M) and the per-sample sums (4). Global mode:
+// θ, z, δ at theta, z, delta, and the partials, ū_i, NLLs and sums at xg, S
+// copies each. Block r owns slices of p̄_T's elements, of ū and of c̄w, z̄:
+// it adds the S samples' partials in sample order.
+__global__ void __launch_bounds__(OUTER_THREADS)
+nested_outer_kernel(const __grid_constant__ Net n, const __grid_constant__ Plan pl,
+                    const float* __restrict__ pT, const float* __restrict__ u,
+                    const void* __restrict__ y, const float* __restrict__ cw,
+                    const float* __restrict__ xb, const void* __restrict__ yb,
+                    const float* __restrict__ eps, float* loss, float* pbar, float* ubar,
+                    float* cwbar, float* zbar, float* theta, float* z, float* delta, float* xg) {
+  // first each warp's per-sample sums (outer_nll_sums), then the S samples'
+  // sums; then c_ps, c_da, c_nk
+  __shared__ float sh[3 * MAXS], cf[3 * MAXS];
+  __shared__ unsigned char blk[MAXS], loc[MAXS];
+  PHASE_INIT;
+  PHASE(0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank(), C = pl.C, spb = pl.spb, S = n.S;
+  const int nE = n.nE, MD = n.M * n.in[0], NPU = n.NP * n.U;
+  const Ctx c = make_ctx(n, pl, blk, loc);
+  float* base = dyn_smem();
+  const Slot TH = slot(pl, base, theta, nE), Z = slot(pl, base + spb * nE, z, NPU);
+  const Slot DL = slot(pl, base + spb * (nE + NPU), delta, NPU);
+  float* sums = base + spb * (nE + 2 * NPU);
+  const Slot X = slot(pl, sums, xg, 2 * nE);
+  const Slot US = slot(pl, sums + spb * 2 * nE, xg + S * 2 * nE, MD);
+  const Slot NL = slot(pl, sums + spb * (2 * nE + MD), xg + S * (2 * nE + MD), n.M);
+  const Slot SC = slot(pl, sums + spb * (2 * nE + MD + n.M), xg + S * (2 * nE + MD + n.M), 4);
+  int qlo, qhi, ulo, uhi, mlo, mhi;
+  owned(nE, r, C, qlo, qhi);
+  owned(MD, r, C, ulo, uhi);
+  owned(n.M, r, C, mlo, mhi);
+  PHASE(1);
+  blk_sample(n, c, pT, nullptr, eps, TH);
+  PHASE(2);
+  blk_forward(n, c, u, xb, TH, Z);
+  PHASE(3);
+  outer_nll_sums(n, c, pT, cw, y, yb, TH, Z, NL, SC, sh);
+  PHASE(22);
+  cluster.sync();  // every sample's sums are written
+  PHASE(6);
+  outer_coefficients(n, c, SC, sh, cf, loss, r);
+  PHASE(23);
+  outer_head(n, c, cw, y, yb, cf, Z, DL);
+  PHASE(4);
+  blk_backward(n, c, TH, Z, DL, nullptr, nullptr);
+  PHASE(5);
+  outer_sample_sums(n, c, pT, u, xb, eps, cf + 2 * MAXS, TH, Z, DL, X, US);
+  PHASE(20);
+  cluster.sync();  // every sample's partials are written
+  PHASE(7);
+  // this block's slices of p̄_T and ū, the samples in order: one work list
+  const int nq = qhi - qlo;
+  by_groups(nq + (uhi - ulo), S,
+            [&](int w, int k, float& x, float& xe) {
+              if (w < nq) {
+                x = c.peer(X, k, qlo + w);
+                xe = c.peer(X, k, nE + qlo + w);
+              } else {
+                x = c.peer(US, k, ulo + w - nq);
+              }
+            },
+            [&](int w, float sx, float sxe) {
+              if (w < nq) {
+                const int q = qlo + w, l = layer_of(n, q), off = n.poff[l];
+                const Elem e(n, l, q - n.qoff[l]);
+                pbar[off + e.jm] = sx;
+                pbar[off + e.jr] = sxe * sigmoid_f(pT[off + e.jr]);
+              } else {
+                ubar[ulo + w - nq] = sx;
+              }
+            });
+  PHASE(15);
+  outer_cwbar_zbar(n, c, cf, NL, DL, mlo, mhi, cwbar, zbar);
+  PHASE(14);
+  cluster.sync();  // no block reads another's shared memory any more
+  PHASE(16);
+  PHASE_END;
 }
 
 // nested_rev. Shared memory, with the maps there: spb copies each of θ, θ̇
@@ -1074,7 +1127,7 @@ nested_rev_kernel(const __grid_constant__ Net n, const __grid_constant__ Plan pl
     // recompute iteration t's forward and first-order gradient at p_{t-1}
     blk_sample(n, c, p, nullptr, et, TH);
     PHASE(2);
-    blk_forward(n, c, u, TH, Z);
+    blk_forward(n, c, u, u, TH, Z);
     PHASE(3);
     blk_head(n, c, y, cw, Z, DL);
     PHASE(4);
@@ -1211,23 +1264,22 @@ static int make_net(Net* n, const int* dims, const double* hyper, int with_batch
   n->parameterised = dims[5]; n->use_alpha = dims[6]; n->gaussian = dims[7];
   if (n->L < 1 || n->L > MAXL || n->S < 1 || n->S > MAXS || n->M < 1) return 1;
   n->NP = with_batch ? n->M + n->B : n->M;
-  int poff = 0, eoff = 0, zoff = 0;
+  int poff = 0, eoff = 0, units = 0;
   for (int l = 0; l < n->L; ++l) {
     n->in[l] = dims[8 + l];
     n->out[l] = dims[9 + l];
     n->poff[l] = poff;
     n->eoff[l] = eoff;
-    n->zoff[l] = zoff;
     n->qoff[l] = eoff / n->S;
-    n->cumo[l] = zoff / (n->S * n->NP);
+    n->cumo[l] = units;
     poff += 2 * (n->out[l] * n->in[l] + n->out[l]);
     eoff += n->S * (n->out[l] * n->in[l] + n->out[l]);
-    zoff += n->S * n->NP * n->out[l];
+    units += n->out[l];
   }
   n->P = poff;
   n->E = eoff;
   n->nE = eoff / n->S;
-  n->U = zoff / (n->S * n->NP);
+  n->U = units;
   n->N = (float)hyper[0];
   n->NB = (float)(hyper[0] / (n->B > 0 ? n->B : 1));
   n->prior_sd = (float)hyper[1];
@@ -1298,16 +1350,23 @@ extern "C" int psvi_nested_fwd(const float* p0, const float* u, const void* y, c
                                  losses, hist, cw, theta, z, delta, xg, lpart, bcs);
 }
 
+// plan as psvi_nested_fwd's; xg: the per-sample partials, ū_i, pseudo NLLs
+// and sums in global mode (2·E + S·M·D + S·M + 4·S floats).
 extern "C" int psvi_nested_outer(const float* pT, const float* u, const void* y, const float* cw,
                                  const float* xb, const void* yb, const float* eps, float* loss,
                                  float* pbar, float* ubar, float* cwbar, float* zbar,
-                                 float* theta, float* z, float* delta, float* nll,
+                                 float* theta, float* z, float* delta, float* xg, const int* plan,
                                  const int* dims, const double* hyper, void* stream) {
   Net n;
   if (make_net(&n, dims, hyper, 1)) return (int)cudaErrorInvalidValue;
-  nested_outer_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(
-      n, pT, u, y, cw, xb, yb, eps, loss, pbar, ubar, cwbar, zbar, theta, z, delta, nll);
-  return (int)cudaGetLastError();
+  const Plan pl{plan[0], plan[1], plan[2], plan[3]};
+  const long long per = 3LL * n.nE + 2LL * n.NP * n.U + (long long)n.M * n.in[0] + n.M + 4;
+  if (!plan_ok(n, pl, per, 0)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(nested_outer_kernel, pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch cl(pl, OUTER_THREADS, stream);
+  return (int)cudaLaunchKernelEx(&cl.cfg, nested_outer_kernel, n, pl, pT, u, y, cw, xb, yb, eps,
+                                 loss, pbar, ubar, cwbar, zbar, theta, z, delta, xg);
 }
 
 // plan as psvi_nested_fwd's; xg: the per-sample sums in global mode

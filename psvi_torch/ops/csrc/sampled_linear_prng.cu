@@ -8,7 +8,10 @@
 //                 P_s = g[s]^T . x[s], and the bias terms (P_s's column of ones),
 //                 in two kernels: k_prng_dparam_partial (P over splits of N)
 //                 and k_prng_dparam_reduce (the sum over splits, eps, sigmoid)
-//   k_prng_nkl    nkl[s] = sum over the layer of log p(theta_s) - log q(theta_s)
+//   nkl           nkl[s] = sum over the layer of log p(theta_s) - log q(theta_s), in
+//                 two kernels: k_prng_nkl (the terms of a tile of elements for a
+//                 group of samples, summed over the tile) and k_prng_nkl_reduce
+//                 (the sum over tiles)
 //
 // with W_s = mu_w + softplus(rho_w) * eps_w[s], b_s = mu_b + softplus(rho_b) *
 // eps_b[s]; x (S, N, Din), g (S, N, Dout), mu_w/rho_w (Dout, Din), mu_b/rho_b
@@ -37,10 +40,10 @@
 // layer its own seed. psvi_philox_bits writes raw generator words, so that the
 // generator can be held against the plain one bit for bit.
 //
-// Every C entry allocates nothing (dparam's scratch comes from the caller),
-// launches on the given stream and returns the launch error, or 0. There are
-// no atomics: every output is one fixed-order chain of operations, so a rerun
-// gives the same bits.
+// Every C entry allocates nothing (dparam's and the NKL's scratch come from
+// the caller), launches on the given stream and returns the launch error, or
+// 0. There are no atomics: every output is one fixed-order chain of
+// operations, so a rerun gives the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -517,45 +520,109 @@ k_prng_dparam_reduce(const float* __restrict__ part, const float* __restrict__ r
 }
 
 // ---------------------------------------------------------------------------
-// k_prng_nkl: one block per sample. Each thread sums lp - lq over the elements
-// e = tid, tid + 256, ... in order, with
+// k_prng_nkl + k_prng_nkl_reduce: nkl[s] = sum over the layer's elements e of
+// lp - lq, with
 //   lp = -(theta / sd_p)^2 / 2 - ln sd_p - ln(2 pi) / 2,  theta = mu + sd * eps,
 //   lq = -eps^2 / 2 - ln sd - ln(2 pi) / 2,               sd = softplus(rho),
-// as pallas_vi.py:249-254 writes them; then a fixed tree over the block's 256
-// partial sums gives nkl[s]. Deterministic.
+// as pallas_vi.py:249-254 writes them.
 //
-// What bounds it on this card: operations, S*(Dout*Din + Dout) normals and
-// about 20 more operations each for the two log densities; 10 samples of fc1
-// are 0.48 M normals, about 0.9 us at 67 TFLOP/s, against 0.39 MB of
-// parameters. What the design does about it: every parameter is read once per
-// sample from L2 (the whole layer is 0.39 MB), every eps drawn once, and
-// S blocks fill the card when S is large (4000 in the KL check); at S = 10 ten
-// SMs do the work, which a later PR can split over more blocks per sample.
+// What bounds it on this card: operations, S*(Dout*Din + Dout) normals of
+// about 110 operations and about 12 more each for the two densities; 10
+// samples of fc1 are 0.48 M normals, about 0.9 us at 67 TFLOP/s, against 0.39
+// MB of parameters. The first design ran a block per sample, so at S = 10 ten
+// SMs did the work (0.102 ms at fc1).
+//
+// What the design does about it. The grid is (element tiles) x (sample
+// groups), _nkl_plan in ../sampled_linear_prng.py: a tile is NKL_TILE = 256
+// elements, a thread each, and the groups are as few as keep the grid at
+// NKL_BLOCKS or more blocks (the samples dealt evenly: spg a group). A thread
+// loads its element's mu and rho once, forms sd and ln sd once, and draws eps
+// with the one normal_at(key, s, e) for each sample of its group, four side
+// by side. Each sample's 256 terms are added by a fixed tree (warp shuffles,
+// then the 8 warps in order) into part[s][tile]; k_prng_nkl_reduce adds each
+// sample's tile partials in tile order into nkl[s], a warp a sample: the
+// lanes load 32 tiles at once and every lane adds them in order through
+// shuffles. It is launched as a programmatic dependent launch, so that its
+// launch overlaps k_prng_nkl; it waits for k_prng_nkl's writes
+// (griddepcontrol.wait) before it reads. No atomics: a rerun gives the same
+// bits.
+constexpr int NKL_TILE = THREADS;  // elements a block, one a thread
+constexpr int NKL_CHUNK = 32;      // samples a round of the block's partial sums
+
+static __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 __global__ void __launch_bounds__(THREADS)
 k_prng_nkl(const float* __restrict__ mu_w, const float* __restrict__ rho_w,
            const float* __restrict__ mu_b, const float* __restrict__ rho_b,
-           float* __restrict__ nkl, int Din, int Dout, float prior_sd, Key key) {
-  __shared__ float red[THREADS];
-  const int s = blockIdx.x, tid = threadIdx.x;
-  const unsigned W = (unsigned)Dout * Din, E = W + Dout;
+           float* __restrict__ part, int S, int Din, int Dout, int spg, float prior_sd,
+           Key key) {
+  __shared__ float red[NKL_CHUNK][THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned W = (unsigned)Dout * Din;
+  const long long el = (long long)blockIdx.x * NKL_TILE + tid;
+  const bool on = el < (long long)W + Dout;
+  const unsigned e = (unsigned)el;
   const float half_log_2pi = 0.918938533204672742f, log_prior = logf(prior_sd);
-  float acc = 0.f;
-  for (unsigned e = tid; e < E; e += THREADS) {
-    const float m = e < W ? mu_w[e] : mu_b[e - W];
-    const float sd = softplus_f(e < W ? rho_w[e] : rho_b[e - W]);
-    const float eps = normal_at(key, s, e);
-    const float t = (m + sd * eps) / prior_sd;
-    const float lp = -0.5f * t * t - log_prior - half_log_2pi;
-    const float lq = -0.5f * eps * eps - logf(sd) - half_log_2pi;
-    acc += lp - lq;
+  float m = 0.f, sd = 1.f;
+  if (on) {
+    m = e < W ? mu_w[e] : mu_b[e - W];
+    sd = softplus_f(e < W ? rho_w[e] : rho_b[e - W]);
   }
-  red[tid] = acc;
-  __syncthreads();
-  for (int w = THREADS / 2; w > 0; w >>= 1) {
-    if (tid < w) red[tid] += red[tid + w];
+  const float log_sd = logf(sd);
+  const int s0 = blockIdx.y * spg, ns = min(spg, S - s0);
+  const int tiles = gridDim.x;
+  // let k_prng_nkl_reduce launch now: it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;");
+  for (int c0 = 0; c0 < ns; c0 += NKL_CHUNK) {
+    const int nc = min(NKL_CHUNK, ns - c0);
+    for (int u0 = 0; u0 < nc; u0 += 4) {
+      float t[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        t[u] = 0.f;
+        if (on && u0 + u < nc) {
+          const float eps = normal_at(key, s0 + c0 + u0 + u, e);
+          const float x = (m + sd * eps) / prior_sd;
+          const float lp = -0.5f * x * x - log_prior - half_log_2pi;
+          const float lq = -0.5f * eps * eps - log_sd - half_log_2pi;
+          t[u] = lp - lq;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float v = warp_sum(t[u]);
+        if (lane == 0 && u0 + u < nc) red[u0 + u][warp] = v;
+      }
+    }
     __syncthreads();
+    if (tid < nc) {
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < THREADS / 32; ++w) acc += red[tid][w];
+      part[(long long)(s0 + c0 + tid) * tiles + blockIdx.x] = acc;
+    }
+    __syncthreads();  // red is free for the next round
   }
-  if (tid == 0) nkl[s] = red[0];
+}
+
+__global__ void __launch_bounds__(THREADS)
+k_prng_nkl_reduce(const float* __restrict__ part, float* __restrict__ nkl, int S, int tiles) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // k_prng_nkl has finished
+  const int lane = threadIdx.x & 31;
+  const long long s = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  if (s >= S) return;  // the whole warp
+  const float* ps = part + s * tiles;
+  float acc = 0.f;
+  for (int t0 = 0; t0 < tiles; t0 += 32) {
+    const float v = t0 + lane < tiles ? ps[t0 + lane] : 0.f;
+    const int nt = min(32, tiles - t0);
+    for (int k = 0; k < nt; ++k) acc += __shfl_sync(0xffffffffu, v, k);
+  }
+  if (lane == 0) nkl[s] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -661,11 +728,34 @@ extern "C" int psvi_prng_dparam(const float* g, const float* x, const float* rho
   return static_cast<int>(cudaGetLastError());
 }
 
+// part: the scratch of pass 1, S * tiles floats, tiles = ceil(Dout * (Din + 1)
+// / 256); spg: _nkl_plan's samples a group (1 <= spg <= S), the groups
+// ceil(S / spg) (at most 65535).
 extern "C" int psvi_prng_nkl(const float* mu_w, const float* rho_w, const float* mu_b,
-                             const float* rho_b, float* nkl, int S, int Din, int Dout,
-                             float prior_sd, unsigned key_lo, unsigned key_hi, void* stream) {
+                             const float* rho_b, float* nkl, float* part, int S, int Din,
+                             int Dout, int spg, float prior_sd, unsigned key_lo, unsigned key_hi,
+                             void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0) return 0;
-  k_prng_nkl<<<S, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      mu_w, rho_w, mu_b, rho_b, nkl, Din, Dout, prior_sd, Key{key_lo, key_hi});
-  return static_cast<int>(cudaGetLastError());
+  const long long E = (long long)Dout * (Din + 1);
+  const long long tiles = (E + NKL_TILE - 1) / NKL_TILE, groups = (S + (long long)spg - 1) / spg;
+  if (spg < 1 || spg > S || tiles < 1 || tiles > 0x7fffffff || groups > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  k_prng_nkl<<<dim3((unsigned)tiles, (unsigned)groups), THREADS, 0, st>>>(
+      mu_w, rho_w, mu_b, rho_b, part, S, Din, Dout, spg, prior_sd, Key{key_lo, key_hi});
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((S + THREADS / 32 - 1) / (THREADS / 32));
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = st;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  const float* cpart = part;
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, k_prng_nkl_reduce, cpart, nkl, S, static_cast<int>(tiles)));
 }

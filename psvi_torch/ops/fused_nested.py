@@ -44,10 +44,10 @@ noise draw (per layer ``w (S,o,i), b (S,o)``). The TPU kernel's
 sample-major/class-major rank-2 layouts and 0/1 mask matmuls were Mosaic
 workarounds and are not carried over.
 
-``nested_fwd`` and ``nested_rev`` run as one thread block cluster whose
-blocks each hold a group of the S samples; ``_nested_plan`` works out its
-size, the samples a block holds and whether their maps fit in shared memory
-from the config alone.
+Each of the three runs as one thread block cluster whose blocks each hold a
+group of the S samples; ``_nested_plan`` works out its size, the samples a
+block holds and whether their maps fit in shared memory from the config
+alone.
 
 Backends of :func:`fused_nested_outer`: ``"cuda"`` (the hand-written
 kernels, CUDA tensors only), ``"torch"`` (the plain versions),
@@ -73,19 +73,18 @@ from psvi_torch.ops.optim import _sqrt_safe
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
-# Caps of the CUDA design (enforced by supports()): nested_outer runs in one
-# thread block of 1024 threads with per-sample shared arrays of MAX_SAMPLES;
-# nested_fwd and nested_rev index samples in shared tables of MAX_SAMPLES;
+# Caps of the CUDA design (enforced by supports()): the kernels index samples
+# in shared tables of MAX_SAMPLES and add a parameter's samples in one warp;
 # the net struct holds MAX_LAYERS.
 MAX_LAYERS = 8
 MAX_SAMPLES = 32
 MAX_WIDTH_X_S = 2048  # S·max(width), as the JAX gate
 MAX_POINTS = 2048  # M + B, as the JAX gate
 
-# nested_fwd and nested_rev run as one thread block cluster (csrc:
-# MAX_CLUSTER, SMEM_CAP, NTHREADS): at most 8 blocks (the portable cluster
-# size), each with at most SMEM_CAP bytes of dynamic shared memory (the
-# card's 232,448 a block less room for its static arrays) and 32 warps.
+# The kernels run as one thread block cluster (csrc: MAX_CLUSTER, SMEM_CAP,
+# FWD_THREADS): at most 8 blocks (the portable cluster size), each with at
+# most SMEM_CAP bytes of dynamic shared memory (the card's 232,448 a block
+# less room for its static arrays) and at most 32 warps.
 MAX_CLUSTER = 8
 SMEM_CAP = 232448 - 1024
 NWARPS = 32
@@ -517,16 +516,12 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     # p0 u y v alpha eps | losses hist cw | theta z delta xg lpart bcs
     "psvi_nested_fwd": [_P] * 15,
-    # pT u y cw xb yb eps | loss pbar ubar cwbar zbar | theta z delta nll
+    # pT u y cw xb yb eps | loss pbar ubar cwbar zbar | theta z delta xg
     "psvi_nested_outer": [_P] * 16,
     # hist pbar ubar cwbar zbar u y cw v alpha eps | g_u g_v g_alpha g_z |
     # theta thetad z delta zd deltad nlld h gbar pbar mbar nbar cwbar xg bcs
     "psvi_nested_rev": [_P] * 30,
 }
-
-
-# the entries that also take a plan (_nested_plan) before dims
-_PLANNED = ("psvi_nested_fwd", "psvi_nested_rev")
 
 
 def _lib():
@@ -536,9 +531,9 @@ def _lib():
     if not getattr(lib, "_psvi_typed", False):
         for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)
-            plan = [ctypes.POINTER(ctypes.c_int)] if name in _PLANNED else []
-            fn.argtypes = args + plan + [ctypes.POINTER(ctypes.c_int),
-                                         ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+            # then the plan (_nested_plan), dims, hyper, stream
+            fn.argtypes = args + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._psvi_typed = True
     return lib
@@ -573,14 +568,13 @@ def _check(args):
     return dev
 
 
-def _launch(name, dev, args, cfg, lr, plan=None):
+def _launch(name, dev, args, cfg, lr, plan):
     """Launch ``psvi_<name>`` on ``args`` (tensors, or addresses as ints)
-    and, for nested_fwd and nested_rev, ``plan``."""
+    with its ``plan``."""
     fn = getattr(_lib(), "psvi_" + name)
     ptrs = [_P(a if isinstance(a, int) else a.data_ptr()) for a in args]
-    if plan is not None:
-        ptrs.append((ctypes.c_int * 4)(plan.blocks, plan.samples_per_block, int(plan.shared),
-                                       plan.smem_bytes))
+    ptrs.append((ctypes.c_int * 4)(plan.blocks, plan.samples_per_block, int(plan.shared),
+                                   plan.smem_bytes))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*ptrs, _dims(cfg), _hyper(cfg, lr), _P(stream))
@@ -609,7 +603,7 @@ def _inner_args(cfg, u, y, v, alpha, eps_in):
 
 @dataclasses.dataclass(frozen=True)
 class NestedPlan:
-    """How ``nested_fwd`` or ``nested_rev`` runs: one cluster of ``blocks``
+    """How a dense kernel runs: one cluster of ``blocks``
     blocks, block r holding samples [r·S/C, (r+1)·S/C), at most
     ``samples_per_block``; their θ, maps and per-sample sums in shared
     memory (``shared``) or in the global scratch; ``smem_bytes`` of dynamic
@@ -623,25 +617,27 @@ class NestedPlan:
 
 def _plan_floats(cfg: FusedCfg, kernel: str):
     """The kernel's shared-memory layout (csrc: nested_fwd_kernel,
-    nested_rev_kernel): floats a block, and floats for each sample it holds
-    where the maps live there. nE = E / S elements a sample, U units a
-    point."""
+    nested_outer_kernel, nested_rev_kernel): floats a block, and floats for
+    each sample it holds where the maps live there. nE = E / S elements a
+    sample, U units a point."""
     nE, MU = cfg.n_eps // cfg.S, cfg.M * cfg.n_units
     if kernel == "nested_fwd":  # cw; θ, z, δ, G with G·ε
         return (cfg.M + 3) // 4 * 4, 3 * nE + 2 * MU
+    if kernel == "nested_outer":  # θ, z and δ over M + B points, p̄ partials, ū_s, NLLs, sums
+        return 0, 3 * nE + 2 * (cfg.M + cfg.B) * cfg.n_units + cfg.M * cfg.D + cfg.M + 4
     if kernel == "nested_rev":  # θ, θ̇, z, δ, ż, δ̇, G and Ġ with ·ε, ū_s, the tangent NLL
         return 0, 6 * nE + 4 * MU + cfg.M * cfg.D + cfg.M
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
 def _nested_plan(cfg: FusedCfg, kernel: str, blocks=None, shared=None) -> NestedPlan:
-    """The launch plan of ``nested_fwd`` or ``nested_rev`` at ``cfg``, from
-    the config alone: as many blocks as the portable cluster holds, up to one
-    a sample (min(8, S); at S = 10 two blocks hold two samples, and all ran
-    as fast as five blocks of two or faster, the owners' slices being
-    smaller), and the maps in shared memory where ⌈S/C⌉ samples' fit in
-    SMEM_CAP bytes, else in global scratch. ``blocks`` and ``shared``
-    override the choice (to measure other plans)."""
+    """The launch plan of ``nested_fwd``, ``nested_outer`` or ``nested_rev``
+    at ``cfg``, from the config alone: as many blocks as the portable
+    cluster holds, up to one a sample (min(8, S); at S = 10 two blocks hold
+    two samples, and all ran as fast as five blocks of two or faster, the
+    owners' slices being smaller), and the maps in shared memory where
+    ⌈S/C⌉ samples' fit in SMEM_CAP bytes, else in global scratch. ``blocks``
+    and ``shared`` override the choice (to measure other plans)."""
     S = cfg.S
     if blocks is None:
         blocks = min(MAX_CLUSTER, S)
@@ -690,12 +686,16 @@ def _nested_outer_cuda(pT, u, y, cw, xb, yb, eps_out, cfg):
     dev = _check([("pT", pT, _F, (cfg.n_params,)), ("u", u, _F, (M, D)), ("y", y, yt, (M,)),
                   ("cw", cw, _F, (M,)), ("xb", xb, _F, (B, D)), ("yb", yb, yt, (B,)),
                   ("eps_out", eps_out, _F, (cfg.n_eps,))])
-    S, NP = cfg.S, M + B
-    out = (_empty(dev), _empty(dev, cfg.n_params), _empty(dev, cfg.M, cfg.D),
-           _empty(dev, cfg.M), _empty(dev, cfg.M))
-    scratch = (_empty(dev, cfg.n_eps), _empty(dev, S * NP * cfg.n_units),
-               _empty(dev, S * NP * cfg.n_units), _empty(dev, S * NP))
-    _launch("nested_outer", dev, (pT, u, y, cw, xb, yb, eps_out) + out + scratch, cfg, 0.0)
+    S, E = cfg.S, cfg.n_eps
+    plan = _nested_plan(cfg, "nested_outer")
+    out = (_empty(dev), _empty(dev, cfg.n_params), _empty(dev, M, D), _empty(dev, M),
+           _empty(dev, M))
+    g = 0 if plan.shared else 1  # the maps' global copies, used only outside shared memory
+    Z = g * S * (M + B) * cfg.n_units
+    # theta z delta | xg: the p̄ partials, ū_s, the pseudo NLLs and the sums
+    ws, scratch = _scratch(dev, (g * E, Z, Z, g * (2 * E + S * M * D + S * M + 4 * S)))
+    _launch("nested_outer", dev, (pT, u, y, cw, xb, yb, eps_out) + out + tuple(scratch), cfg, 0.0,
+            plan)
     return out
 
 

@@ -19,7 +19,10 @@ block's tile of W_s once in shared memory over a split of N
 columns of W_s once over a split of N (:func:`_dx_plan`); dparam
 runs as two kernels, ``k_prng_dparam_partial`` (g_sᵀx_s over splits of N,
 :func:`_dparam_plan`) and ``k_prng_dparam_reduce`` (the sum over splits in a
-fixed order, ε, σ(ρ)), counted as one launch.
+fixed order, ε, σ(ρ)), counted as one launch; so does the NKL,
+``k_prng_nkl`` (the terms of a tile of 256 elements for a group of samples,
+summed over the tile; :func:`_nkl_plan`) and ``k_prng_nkl_reduce`` (each
+sample's tiles added in order).
 
 **The noise.** The TPU kernels seed the TPU's own generator with (seed,
 sample); those bits cannot be had off the TPU. Here ε is a pure function of
@@ -181,8 +184,8 @@ def vi_linear_nkl_prng_reference(mu_w, rho_w, mu_b, rho_b, seed, mc_samples, pri
 
 
 # ----------------------------------------------------------------------
-# The launch plans of B4b and B4c: plain functions of the shape, so that a
-# rerun launches the same grid and gives the same bits (B4a's, _fwd_plan,
+# The launch plans of B4b, B4c and B4d: plain functions of the shape, so that
+# a rerun launches the same grid and gives the same bits (B4a's, _fwd_plan,
 # is B3's, in ops/sampled_linear.py).
 
 #: Output tile of dparam's pass 1 (both sides) and input columns of a dx block.
@@ -198,6 +201,9 @@ DPARAM_MAX_POINTS = 256
 DPARAM_BLOCKS, DX_BLOCKS = SMS, 3 * SMS // 2
 #: Most splits of dx: they form one thread block cluster, at most 8 blocks.
 DX_MAX_SPLITS = 8
+#: Elements of an NKL tile (a thread each), and the blocks the NKL's grid
+#: reaches where S allows: one wave of eight 256-thread blocks an SM.
+NKL_TILE, NKL_BLOCKS = 256, 8 * SMS
 
 
 def _dparam_plan(S, N, Din, Dout):
@@ -211,6 +217,21 @@ def _dx_plan(S, N, Din, Dout):
     """Splits of N for ``k_prng_dx``, whose grid is Din / 64 × n_splits × S
     in clusters of n_splits blocks."""
     return _n_splits(_cdiv(Din, DX_TILE) * S, N, DX_MIN_POINTS, DX_BLOCKS, DX_MAX_SPLITS)
+
+
+def _nkl_plan(S, Din, Dout):
+    """``k_prng_nkl``'s grid, tiles × groups: (tiles, groups, samples a
+    group). A tile is NKL_TILE of the Dout·(Din + 1) elements; the groups are
+    the fewest (at most S) whose grid reaches NKL_BLOCKS blocks, the samples
+    dealt evenly, group g holding [g·spg, min(S, (g + 1)·spg))."""
+    tiles = _cdiv(Dout * (Din + 1), NKL_TILE)
+    spg = _cdiv(S, min(S, _cdiv(NKL_BLOCKS, tiles)))
+    return tiles, _cdiv(S, spg), spg
+
+
+def _nkl_scratch_shape(S, Din, Dout):
+    """Pass 1's partial sums part[s][tile]."""
+    return (S, _nkl_plan(S, Din, Dout)[0])
 
 
 def _split_bounds(N, n_splits, unit=1):
@@ -238,12 +259,12 @@ def _lib():
         i, u = ctypes.c_int, ctypes.c_uint32
         key = [u, u]
         # tensors | S N Din Dout (fwd, dx, dparam: and n_splits; nkl: S Din
-        # Dout, prior_sd; bits: n) | key | stream
+        # Dout spg, prior_sd; bits: n) | key | stream
         lib.psvi_philox_bits.argtypes = [_P, _P, i, u, u, _P]
         lib.psvi_prng_fwd.argtypes = [_P] * 6 + [i] * 5 + key + [_P]
         lib.psvi_prng_dx.argtypes = [_P] * 4 + [i] * 5 + key + [_P]
         lib.psvi_prng_dparam.argtypes = [_P] * 9 + [i] * 5 + key + [_P]
-        lib.psvi_prng_nkl.argtypes = [_P] * 5 + [i] * 3 + [ctypes.c_float] + key + [_P]
+        lib.psvi_prng_nkl.argtypes = [_P] * 6 + [i] * 4 + [ctypes.c_float] + key + [_P]
         for fn in ("psvi_philox_bits", "psvi_prng_fwd", "psvi_prng_dx", "psvi_prng_dparam",
                    "psvi_prng_nkl"):
             getattr(lib, fn).restype = ctypes.c_int
@@ -333,14 +354,20 @@ def _prng_dparam_cuda(g, x, rho_w, rho_b, seed):
 
 
 def _prng_nkl_cuda(mu_w, rho_w, mu_b, rho_b, seed, mc_samples, prior_sd=1.0):
-    """B4d: nkl (mc_samples,)."""
+    """B4d: nkl (mc_samples,). One call is two kernels, ``k_prng_nkl`` (over
+    :func:`_nkl_plan`'s tiles × groups, into a scratch of
+    :func:`_nkl_scratch_shape`) and ``k_prng_nkl_reduce``; it counts as one
+    launch of ``prng_nkl``."""
     Dout, Din = mu_w.shape
     key = _layer_key(seed, Dout, Din)
     dev = _check([("mu_w", mu_w, _F, (Dout, Din)), ("rho_w", rho_w, _F, (Dout, Din)),
                   ("mu_b", mu_b, _F, (Dout,)), ("rho_b", rho_b, _F, (Dout,))])
     out = torch.empty((mc_samples,), dtype=_F, device=dev)
-    _launch("prng_nkl", dev, [mu_w, rho_w, mu_b, rho_b, out],
-            (mc_samples, Din, Dout, float(prior_sd)), key)
+    if mc_samples <= 0:
+        return out
+    part = torch.empty(_nkl_scratch_shape(mc_samples, Din, Dout), dtype=_F, device=dev)
+    _launch("prng_nkl", dev, [mu_w, rho_w, mu_b, rho_b, out, part],
+            (mc_samples, Din, Dout, _nkl_plan(mc_samples, Din, Dout)[2], float(prior_sd)), key)
     return out
 
 

@@ -36,6 +36,7 @@ import torch
 
 from psvi_torch.data import DataBundle, read_dataset, read_regression_dataset
 from psvi_torch.inference.psvi import PSVI, make_psvi_engine
+from psvi_torch.models.layers import softplus
 from psvi_torch.models.networks import make_dense
 from psvi_torch.ops import elbo as TE
 from psvi_torch.ops import fused_nested as FN
@@ -462,31 +463,58 @@ def _plan_cfg(name):
     return eng._fused_cfg(eng.data_minibatch)
 
 
+def _check_plan(name, cfg, kernel):
+    """A portable cluster (C <= 8), every sample held by exactly one block
+    with at most ⌈S/C⌉ a block, the shared bytes the kernel's layout takes
+    (within the card's 232,448 a block), the maps in shared memory wherever
+    they fit and, with 8 blocks, at both main paths."""
+    plan = FN._nested_plan(cfg, kernel)
+    assert 1 <= plan.blocks <= FN.MAX_CLUSTER and plan.blocks <= cfg.S
+    # block r holds samples [r·S/C, (r+1)·S/C) (csrc: make_ctx)
+    C = plan.blocks
+    blocks = [range(r * cfg.S // C, (r + 1) * cfg.S // C) for r in range(C)]
+    assert sorted(s for b in blocks for s in b) == list(range(cfg.S))
+    assert max(len(b) for b in blocks) == plan.samples_per_block
+    assert plan.samples_per_block == -(-cfg.S // plan.blocks)
+    fixed, per = FN._plan_floats(cfg, kernel)
+    fits = 4 * (fixed + plan.samples_per_block * per) <= FN.SMEM_CAP
+    assert plan.shared == fits
+    assert plan.smem_bytes == 4 * (fixed + (plan.samples_per_block * per if fits else 0))
+    assert plan.smem_bytes <= 232448
+    if name in MAIN_PATHS:
+        assert plan.shared and plan.blocks == 8 and plan.samples_per_block == 2
+    return plan
+
+
 @pytest.mark.parametrize("name", list(MAIN_PATHS) + [c[0] for c in CS.CAPS])
 def test_nested_plan(name):
-    """_nested_plan from the config alone: a portable cluster (C <= 8), every
-    sample held by exactly one block with at most ⌈S/C⌉ a block, the shared
-    bytes the kernel's layout takes (within the card's 232,448 a block), the
-    maps in shared memory wherever they fit and at both main paths."""
+    """_nested_plan of nested_fwd and nested_rev from the config alone
+    (_check_plan)."""
     cfg = _plan_cfg(name)
     for kernel in ("nested_fwd", "nested_rev"):
-        plan = FN._nested_plan(cfg, kernel)
-        assert 1 <= plan.blocks <= FN.MAX_CLUSTER and plan.blocks <= cfg.S
-        # block r holds samples [r·S/C, (r+1)·S/C) (csrc: make_ctx)
-        C = plan.blocks
-        blocks = [range(r * cfg.S // C, (r + 1) * cfg.S // C) for r in range(C)]
-        assert sorted(s for b in blocks for s in b) == list(range(cfg.S))
-        assert max(len(b) for b in blocks) == plan.samples_per_block
-        assert plan.samples_per_block == -(-cfg.S // plan.blocks)
-        fixed, per = FN._plan_floats(cfg, kernel)
-        fits = 4 * (fixed + plan.samples_per_block * per) <= FN.SMEM_CAP
-        assert plan.shared == fits
-        assert plan.smem_bytes == 4 * (fixed + (plan.samples_per_block * per if fits else 0))
-        assert plan.smem_bytes <= 232448
-        if name in MAIN_PATHS:
-            assert plan.shared and plan.blocks == 8 and plan.samples_per_block == 2
+        _check_plan(name, cfg, kernel)
     with pytest.raises(ValueError):
         FN._nested_plan(cfg, "nested_rev", blocks=FN.MAX_CLUSTER + 1)
+
+
+@pytest.mark.parametrize("name", list(MAIN_PATHS) + [c[0] for c in CS.CAPS])
+def test_nested_outer_plan(name):
+    """_nested_plan of nested_outer (_check_plan): its layout holds θ, z and
+    δ over the M + B points, the p̄_T partials, ū_s, the pseudo NLLs and four
+    sums a sample (66 KB at four_blobs, 26 KB at sinus); two samples' fit at
+    both main paths, and no cap's fit, so every cap runs the global maps."""
+    cfg = _plan_cfg(name)
+    plan = _check_plan(name, cfg, "nested_outer")
+    nE, NPU = cfg.n_eps // cfg.S, (cfg.M + cfg.B) * cfg.n_units
+    assert FN._plan_floats(cfg, "nested_outer") == (
+        0, 3 * nE + 2 * NPU + cfg.M * cfg.D + cfg.M + 4)
+    if name in MAIN_PATHS:
+        kb = {"four_blobs fn 2-40-4 M=48": 66, "sinus 1-40-1 M=10": 26}[name]
+        assert round(4 * FN._plan_floats(cfg, "nested_outer")[1] / 1000) == kb
+    else:
+        assert not plan.shared and plan.smem_bytes == 0 and plan.blocks == min(8, cfg.S)
+        with pytest.raises(ValueError):
+            FN._nested_plan(cfg, "nested_outer", shared=True)
 
 
 def _seq(x, dim):
@@ -617,3 +645,89 @@ def test_kernel_summation_order_keeps_fp32_accuracy():
         x, ref = x.double().numpy(), ref.numpy()
         assert _cos(x, ref) > 0.9999, name
         assert np.abs(x - ref).max() <= 1e-3 * np.abs(ref).max(), name
+
+
+def _outer_kernel_order(pT, u, y, cw, xb, yb, eps_out, cfg):
+    """nested_outer_torch's loss and cotangents as the redesigned
+    nested_outer sums them, in the inputs' dtype: each sample's NLLs and NKL
+    terms one at a time in order (the kernel adds them in a tree, which is
+    more exact), the IW coefficients in sample order, each p̄_T term per
+    sample over the M + B points in order with its NKL terms, then over the
+    samples in order; ū per sample over the units, then over the samples;
+    c̄w over the samples with the NLL centred; z̄ over the samples."""
+    S, M, B, sp = cfg.S, cfg.M, cfg.B, cfg.prior_sd
+    X = torch.cat([u, xb])
+    Y = torch.cat([FN._targets(y, cfg), FN._targets(yb, cfg)])
+    prm, eps = FN._mu_rho(pT, cfg), FN.unpack_eps(eps_out, cfg)
+    sds = [(softplus(rw), softplus(rb)) for _, rw, _, rb in prm]
+    Ws = [mw + sw * ew for (mw, _, _, _), (sw, _), (ew, _) in zip(prm, sds, eps)]
+    bs = [mb + sb * eb for (_, _, mb, _), (_, sb), (_, eb) in zip(prm, sds, eps)]
+    zs = FN._forward(Ws, bs, X)
+    nll, G, _ = FN._head(zs[-1], Y, cfg)
+    pseudo = _seq(nll[:, :M] * cw, 1)
+    data = (cfg.N / B) * _seq(nll[:, M:], 1)
+    hl, lsp = FN._HALF_LOG_2PI, math.log(sp)
+    terms = [(-0.5 * (th / sp) ** 2 - lsp - hl) - (-0.5 * ((th - mu) / sd) ** 2 - torch.log(sd) - hl)
+             for (mw, _, mb, _), (sw, sb), W, b in zip(prm, sds, Ws, bs)
+             for th, mu, sd in ((W.flatten(1), mw.flatten(), sw.flatten()), (b, mb, sb))]
+    nkl = _seq(torch.cat(terms, 1), 1)
+    # outer_coefficients: one thread, the samples in order, d centred twice
+    lw = -pseudo + nkl
+    mean_lw = _seq(lw, 0) / S
+    e = torch.exp(lw - lw.max())
+    w = e / _seq(e, 0)
+    d = data - pseudo
+    dref = _seq(w * d, 0)
+    dcbar = _seq(w * (d - dref), 0)
+    q = w * ((d - dref) - dcbar) - 1.0 / S
+    c_ps = -w - q
+    coef = torch.cat([c_ps[:, None] * cw[None, :], (w * (cfg.N / B))[:, None].expand(S, B)], 1)
+    deltas = FN._backward(Ws, zs, coef[..., None] * G)
+    bars = []
+    for l, ((mw, rw, mb, rb), (sw, sb), (ew, eb), W, b) in enumerate(zip(prm, sds, eps, Ws, bs)):
+        dl = deltas[l]
+        a = FN._layer_input(zs, X, l)
+        a = a.expand(S, *a.shape) if a.dim() == 2 else a
+        quad = []
+        for Gs, th, mu, sd, rho, ep, qs in ((_seq(dl[..., :, None] * a[..., None, :], 1), W, mw,
+                                             sw, rw, ew, q[:, None, None]),
+                                            (_seq(dl, 1), b, mb, sb, rb, eb, q[:, None])):
+            r = (th - mu) / sd
+            thb = Gs + qs * (-th / sp ** 2 + r / sd)
+            quad += [_seq(thb - qs * r / sd, 0),
+                     _seq(ep * thb + qs * (1.0 - r * r) / sd, 0) * torch.sigmoid(rho)]
+        bars.append(tuple(quad))
+    ubar = _seq(_seq(deltas[0][:, :M, :, None] * Ws[0][:, None], 2), 0)
+    nps = nll[:, :M]
+    cwbar = _seq(c_ps[:, None] * (nps - _seq(nps, 0) / S), 0)
+    zbar = -_seq(deltas[-1][:, :M, 0], 0) if cfg.gaussian else torch.zeros_like(cw)
+    return dref + dcbar - mean_lw, FN._pack4(bars), ubar, cwbar, zbar
+
+
+@pytest.mark.parametrize("name", list(MAIN_PATHS))
+def test_outer_summation_order_keeps_fp32_accuracy(name):
+    """At both main paths (four_blobs fn 2-40-4 M=48 B=128 and sinus 1-40-1
+    M=10 B=64, S=10, chip_smoke.py's inputs of the kernels phase) the
+    summation order of the redesigned nested_outer, run in fp32 on the CPU,
+    keeps the loss within RTOL_LOSS and p̄_T, ū, c̄w and z̄ within
+    chip_smoke.py's gates of nested_outer_torch run in float64: cosine >
+    0.9999 and max |Δ| <= 1e-3·max |ref|. An error-budget model of the
+    kernel's arithmetic: it calls no kernel; the kernel itself is held to
+    the plain fp32 version on the card by chip_smoke.py."""
+    widths, M_, B_, lik = MAIN_PATHS[name]
+    data = read_dataset("four_blobs") if lik == "categorical" else read_regression_dataset("sinus")
+    cfg = CS.main_cfg(FN, data, list(widths), M_, True, False, B=B_,
+                      tau=0.1 if lik == "gaussian" else None)
+    a = CS.kernel_inputs(FN, cfg, data.x, data.y, 0, torch.device("cpu"))
+    p0, u, z, xb, yb, v, al, e_in, e_out, lr = (a[k] for k in (
+        "p0", "u", "z", "xb", "yb", "v", "alpha", "e_in", "e_out", "lr"))
+    _, hist, cw = FN.nested_fwd_torch(p0, u, z, v, al, e_in, lr, cfg)
+    args = (hist[cfg.T, 0], u, z, cw, xb, yb, e_out)
+    got = _outer_kernel_order(*args, cfg)
+    ref = FN.nested_outer_torch(*(x.double() if x.is_floating_point() else x for x in args), cfg)
+    assert abs(float(got[0]) - float(ref[0])) <= CS.RTOL_LOSS * abs(float(ref[0]))
+    names = ("pbar", "ubar", "cwbar") + (("zbar",) if cfg.gaussian else ())
+    for i, nm in enumerate(names, 1):
+        x, r = got[i].double().numpy(), ref[i].numpy()
+        assert _cos(x, r) > CS.COS_MIN, nm
+        assert np.abs(x - r).max() <= CS.REL_G * np.abs(r).max(), nm

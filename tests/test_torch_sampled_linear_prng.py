@@ -493,3 +493,112 @@ def test_cuda_wrappers_validate(bad, match):
         SLP._philox_bits_cuda(torch.zeros((3, 4), dtype=torch.int64 if bad else torch.int32),
                               (0, 0))
     assert all(n == 0 for n in SLP.LAUNCHES.values())
+
+
+# ----------------------------------------------------------------------
+# The NKL's plan (B4d: element tiles × sample groups) and its summation order
+
+# (S, Din, Dout): the LeNet fc layers at S = 10, the KL check's S = 4000 at
+# 64→32, a ragged E (760 elements: three tiles, the last of 248), S = 1, and
+# an S past the grid's target
+NKL_PLAN_SHAPES = [(10, 400, 120), (10, 120, 84), (10, 84, 10), (4000, 64, 32), (10, 37, 20),
+                   (1, 400, 120), (2, 1, 1), (100_000, 64, 32)]
+
+
+@pytest.mark.parametrize("shape", NKL_PLAN_SHAPES)
+def test_nkl_plan_covers_every_element_and_sample(shape):
+    """The grid is tiles × groups: block (b, g) sums elements [256·b,
+    256·(b+1)) for samples [g·spg, (g+1)·spg) (csrc: k_prng_nkl), so every
+    element falls in exactly one tile and every sample in exactly one group,
+    and no tile or group is empty."""
+    S, Din, Dout = shape
+    tiles, groups, spg = SLP._nkl_plan(S, Din, Dout)
+    E = Dout * (Din + 1)
+    assert SLP.NKL_TILE == 256 and (tiles - 1) * 256 < E <= tiles * 256
+    owners = [g for g in range(groups) for _ in range(max(0, min(S, (g + 1) * spg) - g * spg))]
+    assert owners == [s // spg for s in range(S)]
+    assert all(g * spg < S for g in range(groups)) and groups <= 65535
+
+
+def test_nkl_plan_depends_only_on_the_shape(monkeypatch):
+    """Nothing of the card or the run enters the NKL's plan: with every CUDA
+    query broken, it gives what it gave, call after call."""
+    want = [SLP._nkl_plan(*sh) for sh in NKL_PLAN_SHAPES]
+
+    def broken(*a, **k):
+        raise AssertionError("a plan asked the device")
+
+    for name in ("is_available", "device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, broken)
+    for _ in range(2):
+        assert [SLP._nkl_plan(*sh) for sh in NKL_PLAN_SHAPES] == want
+
+
+@pytest.mark.parametrize("shape,want", [((10, 400, 120), (188, 5, 2)), ((10, 120, 84), (40, 10, 1)),
+                                        ((10, 84, 10), (4, 10, 1)), ((4000, 64, 32), (9, 118, 34))])
+def test_nkl_grid_covers_the_sms(shape, want):
+    """At fc1–fc3 (S = 10) and at S = 4000, 64→32: the samples a group are
+    those of the fewest groups whose tiles × groups reach NKL_BLOCKS = 8·132
+    blocks (one wave of eight 256-thread blocks an SM), or of a group a
+    sample, dealt evenly (which may leave fewer groups: 6 at fc1 become 5 of
+    two samples); at fc1 the grid covers the 132 SMs seven times over (the
+    first design ran ten blocks there)."""
+    S, Din, Dout = shape
+    tiles, groups, spg = SLP._nkl_plan(*shape)
+    assert (tiles, groups, spg) == want and SLP.NKL_BLOCKS == 8 * SLP.SMS == 1056
+    fewest = min(g for g in range(1, S + 1) if tiles * g >= SLP.NKL_BLOCKS or g == S)
+    assert spg == -(-S // fewest) and groups == -(-S // spg) <= fewest
+    assert tiles * groups >= SLP.SMS or groups == S  # fc3: 4 tiles, a group a sample
+
+
+@pytest.mark.parametrize("shape,mb", [((10, 400, 120), 0.00752), ((4000, 64, 32), 0.144),
+                                      ((10, 37, 20), 0.00012), ((1, 400, 120), 0.000752)])
+def test_nkl_scratch_matches_its_formula(shape, mb):
+    """S·tiles floats of tile partials, part[s][tile]: 7.5 KB at fc1, 144 KB
+    at S = 4000."""
+    S, Din, Dout = shape
+    sh = SLP._nkl_scratch_shape(*shape)
+    assert sh == (S, SLP._nkl_plan(*shape)[0]) == (S, -(-Dout * (Din + 1) // 256))
+    assert 4 * math.prod(sh) / 1e6 == pytest.approx(mb)
+
+
+def _nkl_kernel_order(mu_w, rho_w, mu_b, rho_b, seed, S, prior_sd):
+    """k_prng_nkl's sums in fp32 on the CPU: each element's term as the
+    kernel forms it from the plain generator's ε; a tile's 256 terms added
+    by the warp butterfly (xor 16, 8, 4, 2, 1, as warp_sum) and its 8 warps
+    in order; each sample's tiles in order (k_prng_nkl_reduce)."""
+    Dout, Din = mu_w.shape
+    tiles = SLP._nkl_plan(S, Din, Dout)[0]
+    eps = SLP.prng_normal(seed, S, Dout * (Din + 1), "cpu")
+    mu = torch.cat((mu_w.reshape(-1), mu_b))
+    sd = torch.nn.functional.softplus(torch.cat((rho_w.reshape(-1), rho_b)))
+    hl, lp0 = np.float32(0.5 * math.log(2 * math.pi)), np.float32(math.log(prior_sd))
+    x = (mu + sd * eps) / prior_sd
+    t = (-0.5 * x * x - lp0 - hl) - (-0.5 * eps * eps - torch.log(sd) - hl)
+    t = torch.nn.functional.pad(t, (0, tiles * 256 - t.shape[1])).reshape(S, tiles, 8, 32)
+    lane = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        t = t + t[..., lane ^ o]
+    acc = torch.zeros((S, tiles), dtype=torch.float32)
+    for w in range(8):
+        acc = acc + t[:, :, w, 0]
+    out = torch.zeros(S, dtype=torch.float32)
+    for b in range(tiles):
+        out = out + acc[:, b]
+    return out
+
+
+@pytest.mark.parametrize("S,Din,Dout,prior_sd", [(10, 400, 120, 1.0), (10, 37, 20, 0.5),
+                                                 (1, 84, 10, 1.0)])
+def test_nkl_tile_partials_keep_fp32_accuracy(S, Din, Dout, prior_sd):
+    """The redesigned NKL's summation order (a tree in each 256-element
+    tile, then the tiles in order) in fp32 meets the plain version run in
+    float64 on the same ε within chip_smoke.py's gate of B4 against its
+    plain version: max |Δ| <= 1e-5·max |ref|. An error-budget model: no
+    kernel runs here."""
+    _, mu_w, rho_w, mu_b, rho_b = (torch.from_numpy(v) for v in _params(1, 1, Din, Dout, seed=9))
+    got = _nkl_kernel_order(mu_w, rho_w, mu_b, rho_b, 2**40 + 1, S, prior_sd).double()
+    ref = SLP.vi_linear_nkl_prng_reference(mu_w.double(), rho_w.double(), mu_b.double(),
+                                           rho_b.double(), 2**40 + 1, S, prior_sd)
+    assert ref.dtype == torch.float64 and got.shape == (S,)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
