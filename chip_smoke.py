@@ -83,6 +83,21 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              ``register_elbos`` (101 steps, then 101 retrain steps), each
              with B3's launch count derived from the loops; no engine run
              launches B4;
+   methods — the paths no kernel serves, in JAX as here (every launch
+             counter must read 0): on the dense flagship above, through
+             ``run_psvi``, psvi_ablated, psvi_no_iw, psvi_evaluate and
+             psvi_learn_v with ``learn_z=True`` under the nested trainer,
+             psvi_learn_v with ``truncated=True, truncated_K=5`` (26 steps
+             each), the hyper trainer with ``cg_normaleq`` (21 steps) and
+             with ``fixed_point`` and ``neumann`` (11 steps each): finite
+             losses, v moved where learned, u, v and z bit for bit under
+             psvi_evaluate, and the final accuracy at or above JAX's lowest
+             over three seeds minus 0.05 (``METHODS_GATES``,
+             scripts/torch_methods_jax_gates.py); ``remat_inner=True``
+             against the plain step on one injected draw (hypergradients
+             and state within 1e-6·max |ref|); at the LeNet flagship's
+             widths 3 steps each of the hyper trainer (``cg_normaleq``) and
+             of the truncated step (K=5): finite, v moved;
 5. times   — CUDA-event medians of each kernel (each head at its main
              path's shapes; the dense ones also as 50 calls queued behind a
              device sleep), its plain version, the fused engine steps and
@@ -90,7 +105,9 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              cuBLAS product on pre-sampled weights at the LeNet fc shapes
              (calls queued back to back behind a device sleep), and so B4a–c
              at fc1–fc3 and N = 1024 beside B3 and a cuBLAS product, B4d at
-             the fc shapes and S = 4000 with its plan; the LeNet
+             the fc shapes and S = 4000 with its plan; each methods run's
+             step (beside the fused nested step at the same config) and the
+             LeNet-width hyper and truncated steps; the LeNet
              joint and alternating steps with ``backend="pallas"`` against
              ``backend="xla"``;
    profile — torch.profiler's device time by CUDA kernel over one call of
@@ -195,6 +212,31 @@ LENET_NO_SPILL = ("k_conv1", "k_conv2", "k_conv2_back", "k_conv2_wpart", "k_ubar
 # the dense kernels redesigned for the card (a cluster, the per-parameter sums
 # spread over threads), which must build with no spills
 NESTED_NO_SPILL = ("nested_fwd_kernel", "nested_outer_kernel", "nested_rev_kernel")
+
+# The methods phase: the remaining methods and trainers on the dense
+# flagship (four_blobs fn 2-40-4, PERF.md §4), each through run_psvi with
+# the final evaluation after steps − 1 steps; (label, engine options, steps).
+METHODS_BASE = dict(method="psvi_learn_v", num_pseudo=48, mc_samples=10, architecture="fn",
+                    n_hidden=40, n_layers=1, inner_it=10, data_minibatch=128, init_sd=1e-3,
+                    seed=0)
+# The runs are host-bound plain PyTorch steps (0.1-2.3 s each on the H100),
+# so they are cut to 26 steps, and CG on the normal equations to 21, to
+# keep the script near four minutes.
+METHODS_RUNS = [
+    ("psvi_ablated", dict(method="psvi_ablated"), 26),
+    ("psvi_no_iw", dict(method="psvi_no_iw"), 26),
+    ("psvi_evaluate", dict(method="psvi_evaluate"), 26),
+    ("psvi_learn_v learn_z", dict(learn_z=True), 26),
+    ("psvi_learn_v truncated K=5", dict(truncated=True, truncated_K=5), 26),
+    ("hyper cg_normaleq", dict(trainer="hyper", hypergrad_approx="cg_normaleq"), 21),
+    ("hyper fixed_point", dict(trainer="hyper", hypergrad_approx="fixed_point"), 11),
+    ("hyper neumann", dict(trainer="hyper", hypergrad_approx="neumann"), 11),
+]
+# each run's gate: the JAX engine's lowest final accuracy over seeds 0-2 on
+# the CPU, minus 0.05 (scripts/torch_methods_jax_gates.py; PERF.md §2)
+METHODS_GATES = {"psvi_ablated": 0.875, "psvi_no_iw": 0.875, "psvi_evaluate": 0.905,
+                 "psvi_learn_v learn_z": 0.905, "psvi_learn_v truncated K=5": 0.85,
+                 "hyper cg_normaleq": 0.87, "hyper fixed_point": 0.84, "hyper neumann": 0.84}
 
 
 _T0 = time.perf_counter()
@@ -561,6 +603,7 @@ def run_engine(mods, make_psvi_engine, data, expected, **kw):
 
     eng._step = recording_step
     eng.step_path = step.__name__
+    eng.state0 = eng.state
     torch.cuda.synchronize()
     for mod in mods:
         mod.reset_launches()
@@ -576,6 +619,92 @@ def run_engine(mods, make_psvi_engine, data, expected, **kw):
     if not finite:
         raise AssertionError("non-finite outer loss on the main path")
     return eng, res, launches, secs
+
+
+def hypergrads_of(eng, step, state, batch, eps):
+    """One step and the hypergradients it hands to the hyper-Adam update."""
+    seen = {}
+    apply = eng._apply_hyper_updates
+
+    def capture(st, grads):
+        seen.update(grads)
+        return apply(st, grads)
+
+    eng._apply_hyper_updates = capture
+    try:
+        new, aux = step(state, batch=batch, eps=eps)
+    finally:
+        eng._apply_hyper_updates = apply
+    return new, aux, seen
+
+
+def check_methods(mods, make_psvi_engine, blobs, mnist, only):
+    """The methods phase: each run of ``METHODS_RUNS`` through run_psvi on
+    the dense flagship, then ``remat_inner`` against the plain step on one
+    injected draw, then the hyper trainer and the truncated step at the
+    LeNet flagship's widths. Every launch counter must read 0 (no fused
+    gate serves these paths, as in JAX), every loss be finite, v move
+    where it is learned and u, v, z stay bit for bit under
+    ``psvi_evaluate``; each run's final accuracy must meet its gate from
+    the JAX package (``METHODS_GATES``). Returns the runs' engines by label
+    for the times phase."""
+    engines = {}
+    for label, opts, steps in METHODS_RUNS:
+        eng, res, launches, secs = run_engine(
+            mods, make_psvi_engine, blobs, only(),
+            **{**METHODS_BASE, **opts, "num_epochs": steps, "log_every": steps - 1})
+        s0, s1 = eng.state0, eng.state
+        same = {k: bool(torch.equal(getattr(s1, k), getattr(s0, k))) for k in ("u", "v", "z")}
+        acc = res["accs"][-1]
+        emit({"phase": "methods", "config": f"four_blobs fn 2-40-4 M=48 {label}", "steps": steps,
+              "accs": res["accs"], "nlls": res["nlls"], "gate": METHODS_GATES[label],
+              "launches": launches, "unchanged": same, "seconds": secs,
+              "step_path": eng.step_path})
+        if eng.spec.evaluate_only and not all(same.values()):
+            raise AssertionError(f"{label}: the pseudodata moved: {same}")
+        if eng.spec.learn_v and same["v"]:
+            raise AssertionError(f"{label}: v did not move")
+        if not all(math.isfinite(x) for x in res["accs"] + res["nlls"]):
+            raise AssertionError(f"{label}: non-finite accuracy or NLL")
+        if not acc >= METHODS_GATES[label]:
+            raise AssertionError(f"{label}: final accuracy {acc} < {METHODS_GATES[label]}")
+        engines[label] = eng
+    # remat_inner against the plain step: one nested step on the same draw
+    kw = {**METHODS_BASE, "method": "psvi_alpha_v", "fused_inner": False}
+    plain, remat = (make_psvi_engine(blobs, **kw, remat_inner=r) for r in (False, True))
+    batch = plain._sample_batch()
+    eps = ([plain._sample_eps(plain.mc_samples) for _ in range(plain.inner_it)],
+           plain._sample_eps(plain.mc_samples))
+    for mod in mods:
+        mod.reset_launches()
+    sp, ap, gp = hypergrads_of(plain, plain._nested_step, plain.state, batch, eps)
+    sr, ar, gr = hypergrads_of(remat, remat._nested_step, plain.state, batch, eps)
+    torch.cuda.synchronize()
+    rel = {k: _rel(gr[k], gp[k]) for k in gp}
+    rel.update({f"state_{k}": _rel(getattr(sr, k), getattr(sp, k)) for k in ("u", "v", "alpha")})
+    launches = {k: n for mod in mods for k, n in mod.LAUNCHES.items() if n}
+    emit({"phase": "methods", "config": "four_blobs fn 2-40-4 M=48 psvi_alpha_v remat_inner "
+          "against the plain step", "rel_to_plain": rel,
+          "loss": [float(ap["outer_loss"]), float(ar["outer_loss"])], "launches": launches})
+    if set(gr) != set(gp) or not all(r <= 1e-6 for r in rel.values()) or launches:
+        raise AssertionError(f"remat_inner: max|Δ|/max|ref| {rel}, launches {launches}")
+    # the LeNet flagship's widths: forward over reverse through the conv path
+    lenet = dict(method="psvi_learn_v", architecture="lenet", num_pseudo=100, mc_samples=10,
+                 inner_it=20, data_minibatch=256, init_sd=1e-3, num_epochs=3, log_every=2,
+                 seed=0)
+    for label, opts in (("hyper cg_normaleq", dict(trainer="hyper")),
+                        ("truncated K=5", dict(truncated=True, truncated_K=5))):
+        eng, res, launches, secs = run_engine(mods, make_psvi_engine, mnist, only(),
+                                              **lenet, **opts)
+        moved = not torch.equal(eng.state.v, eng.state0.v)
+        emit({"phase": "methods", "config": f"synth_mnist lenet psvi_learn_v M=100 S=10 T=20 "
+              f"B=256 {label}", "steps": 3, "accs": res["accs"], "nlls": res["nlls"],
+              "launches": launches, "v_moved": moved, "seconds": secs,
+              "step_path": eng.step_path})
+        if not moved or not all(math.isfinite(x) for x in res["accs"] + res["nlls"]):
+            raise AssertionError(f"LeNet {label}: v moved {moved}, accs {res['accs']}")
+        engines[f"lenet {label}"] = eng
+    return engines
 
 
 def median_ms(fn, reps=60, warmup=5):
@@ -1399,6 +1528,9 @@ def main() -> int:
     if len(res_fb["elbos"]) != 2 * fb_kw["num_epochs"] or tags != [0, 1]:
         raise AssertionError(f"elbos: {len(res_fb['elbos'])} entries with tags {tags}")
 
+    # 4b. the remaining methods and trainers, which no kernel serves
+    method_engines = check_methods(mods, make_psvi_engine, blobs, mnist, only)
+
     # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; sinus
     # regressor 1-40-1, M=10, B=64; LeNet flagship)
     cfg = main_cfg(FN, blobs, [2, 40, 4], 48, True, False)
@@ -1492,6 +1624,17 @@ def main() -> int:
                                                   reps=50)
         steps[f"{key}_step_plain_autograd_ms"] = median_ms(
             lambda: e_plain._nested_step(st_p, batch), reps=50)
+    # each methods run's step at the dense flagship, beside the fused
+    # nested step above (the same config and batch); the LeNet-width hyper
+    # and truncated steps
+    batch = eng._sample_batch()
+    methods_ms = {}
+    for label, e in method_engines.items():
+        st, b = e.state, (batch if not label.startswith("lenet") else e._sample_batch())
+        # the runs above warmed each step up; the hyper steps take seconds
+        reps = 2 if e.trainer == "hyper" else 5
+        fn = getattr(e, e.step_path)  # the step itself, not run_engine's recorder
+        methods_ms[label] = median_ms(lambda: fn(st, batch=b), reps=reps, warmup=0)
     batch_l = eng_l._sample_batch()
     eng_lp = PSVI(mnist, **{**lenet_kw, "fused_inner": False})
     st_lf, st_lp = eng_l.state, eng_lp.state
@@ -1518,7 +1661,7 @@ def main() -> int:
           "kernel_ms": {k["name"]: k["ms"] for k in kernels},
           "plain_ms": {k["name"]: k["plain_ms"] for k in kernels},
           "bound_ms": {k["name"]: k["bound_ms"] for k in kernels},
-          **steps, "lenet_step_fused_ms": lenet_fused_ms,
+          **steps, "methods_step_ms": methods_ms, "lenet_step_fused_ms": lenet_fused_ms,
           "lenet_step_plain_autograd_ms": lenet_plain_ms, **fo})
     # where the LeNet time goes, by kernel (torch.profiler)
     with torch.no_grad():

@@ -1,17 +1,22 @@
-"""PSVI inference engine — the nested and first-order slices of the port.
+"""PSVI inference engine — the four trainers of the port.
 
 Counterpart of ``psvi_tpu/inference/psvi.py`` for the nested (bilevel)
-trainer and the first-order ``joint`` and ``alternating`` trainers on the
-dense mean-field nets (logistic regression and the ``fn`` MLP) and on LeNet
-with the categorical likelihood, and on the regression MLP with the
-Gaussian likelihood and learned targets (``PSVIRegressor``):
+trainer, the first-order ``joint`` and ``alternating`` trainers and the
+implicit-differentiation ``hyper`` trainer, on the dense mean-field nets
+(logistic regression and the ``fn`` MLP) and on LeNet with the categorical
+likelihood (hard or learned soft labels), and on the regression MLP with
+the Gaussian likelihood and learned targets (``PSVIRegressor``), for every
+method of ``METHOD_SPECS``:
 
 - ``PSVIState`` — parameters, pseudodata (u, z), weights v, α and the
   Adam states of the hyperparameters;
 - ``_nested_step`` — the plain path: T differentiable inner Adam steps
   through ``torch.autograd`` (``create_graph=True``), the outer IW-ELBO,
   and its gradient w.r.t. (u, v, z, α) through the unroll (ref
-  ``nested_step`` :541-600);
+  ``nested_step`` :541-600); with ``truncated``, T − K warm-up steps that
+  are not differentiated, then K that are; with ``remat_inner``, each
+  differentiated iteration recomputed in the backward pass; with no
+  hyperparameters (``psvi_evaluate``), a net-only step;
 - ``_nested_step_fused`` — the same step through the fused kernels of
   ``ops/fused_nested.py`` (hand-written CUDA on the card);
 - ``_nested_step_fused_lenet`` — the LeNet step with its inner unroll
@@ -22,6 +27,10 @@ Gaussian likelihood and learned targets (``PSVIRegressor``):
   :527-539), and ``_retrain_step``, the net-only step of the retrain loop;
   with ``backend="pallas"`` every batched dense forward on these paths goes
   through kernel B3 (``ops/sampled_linear.py``);
+- ``_hyper_step`` — an inner solve that is not differentiated, then the
+  hypergradient by an implicit-function solver of ``ops/hypergrad.py``
+  (``cg_normaleq``, ``fixed_point`` or ``neumann``; ref ``hyper_step``
+  :602-687);
 - ``_evaluate_fn`` and the ``run_psvi`` loop with the reference's
   results-dict keys, the ``register_elbos`` streams, ``reset`` and
   ``retrain_on_coreset``;
@@ -40,6 +49,7 @@ and noise; the tests use that seam to line the port up with JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, NamedTuple
 
@@ -53,8 +63,9 @@ from psvi_torch.models.networks import set_up_model
 from psvi_torch.ops import elbo as E
 from psvi_torch.ops import fused_lenet as FL
 from psvi_torch.ops import fused_nested as FN
+from psvi_torch.ops import hypergrad as H
 from psvi_torch.ops import optim as O
-from psvi_torch.utils.config import METHOD_SPECS, MethodSpec
+from psvi_torch.utils.config import METHOD_SPECS
 from psvi_torch.utils.resource import LogResource
 from psvi_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -78,39 +89,19 @@ def _count_pad(n, b):
     return (b - n % b) % b
 
 
-def _value_and_grad(fn, tree):
-    """``fn(tree)`` and its gradient with respect to every leaf of ``tree``,
-    as a tree of the same structure (``jax.value_and_grad``)."""
-    with torch.enable_grad():
-        leaves = tree_map(lambda x: x.detach().requires_grad_(True), tree)
-        loss = fn(leaves)
-        grads = torch.autograd.grad(loss, tree_leaves(leaves))
-    return loss.detach(), tree_unflatten(tree, grads)
-
-
-def _check_spec(method: str, spec: MethodSpec, likelihood: str):
-    """Refuse what the port does not run yet. Learned targets are ported
-    for the Gaussian likelihood only; the categorical soft labels (KLDiv)
-    are not."""
-    unported = {
-        "ablated": spec.ablated, "single_sample_train": spec.single_sample_train,
-        "evaluate_only": spec.evaluate_only,
-        "learn_z with the categorical likelihood": (spec.learn_z
-                                                     and likelihood == "categorical"),
-    }
-    bad = [k for k, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(
-            f"method {method!r} ({', '.join(bad)}) is not ported yet "
-            "(ROADMAP.md, queue A item 7)"
-        )
-
-
 class PSVI:
     """Black-box coreset VI engine (classification).
 
-    ``trainer``: ``"nested"`` (bilevel, the default), ``"joint"`` or
-    ``"alternating"``. ``backend``: ``"xla"`` (the plain dense product) or
+    ``trainer``: ``"nested"`` (bilevel, the default), ``"joint"``,
+    ``"alternating"`` or ``"hyper"`` (implicit differentiation by the solver
+    ``hypergrad_approx`` ∈ {``"cg_normaleq"``, ``"fixed_point"``,
+    ``"neumann"``}, ``hyper_K`` iterations, fixed-point map one gradient
+    step at ``linsys_lr``). ``truncated``: differentiate only the last
+    ``truncated_K`` of the ``inner_it`` inner steps. ``remat_inner``:
+    recompute each differentiated inner iteration in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its graph. ``learn_z``:
+    learn the pseudo-labels too (soft labels under the categorical
+    likelihood). ``backend``: ``"xla"`` (the plain dense product) or
     ``"pallas"`` — JAX's two values, so that a JAX config selects the same
     path; in the port ``"pallas"`` means the hand-written CUDA kernel B3 for
     every batched dense forward. Its backward is first-order only, so the
@@ -156,11 +147,18 @@ class PSVI:
         log_every: int = 10,
         register_elbos: bool = False,
         init_args: str = "subsample",
+        learn_z=None,
         reset: bool = False,
         reset_interval: int = 10,
         retrain_on_coreset: bool = False,
         compute_weights_entropy: bool = True,
         tau: float = 0.1,
+        hyper_K: int = 30,
+        linsys_lr: float = 1e-4,
+        hypergrad_approx: str = "cg_normaleq",
+        truncated: bool = False,
+        truncated_K: int = 5,
+        remat_inner: bool = False,
         backend: str = "xla",
         fused_inner="auto",
         device=None,
@@ -177,23 +175,28 @@ class PSVI:
                 "through the layer and the hyper trainer applies forward mode to it; the "
                 "kernel's autograd Function gives neither"
             )
-        if trainer == "hyper":
-            raise NotImplementedError(
-                f"trainer {trainer!r} is not ported yet (ROADMAP.md, queue A item 7)"
-            )
-        if trainer not in ("nested", "joint", "alternating"):
+        if trainer not in ("nested", "joint", "alternating", "hyper"):
             raise ValueError(f"unknown trainer {trainer!r}")
+        if hypergrad_approx not in ("cg_normaleq", "fixed_point", "neumann"):
+            raise ValueError(f"unknown hypergrad_approx {hypergrad_approx!r} "
+                             "(expected cg_normaleq | fixed_point | neumann)")
+        if truncated and not 1 <= truncated_K <= inner_it:
+            raise ValueError(f"truncated_K must lie in [1, inner_it={inner_it}], "
+                             f"got {truncated_K}")
         if fused_inner not in ("auto", True, False):
             raise ValueError(f"fused_inner must be 'auto', True or False, got {fused_inner!r}")
         self.device = resolve_device(device)
         self.data = data
         self.method = method
         self.spec = METHOD_SPECS[method]
-        _check_spec(method, self.spec, self.likelihood)
+        if learn_z:
+            self.spec = dataclasses.replace(self.spec, learn_z=True)
         self.seed = seed
         self.N, self.D, self.nc = data.N, data.D, data.nc
         self.num_pseudo = num_pseudo
-        self.mc_samples = mc_samples
+        # PSVI_No_IW trains on one sample and evaluates on five (ref :1411-1472)
+        self.mc_samples = 1 if self.spec.single_sample_train else mc_samples
+        self.mc_samples_eval = 5 if self.spec.single_sample_train else mc_samples
         self.architecture = architecture
         self.n_hidden, self.n_layers, self.init_sd = n_hidden, n_layers, init_sd
         self.inner_it = inner_it
@@ -209,6 +212,10 @@ class PSVI:
         self.backend = backend
         self.compute_weights_entropy = compute_weights_entropy
         self.tau = tau
+        self.hyper_K, self.linsys_lr = hyper_K, linsys_lr
+        self.hypergrad_approx = hypergrad_approx
+        self.truncated, self.truncated_K = truncated, truncated_K
+        self.remat_inner = remat_inner
         self.fused_inner = fused_inner
         self.elbos: list = []
         self.results: dict = {}
@@ -285,6 +292,8 @@ class PSVI:
     def _init_state(self):
         params = self.net.init(self.gen)
         u, z = self._init_pseudodata()
+        if self._learn_z_kldiv:  # soft labels start one-hot (ref :552-553)
+            z = torch.nn.functional.one_hot(z.long(), self.nc).to(torch.float32)
         v = self._init_v()
         alpha = torch.zeros(1, device=self.device)
         self.opt_u = O.adam(self.lrs["u"])
@@ -325,15 +334,24 @@ class PSVI:
     # objectives
     # ------------------------------------------------------------------
 
+    @property
+    def _learn_z_kldiv(self):
+        """Learned soft labels: the KLDiv NLL of ``ops/elbo.soft_label_nll``."""
+        return self.spec.learn_z and self.likelihood == "categorical"
+
     def _inner_loss(self, params, eps, u, z, v, alpha):
         cw, _ = self._core_weights(v, alpha)
         return E.inner_elbo(self.net, params, eps, u, z, cw, likelihood=self.likelihood,
-                            nc=self.nc, tau=self.tau)
+                            learn_z=self._learn_z_kldiv, nc=self.nc, tau=self.tau)
 
     def _outer_loss(self, params, eps, u, z, v, alpha, xb, yb):
+        if self.spec.ablated:
+            return E.ablated_elbo(self.net, params, eps, xb, yb, self.N,
+                                  likelihood=self.likelihood, nc=self.nc, tau=self.tau)
         cw, _ = self._core_weights(v, alpha)
         return E.psvi_elbo(self.net, params, eps, u, z, cw, xb, yb, self.N,
-                           likelihood=self.likelihood, nc=self.nc, tau=self.tau)
+                           likelihood=self.likelihood, learn_z=self._learn_z_kldiv,
+                           nc=self.nc, tau=self.tau)
 
     def _sample_eps(self, S):
         return self.net.sample_eps(self.gen, S)
@@ -343,21 +361,47 @@ class PSVI:
                              device=self.device)[:self.data_minibatch]
         return self.x_train[idx], self.y_train[idx]
 
-    def _run_inner(self, params0, u, z, v, alpha, lr_now, eps=None):
-        """T differentiable inner Adam steps with a fresh optimizer state
-        (ref nested_step :549-555). All T noise draws are made before the
-        loop, as the JAX engine pre-draws them outside its scan."""
-        T = self.inner_it
+    def _inner_iter(self, params, ostate, eps, u, z, v, alpha, lr_now, opt, create_graph):
+        """One inner step: the inner loss and its gradient, then ``opt``'s
+        update. ``create_graph`` keeps the step differentiable."""
+        if create_graph:
+            loss = self._inner_loss(params, eps, u, z, v, alpha)
+            g = torch.autograd.grad(loss, tree_leaves(params), create_graph=True)
+        else:
+            with torch.enable_grad():
+                leaves = tree_map(lambda x: x.detach().requires_grad_(True), params)
+                loss = self._inner_loss(leaves, eps, u, z, v, alpha)
+                g = torch.autograd.grad(loss, tree_leaves(leaves))
+        params, ostate = opt.step(params, tree_unflatten(params, g), ostate, lr_now)
+        return params, ostate, loss.detach()
+
+    def _run_inner(self, params0, u, z, v, alpha, lr_now, eps=None, n_steps=None, opt=None,
+                   create_graph=True):
+        """``n_steps`` (default ``inner_it``) inner steps of ``opt`` (default
+        the inner Adam) from a fresh optimizer state (ref nested_step
+        :549-555). ``create_graph=True`` keeps every step differentiable;
+        under ``remat_inner`` each such step is recomputed in the backward
+        pass (``torch.utils.checkpoint``) instead of keeping its graph.
+        ``create_graph=False`` runs them without a graph. All noise draws
+        are made before the loop, as the JAX engine pre-draws them outside
+        its scan."""
+        T = self.inner_it if n_steps is None else n_steps
+        opt = opt or self.inner_opt
         eps_stack = eps if eps is not None else [
             self._sample_eps(self.mc_samples) for _ in range(T)]
-        params, ostate = params0, self.inner_opt.init(params0)
+        if not create_graph:
+            params0 = tree_map(lambda x: x.detach(), params0)
+        params, ostate = params0, opt.init(params0)
+        remat = create_graph and self.remat_inner
         losses = []
         for t in range(T):
-            loss = self._inner_loss(params, eps_stack[t], u, z, v, alpha)
-            g = torch.autograd.grad(loss, tree_leaves(params), create_graph=True)
-            params, ostate = self.inner_opt.step(
-                params, tree_unflatten(params, g), ostate, lr_now)
-            losses.append(loss.detach())
+            args = (params, ostate, eps_stack[t], u, z, v, alpha, lr_now, opt, create_graph)
+            if remat:
+                params, ostate, loss = torch.utils.checkpoint.checkpoint(
+                    self._inner_iter, *args, use_reentrant=False)
+            else:
+                params, ostate, loss = self._inner_iter(*args)
+            losses.append(loss)
         return params, torch.stack(losses)
 
     # ------------------------------------------------------------------
@@ -365,12 +409,14 @@ class PSVI:
     # ------------------------------------------------------------------
 
     def _hyper_names(self):
+        """The hyperparameters the outer step learns (JAX ``_hyper_tree``):
+        u and z unless fixed or evaluate-only, v and α where learned."""
         names = []
-        if self.spec.learn_u:
+        if self.spec.learn_u and not self.spec.evaluate_only:
             names.append("u")
         if self.spec.learn_v:
             names.append("v")
-        if self.spec.learn_z:
+        if self.spec.learn_z and not self.spec.evaluate_only:
             names.append("z")
         if self.spec.learn_alpha:
             names.append("alpha")
@@ -395,7 +441,11 @@ class PSVI:
     def _nested_step(self, state: PSVIState, batch=None, eps=None):
         """Bilevel step through torch.autograd: differentiate the outer
         IW-ELBO through the unrolled inner loop (ref ``nested_step``
-        :541-600). ``eps = (list of T inner noise trees, outer noise tree)``."""
+        :541-600). ``eps = (list of T inner noise trees, outer noise tree)``;
+        under ``truncated`` the first T − K inner trees drive the warm-up
+        and the last K the differentiated steps. With no hyperparameters
+        (``psvi_evaluate``) the step only fits the net: no graph, no outer
+        gradient."""
         xb, yb = batch if batch is not None else self._sample_batch()
         if eps is None:
             eps_inner = [self._sample_eps(self.mc_samples) for _ in range(self.inner_it)]
@@ -404,23 +454,92 @@ class PSVI:
             eps_inner, eps_outer = eps
         lr_now = self.lr_net_sched(state.net_step)
         names = self._hyper_names()
+        params0 = state.params
+        if self.truncated:
+            # T − K warm-up steps that are not differentiated, with a fresh
+            # Adam(1e-4) at lr 1e-4 (ref :561-571)
+            n_warm = self.inner_it - self.truncated_K
+            params0, _ = self._run_inner(params0, self.net.prep_input(state.u), state.z,
+                                         state.v, state.alpha, 1e-4, eps_inner[:n_warm],
+                                         n_steps=n_warm, opt=O.adam(1e-4), create_graph=False)
+            eps_inner = eps_inner[n_warm:]
+        if not names:
+            paramsT, inner_losses = self._run_inner(
+                params0, self.net.prep_input(state.u), state.z, state.v, state.alpha, lr_now,
+                eps_inner, n_steps=len(eps_inner), create_graph=False)
+            with torch.no_grad():
+                loss = self._outer_loss(paramsT, eps_outer, state.u, state.z, state.v,
+                                        state.alpha, xb, yb)
+            return (state._replace(params=paramsT, net_step=state.net_step + 1),
+                    {"outer_loss": loss, "inner_losses": inner_losses})
         with torch.enable_grad():
             hyper = {k: getattr(state, k).detach().clone().requires_grad_(True) for k in names}
             u = hyper.get("u", state.u)
             v = hyper.get("v", state.v)
             z = hyper.get("z", state.z)
             alpha = hyper.get("alpha", state.alpha)
-            params0 = tree_map(lambda x: x.detach().requires_grad_(True), state.params)
+            params0 = tree_map(lambda x: x.detach().requires_grad_(True), params0)
             # patch-extract u once, outside the inner loop (a no-op for
             # dense nets; layers.PrePatched)
             paramsT, inner_losses = self._run_inner(params0, self.net.prep_input(u), z,
-                                                    v, alpha, lr_now, eps_inner)
+                                                    v, alpha, lr_now, eps_inner,
+                                                    n_steps=len(eps_inner))
             loss = self._outer_loss(paramsT, eps_outer, u, z, v, alpha, xb, yb)
-            grads = dict(zip(names, torch.autograd.grad(loss, list(hyper.values())))) if names else {}
+            grads = dict(zip(names, torch.autograd.grad(loss, list(hyper.values()))))
         state = self._apply_hyper_updates(state, grads)
         state = state._replace(params=tree_map(lambda x: x.detach(), paramsT),
                                net_step=state.net_step + 1)
         return state, {"outer_loss": loss.detach(), "inner_losses": inner_losses}
+
+    def _hyper_step(self, state: PSVIState, batch=None, eps=None):
+        """AID step (JAX ``_hyper_step``; ref ``hyper_step`` :602-687): T
+        inner steps that are not differentiated, at the constant lr0net
+        (the reference never steps the net's StepLR here), then the
+        hypergradient of the outer loss at that solution by the solver
+        ``hypergrad_approx`` over ``hyper_K`` iterations, its fixed-point
+        map one gradient step on the inner loss at ``linsys_lr``. The
+        hyperparameters take one hyper-Adam step; ``net_step`` is not
+        advanced. ``eps = (list of T inner noise trees, the outer noise
+        tree, {tag: noise tree} for the solver's products)`` (tags:
+        ``ops/hypergrad.py``); a tag missing from the dict is drawn."""
+        xb, yb = batch if batch is not None else self._sample_batch()
+        if eps is None:
+            eps_inner = [self._sample_eps(self.mc_samples) for _ in range(self.inner_it)]
+            eps_outer, draws = self._sample_eps(self.mc_samples), {}
+        else:
+            eps_inner, eps_outer, draws = eps[0], eps[1], dict(eps[2])
+        paramsT, inner_losses = self._run_inner(
+            state.params, self.net.prep_input(state.u), state.z, state.v, state.alpha,
+            self.lrs["net"], eps_inner, create_graph=False)
+
+        def unpack(h):
+            return (h.get("u", state.u), h.get("z", state.z), h.get("v", state.v),
+                    h.get("alpha", state.alpha))
+
+        def noise(tag):
+            if tag not in draws:
+                draws[tag] = self._sample_eps(self.mc_samples)
+            return draws[tag]
+
+        def fp_map(p, h, tag):  # one gradient step on the inner loss
+            u, z, v, alpha = unpack(h)
+            e = noise(tag)
+            g = torch.func.grad(lambda q: self._inner_loss(q, e, u, z, v, alpha))(p)
+            return tree_map(lambda w, gw: w - self.linsys_lr * gw, p, g)
+
+        def outer_loss_fn(p, h):
+            u, z, v, alpha = unpack(h)
+            return self._outer_loss(p, eps_outer, u, z, v, alpha, xb, yb)
+
+        # every method this step serves learns u or v (psvi_evaluate, with no
+        # hyperparameters, takes the net-only nested step)
+        solver = {"cg_normaleq": H.cg_normaleq, "fixed_point": H.fixed_point,
+                  "neumann": H.neumann}[self.hypergrad_approx]
+        hg = solver(fp_map, outer_loss_fn, paramsT,
+                    {k: getattr(state, k) for k in self._hyper_names()}, self.hyper_K)
+        state = self._apply_hyper_updates(state, hg.hyper_grads)
+        return (state._replace(params=paramsT),
+                {"outer_loss": hg.outer_loss, "inner_losses": inner_losses})
 
     def _fused_dense_idx(self):
         return [i for i, l in enumerate(self.net.layers) if isinstance(l, VILinear)]
@@ -513,7 +632,7 @@ class PSVI:
         if eps is None:
             eps = self._sample_eps(self.mc_samples)
         leaves = self._joint_leaves(state.params, state.u, state.v)
-        loss, grads = _value_and_grad(lambda lv: self._outer_loss(
+        loss, grads = H.value_and_grad(lambda lv: self._outer_loss(
             lv["params"], eps, lv["u"], state.z, lv.get("v", state.v), state.alpha, xb, yb),
             leaves)
         leaves, opt_joint = self.opt_joint.step(leaves, grads, state.opt_joint)
@@ -531,10 +650,10 @@ class PSVI:
         if eps is None:
             eps = (self._sample_eps(self.mc_samples), self._sample_eps(self.mc_samples))
         eps_net, eps_u = eps
-        loss0, gp = _value_and_grad(lambda p: self._outer_loss(
+        loss0, gp = H.value_and_grad(lambda p: self._outer_loss(
             p, eps_net, state.u, state.z, state.v, state.alpha, xb, yb), state.params)
         params, opt_net = self.opt_net.step(state.params, gp, state.opt_net)
-        loss1, gu = _value_and_grad(lambda u: self._outer_loss(
+        loss1, gu = H.value_and_grad(lambda u: self._outer_loss(
             params, eps_u, u, state.z, state.v, state.alpha, xb, yb), state.u)
         u, opt_u = self.opt_u.step(state.u, gu, state.opt_u)
         state = state._replace(params=params, u=u, opt_net=opt_net, opt_u=opt_u)
@@ -546,7 +665,7 @@ class PSVI:
         ref retrain loop :996-1003). Returns (state, loss)."""
         if eps is None:
             eps = self._sample_eps(self.mc_samples)
-        loss, g = _value_and_grad(lambda p: self._inner_loss(
+        loss, g = H.value_and_grad(lambda p: self._inner_loss(
             p, eps, state.u, state.z, state.v, state.alpha), state.params)
         params, opt_net = self.opt_retrain.step(state.params, g, state.opt_net)
         return state._replace(params=params, opt_net=opt_net), loss
@@ -570,10 +689,14 @@ class PSVI:
         # the kernels do not serve, a first-order trainer included (JAX
         # psvi.py:1258-1261)
         which = self._use_fused_inner()
+        if self.spec.evaluate_only:
+            return self._nested_step  # PSVIEvaluate: the net-only nested step
         if self.trainer == "joint":
             return self._joint_step
         if self.trainer == "alternating":
             return self._alternating_step
+        if self.trainer == "hyper":
+            return self._hyper_step
         if which == "dense":
             return self._nested_step_fused
         if which == "lenet":
@@ -589,7 +712,7 @@ class PSVI:
         """Importance-weighted predictive accuracy and NLL over padded test
         batches, and the IW diagnostics of the last batch (ref ``evaluate``
         :1031-1108)."""
-        S = self.mc_samples
+        S = self.mc_samples_eval
         n_test = int(self.x_test.shape[0])
         B = min(self.data_minibatch, n_test)
         pad = _count_pad(n_test, B)
@@ -606,7 +729,8 @@ class PSVI:
             eps = self._sample_eps(S)
             all_logits = self.net.apply(state.params, eps, torch.cat([state.u, xb]))
             lw = E.importance_log_weights(self.net, state.params, eps, state.u, state.z, cw,
-                                          nc=self.nc, pseudo_out=all_logits[:, :M])
+                                          learn_z=self._learn_z_kldiv, nc=self.nc,
+                                          pseudo_out=all_logits[:, :M])
             probs, weights = E.predictive_mixture(all_logits[:, M:], lw, correction=correction)
             pred = torch.argmax(probs, dim=-1).to(torch.float32)
             corrects = corrects + torch.sum((pred == yb) * m)
@@ -705,7 +829,7 @@ class PSVIRegressor(PSVI):
         y_mean, y_std = self.data.y_mean, self.data.y_std
         cw, fv = self._core_weights(state.v, state.alpha)
         if eps is None:
-            eps = self._sample_eps(self.mc_samples)
+            eps = self._sample_eps(self.mc_samples_eval)
         out = self.net.apply(state.params, eps, torch.cat([state.u, self.x_test])).squeeze(-1)
         M = state.u.shape[0]
         lw = E.importance_log_weights(self.net, state.params, eps, state.u, state.z, cw,

@@ -7,13 +7,16 @@ Counterpart of ``psvi_tpu/ops/elbo.py``, term for term:
   + KL(q‖p)`` (a sum, not a mean, over the S samples);
 - ``psvi_elbo``   — negative outer PSVI-ELBO, the self-normalized
   importance-sampling estimate over S samples (ref ``:445-486``);
+- ``ablated_elbo`` — the PSVI_Ablated objective, a plain multi-sample ELBO
+  on the data batch (ref ``:1397-1408``);
+- ``soft_label_nll`` — the KLDiv NLL of learned soft labels (learn_z with
+  the categorical likelihood, ref ``:464-474,495-505``);
 - ``importance_log_weights`` / ``predictive_mixture`` — the evaluation-time
   weighting (ref ``:1031-1108``), including the reference's sign quirk;
 - ``iw_diagnostics`` — IW entropy, normalized ESS, v entropy.
 
 Every function takes the sampled noise ``eps`` explicitly, so ``nkl`` uses
-the same parameter samples as the forward. The soft-label (learn_z) NLL and
-the ablated objective arrive in a later slice (ROADMAP.md, queue A item 7).
+the same parameter samples as the forward.
 """
 
 from __future__ import annotations
@@ -34,6 +37,19 @@ def categorical_nll(logits, labels):
     return logz - picked
 
 
+def soft_label_nll(logits, soft_targets):
+    """KL-divergence loss of learnable soft labels: logits (S, N, nc), raw
+    label logits z (N, nc) → (S, N). The target is ``softmax(z)`` over the
+    *datapoint* axis, as in the reference; then ``nll[s, n] = Σ_c p[n, c]·
+    (log p[n, c] − log_softmax(logits)[s, n, c])`` (torch
+    ``KLDivLoss(reduction='none')`` summed over classes)."""
+    p = torch.softmax(soft_targets, dim=0)
+    logp = torch.log(torch.clamp_min(p, 1e-38))
+    log_q = torch.log_softmax(logits, dim=-1)
+    plogp = torch.where(p > 0, p * logp, 0.0)
+    return torch.sum(plogp[None] - p[None] * log_q, dim=-1)
+
+
 def gaussian_nll(preds, targets, tau: float):
     """Gaussian NLL with precision tau: preds (S, N), targets (N,) → (S, N)."""
     scale = 1.0 / math.sqrt(float(tau))
@@ -46,12 +62,8 @@ def gaussian_nll(preds, targets, tau: float):
 
 def nll_fn(likelihood: str, learn_z: bool, nc: int, tau: Optional[float] = None):
     """Returns nll(outputs, labels) → (S, N) for the configured likelihood."""
-    if learn_z:
-        raise NotImplementedError(
-            "learn_z (soft-label KLDiv NLL) is not ported yet (ROADMAP.md, queue A item 7)"
-        )
     if likelihood == "categorical":
-        return categorical_nll
+        return soft_label_nll if learn_z else categorical_nll
     if likelihood == "gaussian":
         def nll(preds, y):
             preds = preds.squeeze(-1) if preds.dim() == 3 else preds
@@ -80,7 +92,12 @@ def psvi_elbo(net, params, eps, u, z, core_weights, xbatch, ybatch, N: int,
     pseudo- and data-NLLs share the θ samples (ref ``:451-463``)."""
     M, B = u.shape[0], xbatch.shape[0]
     all_x = torch.cat([u, xbatch], dim=0)
-    if likelihood == "gaussian":
+    if learn_z:
+        # ref :455-461: the batch labels become nc·one_hot rows appended to
+        # z, so the datapoint softmax of the soft-label NLL runs over M + B
+        onehot = torch.nn.functional.one_hot(ybatch.long(), nc).to(z.dtype)
+        all_y = torch.cat([z, nc * onehot], dim=0)
+    elif likelihood == "gaussian":
         all_y = torch.cat([z.reshape(-1), ybatch.reshape(-1)], dim=0)
     else:
         all_y = torch.cat([z, ybatch], dim=0)
@@ -102,6 +119,18 @@ def psvi_elbo(net, params, eps, u, z, core_weights, xbatch, ybatch, N: int,
     return d_ref + torch.sum(weights * (d - d_ref)) - torch.mean(log_weights)
 
 
+def ablated_elbo(net, params, eps, xbatch, ybatch, N: int, likelihood: str = "categorical",
+                 nc: int = 2, tau: Optional[float] = None):
+    """PSVI_Ablated objective: the plain multi-sample ELBO on the data batch,
+    with no importance weighting (ref ``psvi_classes.py:1397-1408``):
+    ``mean_s data_nll_s − mean_s sampled_nkl_s``. Its sums carry no IW
+    coefficients, so nothing here needs the centring of ``psvi_elbo``."""
+    B = xbatch.shape[0]
+    out = net.apply(params, eps, xbatch)
+    data_nll = (N / B) * torch.sum(nll_fn(likelihood, False, nc, tau)(out, ybatch), dim=-1)
+    return torch.mean(data_nll) - torch.mean(net.nkl(params, eps))
+
+
 def importance_log_weights(net, params, eps, u, z, core_weights,
                            likelihood: str = "categorical", learn_z: bool = False,
                            nc: int = 2, tau: Optional[float] = None, pseudo_out=None):
@@ -110,18 +139,22 @@ def importance_log_weights(net, params, eps, u, z, core_weights,
     Reference quirk, kept deliberately: the pseudo term is the *positive*
     log_prob weighted by ``core_weights`` and then negated —
     ``log_weights = −pseudo + sampled_nkl`` — the opposite sign convention
-    from the training objective.
+    from the training objective. Under learn_z the KLDiv term is summed over
+    S before it is weighted, which gives a scalar (ref ``:1052-1056``).
     """
     if u.shape[0] == 0:
         pseudo = 0.0
     else:
         if pseudo_out is None:
             pseudo_out = net.apply(params, eps, u)
-        ll = -nll_fn(likelihood, learn_z, nc, tau)(pseudo_out, z)
-        if likelihood == "gaussian":
-            pseudo = torch.sum(ll * core_weights[None, :])
+        nll = nll_fn(likelihood, learn_z, nc, tau)
+        if learn_z:
+            # the (S, M) KLDiv summed over S, then weighted: a scalar
+            pseudo = torch.sum(nll(pseudo_out, z), dim=0) @ core_weights
+        elif likelihood == "gaussian":
+            pseudo = torch.sum(-nll(pseudo_out, z) * core_weights[None, :])
         else:
-            pseudo = ll @ core_weights  # (S,)
+            pseudo = -nll(pseudo_out, z) @ core_weights  # (S,)
     return -pseudo + net.nkl(params, eps)
 
 

@@ -603,8 +603,8 @@ def supports(engine) -> bool:
     Identity, ReLU, Flatten, fc1, ReLU, fc2, ReLU, fc3; conv KL not
     counted, one dense prior_sd) of ``make_lenet`` on 28×28 single-channel
     images (conv 6/16/5, fc 400-120-84-classes); float32 parameters and
-    data; categorical hard labels; the plain nested trainer with inner
-    Adam; and the CUDA design's caps (2 ≤ S ≤ 64, M ≤ 1024, classes ≤
+    data; categorical hard labels; the plain nested trainer (not truncated,
+    ablated or evaluate-only) with inner Adam; and the CUDA design's caps (2 ≤ S ≤ 64, M ≤ 1024, classes ≤
     32)."""
     dense = _lenet_dense(engine)
     if dense is None:
@@ -618,6 +618,7 @@ def supports(engine) -> bool:
         and dense[2].out_dim == engine.nc <= MAX_CLASSES
         and engine.inner_it >= 1
         and engine.trainer == "nested"
+        and not engine.truncated
         and engine.likelihood == "categorical"
         and not engine.spec.learn_z
         and not engine.spec.ablated

@@ -857,7 +857,7 @@ def supports(engine) -> bool:
     all-dense ``VILinear (ReLU VILinear)*`` net with biases, KL counted and
     one prior_sd; a categorical likelihood with hard labels, or a Gaussian
     one with one output, its targets learned or not; the plain nested
-    trainer with inner Adam; and the CUDA design's caps (L ≤ 8, 2 ≤ S ≤ 32,
+    trainer (not truncated, ablated or evaluate-only) with inner Adam; and the CUDA design's caps (L ≤ 8, 2 ≤ S ≤ 32,
     S·max(width) ≤ 2048, M + B ≤ 2048)."""
     net = engine.net
     if not isinstance(net, Sequential) or not len(net.layers):
@@ -883,6 +883,7 @@ def supports(engine) -> bool:
         and engine.num_pseudo > 0
         and engine.inner_it >= 1
         and engine.trainer == "nested"
+        and not engine.truncated
         and engine.likelihood in ("categorical", "gaussian")
         and (engine.likelihood == "categorical" or widths[-1] == 1)
         # learned Gaussian targets are a plain hypergradient g_z; the

@@ -3,14 +3,19 @@
 - One ``_nested_step`` (plain autograd path) and one ``_nested_step_fused``
   (the fused path; on the CPU its plain versions) of the port, started
   from the JAX engine's state (``state_from_jax``) with the JAX step's
-  batch and noise injected, match the JAX ``_nested_step`` on the loss,
+  batch and noise injected, match the JAX ``_nested_step`` (jitted) on the loss,
   the hypergradients handed to the hyper-Adam update, u, v, α and the
   parameters; for LeNet on synth_mnist, at the JAX tests' toy size,
   ``_nested_step`` and ``_nested_step_fused_lenet``. The dense methods
   include the four that fix u, v's rescaling or v's softmax
   (``psvi_fixed_u``, ``psvi_alpha_fixed_u``, ``psvi_no_rescaling``,
   ``psvi_free_v``); ``psvi_free_v`` starts with weights below one Adam
-  step, so that the v ≥ 0 clamp after the step acts.
+  step, so that the v ≥ 0 clamp after the step acts. The remaining
+  methods run the plain step only (both fused gates refuse them, as JAX's
+  do): ``psvi_ablated`` (the outer ELBO without importance weights),
+  ``psvi_no_iw`` (one training sample), ``psvi_evaluate`` (net-only: u, v
+  and z leave the step bit for bit) and ``psvi_learn_v`` with
+  ``learn_z=True`` (one-hot soft labels learned through the KLDiv NLL).
 - ``run_psvi`` on halfmoon logistic regression (M=30, 101 outer steps)
   lands in the documented accuracy band and returns the JAX engine's
   results-dict keys.
@@ -51,16 +56,50 @@ def _capture_hypergrads(eng):
     return seen
 
 
+# XLA's cheaper compile for the JAX reference step
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def _jax_nested_step(jeng, key, batch):
+    """The JAX engine's ``_nested_step``, jitted, and the hypergradients it
+    hands to the hyper-Adam update (none for a net-only step)."""
+    apply = jeng._apply_hyper_updates
+
+    def step(state, key, batch):
+        seen = {}
+
+        def capture(s, g):
+            seen.update(g)
+            return apply(s, g)
+
+        jeng._apply_hyper_updates = capture
+        try:
+            out = jeng._nested_step(state, key, batch=batch)
+        finally:
+            jeng._apply_hyper_updates = apply
+        return out, seen
+
+    compiled = jax.jit(step).lower(jeng.state, key, batch).compile(
+        compiler_options=FAST_COMPILE)
+    (state1, aux), grads = compiled(jeng.state, key, batch)
+    return state1, aux, _np_tree(grads)
+
+
 def _cos(a, b):
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
 
 
 # the hypergradients each method hands to the hyper-Adam update (JAX's
-# _hyper_tree: u unless fixed, v where learned, α where learned)
+# _hyper_tree: u unless fixed, v where learned, α where learned, z where
+# learned; none under evaluate_only)
 HYPERS = {"psvi_alpha_v": {"u", "v", "alpha"}, "psvi_learn_v": {"u", "v"},
           "psvi_fixed_u": {"v"}, "psvi_alpha_fixed_u": {"v", "alpha"},
-          "psvi_no_rescaling": {"u"}, "psvi_free_v": {"u", "v"}}
+          "psvi_no_rescaling": {"u"}, "psvi_free_v": {"u", "v"},
+          "psvi_ablated": {"u", "v"}, "psvi_no_iw": {"u", "v"}, "psvi_evaluate": set(),
+          "psvi_learn_v+learn_z": {"u", "v", "z"}}
+# methods no fused gate serves: the plain step alone
+PLAIN_ONLY = {"psvi_ablated", "psvi_no_iw", "psvi_evaluate", "psvi_learn_v+learn_z"}
 
 
 @pytest.mark.parametrize("method,dataset,arch", [
@@ -71,10 +110,17 @@ HYPERS = {"psvi_alpha_v": {"u", "v", "alpha"}, "psvi_learn_v": {"u", "v"},
     ("psvi_alpha_fixed_u", "four_blobs", "fn"),
     ("psvi_no_rescaling", "halfmoon", "logistic_regression"),
     ("psvi_free_v", "four_blobs", "fn"),
+    ("psvi_ablated", "four_blobs", "fn"),
+    ("psvi_no_iw", "four_blobs", "fn"),
+    ("psvi_evaluate", "four_blobs", "fn"),
+    ("psvi_learn_v+learn_z", "four_blobs", "fn"),
 ])
 def test_engine_step_matches_jax(method, dataset, arch):
     lenet = arch == "lenet"
     kw = LENET_KW if lenet else KW
+    case = method
+    if method.endswith("+learn_z"):
+        method, kw = method.split("+")[0], {**kw, "learn_z": True}
     jeng = JPSVI(jax_read_dataset(dataset), method=method, architecture=arch,
                  fused_inner=False, **kw)
     if method == "psvi_free_v":
@@ -83,7 +129,6 @@ def test_engine_step_matches_jax(method, dataset, arch):
         v = np.asarray(jeng.state.v).copy()
         v[::2] = 1e-4
         jeng.state = jeng.state._replace(v=jax.numpy.asarray(v))
-    jgrads = _capture_hypergrads(jeng)
     key = jax.random.PRNGKey(3)
     # the batch and the noise the JAX step draws from this key
     k_batch, k_inner, k_outer = jax.random.split(key, 3)
@@ -92,10 +137,8 @@ def test_engine_step_matches_jax(method, dataset, arch):
     eps_inner = [_np_tree(jeng._sample_eps(k, jeng.mc_samples)) for k in keys]
     eps_outer = _np_tree(jeng._sample_eps(k_outer, jeng.mc_samples))
     jstate0 = _np_tree(jeng.state)
-    jstate1, jaux = jeng._nested_step(jeng.state, key, batch=(xb, yb))
-
-    jgrads = dict(jgrads)
-    assert set(jgrads) == HYPERS[method]
+    jstate1, jaux, jgrads = _jax_nested_step(jeng, key, (xb, yb))
+    assert set(jgrads) == HYPERS[case]
     if method == "psvi_free_v":
         clamped = np.asarray(jstate1.v) == 0.0
         assert clamped.any() and (np.asarray(jstate1.v) >= 0).all()
@@ -106,8 +149,10 @@ def test_engine_step_matches_jax(method, dataset, arch):
     eps = ([params_from_jax(e, device="cpu") for e in eps_inner],
            params_from_jax(eps_outer, device="cpu"))
     fused = peng._nested_step_fused_lenet if lenet else peng._nested_step_fused
-    for step in (peng._nested_step, fused):
-        s1, aux = step(state_from_jax(jstate0, device="cpu"), batch=batch, eps=eps)
+    steps = (peng._nested_step,) if case in PLAIN_ONLY else (peng._nested_step, fused)
+    for step in steps:
+        s0 = state_from_jax(jstate0, device="cpu")
+        s1, aux = step(s0, batch=batch, eps=eps)
         # the hypergradients themselves, before the hyper-Adam step that
         # normalises them away: fp32 sums in another order through the
         # T-deep unroll (largest gap measured: ū of the LeNet kernel pair's
@@ -140,6 +185,10 @@ def test_engine_step_matches_jax(method, dataset, arch):
             np.testing.assert_allclose(s1.u.numpy(), np.asarray(jstate1.u), atol=1e-6)
             np.testing.assert_allclose(s1.v.numpy(), np.asarray(jstate1.v), atol=1e-5)
             np.testing.assert_allclose(s1.alpha.numpy(), np.asarray(jstate1.alpha), atol=1e-5)
+            np.testing.assert_allclose(s1.z.numpy(), np.asarray(jstate1.z), atol=1e-5)
+            if method == "psvi_evaluate":  # net-only: the pseudodata stay as they were
+                for k in ("u", "v", "z", "alpha"):
+                    assert torch.equal(getattr(s1, k), getattr(s0, k)), k
             if method == "psvi_free_v":  # the clamp, on the same entries
                 np.testing.assert_array_equal(s1.v.numpy() == 0.0, clamped)
             # paramsT: tolerances of tests/test_fused_nested.py

@@ -30,8 +30,9 @@ import pytest
 import torch
 
 from psvi_torch.data import read_dataset, read_regression_dataset
-from psvi_torch.inference.psvi import PSVI, PSVIRegressor, _value_and_grad, run_psvi
+from psvi_torch.inference.psvi import PSVI, PSVIRegressor, run_psvi
 from psvi_torch.ops import sampled_linear as SL
+from psvi_torch.ops.hypergrad import value_and_grad as _value_and_grad
 from psvi_torch.utils.convert import params_from_jax, state_from_jax
 from psvi_tpu.data import read_dataset as jax_read_dataset
 from psvi_tpu.data import read_regression_dataset as jax_read_regression_dataset
@@ -342,8 +343,7 @@ def test_trainer_gates():
     kw = dict(num_pseudo=8, device="cpu")
     with pytest.raises(ValueError, match="fused_inner=True"):
         PSVI(data, trainer="joint", fused_inner=True, **kw)
-    with pytest.raises(NotImplementedError, match="A.7|item 7"):
-        PSVI(data, trainer="hyper", **kw)
+    assert PSVI(data, trainer="hyper", **kw)._step.__name__ == "_hyper_step"
     with pytest.raises(ValueError, match="backend"):
         PSVI(data, trainer="joint", backend="cuda", **kw)
     assert PSVI(data, trainer="joint", **kw)._step.__name__ == "_joint_step"

@@ -415,12 +415,12 @@ def test_supports_gating():
 
 def test_unported_options_raise():
     data = read_dataset("halfmoon")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSVI(data, trainer="hyper", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSVI(data, method="psvi_ablated", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSVI(data, prune=True, **ENGINE_KW)
+    for option in (dict(inner_unroll=2), dict(inner_optimizer="sgd"), dict(prune=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PSVI(data, **option, **ENGINE_KW)
+    # the hyper trainer and the ablated method are ported: the plain path serves them
+    assert PSVI(data, trainer="hyper", **ENGINE_KW)._step.__name__ == "_hyper_step"
+    assert PSVI(data, method="psvi_ablated", **ENGINE_KW)._step.__name__ == "_nested_step"
 
 
 # ---------------------------------------------------------------------------

@@ -111,8 +111,10 @@ def test_categorical_and_gaussian_nll():
     _close(TE.gaussian_nll(_t(preds), _t(tgt), 0.3), JE.gaussian_nll(preds, tgt, 0.3))
     _close(TE.nll_fn("gaussian", False, 1, 0.3)(_t(preds[..., None]), _t(tgt)),
            JE.nll_fn("gaussian", False, 1, 0.3)(preds[..., None], tgt))
-    with pytest.raises(NotImplementedError):
-        TE.nll_fn("categorical", True, 4)
+    # learn_z: the soft-label KLDiv NLL over raw label logits z (N, nc)
+    zl = rng.standard_normal((6, 4)).astype(np.float32)
+    _close(TE.nll_fn("categorical", True, 4)(_t(logits), _t(zl)),
+           JE.nll_fn("categorical", True, 4)(logits, zl), rtol=1e-5)
 
 
 @pytest.mark.parametrize("kind", ["logreg", "fn"])

@@ -12,7 +12,7 @@
   fails when g_z is zeroed or loses its terms from the unroll;
 - ``_evaluate_fn`` with injected noise matches JAX's RMSE, predictive LL
   and IW diagnostics;
-- the regressor's gates (``supports()``, ``_check_spec``, ``fused_inner``),
+- the regressor's gates (``supports()``, ``fused_inner``),
   ``state_from_jax`` with ``opt_z``, and ``run_psvi``'s results dict.
 """
 
@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from psvi_torch.data import read_regression_dataset
-from psvi_torch.inference.psvi import (PSVI, PSVIRegressor, _check_spec, make_psvi_engine,
+from psvi_torch.inference.psvi import (PSVI, PSVIRegressor, make_psvi_engine,
                                        run_psvi)
 from psvi_torch.models.networks import make_dense, set_up_model
 from psvi_torch.ops import fused_nested as FN
@@ -354,18 +354,18 @@ def test_fused_inner_true_raises_for_unsupported_regressor(over):
 
 
 def test_categorical_learn_z_is_refused():
-    """Learned soft labels (the KLDiv NLL) are not ported: ``_check_spec``
-    refuses them, and so does the fused gate; learned Gaussian targets pass
-    both."""
+    """The fused gate refuses learned soft labels (the KLDiv NLL), which the
+    plain step serves, as JAX's gate does; learned Gaussian targets pass
+    it."""
     from psvi_torch.data import read_dataset
 
-    learn_z = METHOD_SPECS["psvi_learn_v_regressor"]
-    with pytest.raises(NotImplementedError, match="learn_z with the categorical"):
-        _check_spec("psvi_learn_v_regressor", learn_z, "categorical")
-    _check_spec("psvi_learn_v_regressor", learn_z, "gaussian")
+    assert METHOD_SPECS["psvi_learn_v_regressor"].learn_z
     kw = dict(num_pseudo=8, mc_samples=4, inner_it=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSVI(read_dataset("halfmoon"), method="psvi_evaluate", **kw)
+    soft = PSVI(read_dataset("halfmoon"), method="psvi_learn_v", learn_z=True, **kw)
+    assert not FN.supports(soft) and soft._step.__name__ == "_nested_step"
+    assert soft.state.z.shape == (8, 2)
+    with pytest.raises(ValueError, match="fused_inner=True"):
+        PSVI(read_dataset("halfmoon"), method="psvi_evaluate", fused_inner=True, **kw)
     eng = PSVI(read_dataset("halfmoon"), method="psvi_learn_v", **kw)
     assert FN.supports(eng)
     eng.spec = dataclasses.replace(eng.spec, learn_z=True)
