@@ -98,6 +98,24 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              and state within 1e-6·max |ref|); at the LeNet flagship's
              widths 3 steps each of the hyper trainer (``cg_normaleq``) and
              of the truncated step (K=5): finite, v moved;
+   lifecycle — the coreset lifecycle through ``run_psvi``, every launch
+             counter checked exactly: the dense flagship pruned 48 → 24
+             after step 50 (101 steps; B1 101 launches each, u (24, 2));
+             the incremental coreset, classes {0, 1} at M=24, one class and
+             12 points more every 34 steps (101 steps; B1 101 each, four
+             classes, u (48, 2)); the joint trainer through B3 pruned after
+             step 50 (151 steps; B3's count from its loops, no B1); each held
+             to its gate, JAX's lowest accuracy over three seeds minus 0.05
+             (``LIFECYCLE_GATES``), with the fused step's median ms at
+             each (M, classes); checkpoint resumes at the dense flagship
+             (30 steps, save, 20 more, against a fresh engine that loads
+             and runs the same 20) and at the LeNet flagship (3 + 3), every
+             state leaf equal, with the save and load ms; a scoring run
+             with ``log_pseudodata`` (halfmoon logreg M=30, 101 steps): both
+             CSV files with N rows, every grid prediction summing to 1
+             within 1e-4, the forgetting calculator's ms; a psvi_evaluate
+             engine warm-started from that run's saved results, v equal
+             to the saved ``vs[-1]``, 11 steps, no kernel launch;
 5. times   — CUDA-event medians of each kernel (each head at its main
              path's shapes; the dense ones also as 50 calls queued behind a
              device sleep), its plain version, the fused engine steps and
@@ -237,6 +255,29 @@ METHODS_RUNS = [
 METHODS_GATES = {"psvi_ablated": 0.875, "psvi_no_iw": 0.875, "psvi_evaluate": 0.905,
                  "psvi_learn_v learn_z": 0.905, "psvi_learn_v truncated K=5": 0.85,
                  "hyper cg_normaleq": 0.87, "hyper fixed_point": 0.84, "hyper neumann": 0.84}
+
+# The lifecycle phase: the dense flagship above (METHODS_BASE) with a
+# prune, with the incremental coreset (classes {0, 1} first, one class
+# added every 34 steps) and, under the joint trainer through B3, with a
+# prune; each through run_psvi, the final evaluation after steps − 1 steps;
+# (label, engine options, steps).
+LIFECYCLE_RUNS = [
+    ("prune 48->24 at 50", dict(prune=True, prune_interval=50, prune_sizes=(24,)), 101),
+    ("increment 24-36-48 every 34",
+     dict(increment=True, increment_sizes=(24, 36, 48), increment_interval=34), 101),
+    # 151 steps: the joint trainer restarts its net at the prune, and 100
+    # steps after it are needed for a gate. After 21 steps (pruned at 10)
+    # JAX reads 0.51 / 0.045 / 0.535 over seeds 0-2, which gates nothing;
+    # after 101 (pruned at 50) it spreads over 0.70-0.905 on seeds 0-4, and
+    # the card's seeds 0-4 over 0.585-0.95 (PERF.md §6)
+    ("joint pallas prune 48->24 at 50",
+     dict(trainer="joint", backend="pallas", prune=True, prune_interval=50, prune_sizes=(24,)),
+     151),
+]
+# each run's gate: the JAX engine's lowest final accuracy over seeds 0-2 on
+# the CPU, minus 0.05 (scripts/torch_methods_jax_gates.py; PERF.md §2)
+LIFECYCLE_GATES = {"prune 48->24 at 50": 0.90, "increment 24-36-48 every 34": 0.895,
+                   "joint pallas prune 48->24 at 50": 0.845}
 
 
 _T0 = time.perf_counter()
@@ -587,6 +628,16 @@ def check_caps(FN, make_psvi_engine, DataBundle, chk, dev):
               "vs_float64": compare_steps(chk, "caps", cfg, k, r)})
 
 
+def read_launches(mods, expected):
+    """Every kernel's launch count since the last reset; each must equal
+    ``expected[name]``."""
+    launches = {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
+    for k, n in launches.items():
+        if n != expected[k]:
+            raise AssertionError(f"kernel {k} launched {n} times, expected {expected[k]}")
+    return launches
+
+
 def run_engine(mods, make_psvi_engine, data, expected, **kw):
     """One run_psvi through the user's entry point, with the launch counters
     of every kernel module (``mods``) set to 0 just before and read just
@@ -611,11 +662,8 @@ def run_engine(mods, make_psvi_engine, data, expected, **kw):
     res = eng.run_psvi()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
+    launches = read_launches(mods, expected)
     finite = bool(torch.isfinite(torch.stack(losses)).all())
-    for k, n in launches.items():
-        if n != expected[k]:
-            raise AssertionError(f"kernel {k} launched {n} times, expected {expected[k]}")
     if not finite:
         raise AssertionError("non-finite outer loss on the main path")
     return eng, res, launches, secs
@@ -705,6 +753,184 @@ def check_methods(mods, make_psvi_engine, blobs, mnist, only):
             raise AssertionError(f"LeNet {label}: v moved {moved}, accs {res['accs']}")
         engines[f"lenet {label}"] = eng
     return engines
+
+
+def run_lifecycle(mods, make_psvi_engine, data, expected, prepare=None, **kw):
+    """One run_psvi of a lifecycle run, with the launch counters as in
+    ``run_engine`` (``prepare(engine)``, if given, runs before they are set
+    to 0). The run re-chooses its step at each change of shape, so the
+    engine's fused dense step itself is wrapped: CUDA events around each
+    call give its median ms by (M, classes). Returns (engine, results,
+    launch counts, seconds, {"M=..,nc=..": [median ms, steps]})."""
+    eng = make_psvi_engine(data, **kw)
+    eng.step_path = eng._step.__name__
+    fused, timed_steps = eng._nested_step_fused, []
+
+    def timed(state, batch=None, eps=None):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, aux = fused(state, batch=batch, eps=eps)
+        ev[1].record()
+        timed_steps.append((f"M={eng.num_pseudo},nc={eng.nc}", ev, aux["outer_loss"]))
+        return state, aux
+
+    eng._nested_step_fused = timed
+    eng._rebuild()
+    if prepare is not None:
+        prepare(eng)
+    torch.cuda.synchronize()
+    for mod in mods:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run_psvi()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(mods, expected)
+    by_shape = {}
+    for shape, (s, e), loss in timed_steps:
+        if not math.isfinite(float(loss)):
+            raise AssertionError(f"non-finite outer loss at {shape}")
+        by_shape.setdefault(shape, []).append(s.elapsed_time(e))
+    step_ms = {shape: [float(np.median(ms)), len(ms)] for shape, ms in by_shape.items()}
+    quality = res.get("accs", []) + res.get("nlls", [])
+    if not all(math.isfinite(x) for x in quality):
+        raise AssertionError(f"non-finite accuracy or NLL: {quality}")
+    return eng, res, launches, secs, step_ms
+
+
+def check_lifecycle(mods, make_psvi_engine, blobs, halfmoon, mnist, only, lenet_kw, card):
+    """The lifecycle phase, every run through ``run_psvi`` with every
+    launch counter checked exactly: the prune, incremental and joint-prune
+    runs of ``LIFECYCLE_RUNS`` (their shapes after the run, their gates
+    from the JAX package); a checkpoint resume at the dense flagship (30
+    steps, save, 20 more; a fresh engine loads and runs the same 20) and
+    at the LeNet flagship (3 + 3), state leaves equal bit for bit; a
+    scoring run with ``log_pseudodata`` (halfmoon logreg M=30: both CSV
+    files, N rows; every grid prediction sums to 1); then a psvi_evaluate
+    engine warm-started from that run's saved results (v equals the saved
+    ``vs[-1]``; no kernel launches, in JAX as here)."""
+    import tempfile
+
+    from psvi_torch.utils.results import save_results
+    from psvi_torch.utils.tree import tree_leaves
+
+    for label, opts, steps in LIFECYCLE_RUNS:
+        kw = {**METHODS_BASE, **opts, "num_epochs": steps, "log_every": steps - 1}
+        if opts.get("trainer") == "joint":
+            expected = only(sampled_linear=b3_expected(blobs, kw, 1))
+        else:
+            expected = only(nested_fwd=steps, nested_outer=steps, nested_rev=steps)
+        eng, res, launches, secs, step_ms = run_lifecycle(mods, make_psvi_engine, blobs,
+                                                          expected, **kw)
+        acc, gate = res["accs"][-1], LIFECYCLE_GATES[label]
+        classes = sorted(int(c) for c in torch.unique(eng.y_test).tolist())
+        emit({"phase": "lifecycle", "card": card, "config": f"four_blobs fn 2-40-4 M=48 {label}",
+              "steps": steps, "accs": res["accs"], "nlls": res["nlls"], "csizes": res["csizes"],
+              "gate": gate, "launches": launches, "seconds": secs, "step_path": eng.step_path,
+              "u_shape": list(eng.state.u.shape), "nc": eng.nc, "test_classes": classes,
+              "fused_step_ms_by_shape": step_ms})
+        want_u = (48, 2) if opts.get("increment") else (24, 2)
+        if tuple(eng.state.u.shape) != want_u or eng.num_pseudo != want_u[0]:
+            raise AssertionError(f"{label}: u {tuple(eng.state.u.shape)}, expected {want_u}")
+        if opts.get("increment") and (eng.nc != 4 or classes != [0, 1, 2, 3]):
+            raise AssertionError(f"{label}: {eng.nc} classes, test classes {classes}")
+        if not opts.get("increment") and res["csizes"][-1] != 24:
+            raise AssertionError(f"{label}: csizes {res['csizes']}")
+        if not acc >= gate:
+            raise AssertionError(f"{label}: final accuracy {acc} < {gate}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # checkpoint resume, bit for bit
+        dense_kw = {**METHODS_BASE, "log_every": 10}
+        mismatched = {}
+        for name, data, kw, n1, n2 in (
+                ("four_blobs fn 2-40-4 M=48", blobs, dense_kw, 30, 20),
+                ("synth_mnist lenet psvi_learn_v M=100 S=10 T=20 B=256", mnist, lenet_kw, 3, 3)):
+            path = str(tmp / "ckpt.npz")
+            first = make_psvi_engine(data, **{**kw, "num_epochs": n1})
+            for mod in mods:
+                mod.reset_launches()
+            first.run_psvi()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first.save_checkpoint(path)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            first.num_epochs = n2
+            res_a = first.run_psvi()
+            resumed = make_psvi_engine(data, **{**kw, "num_epochs": n2})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resumed.load_checkpoint(path)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            res_b = resumed.run_psvi()
+            torch.cuda.synchronize()
+            n = n1 + 2 * n2
+            launches = read_launches(mods, only(lenet_fwd=n, lenet_rev=n) if data is mnist else
+                                     only(nested_fwd=n, nested_outer=n, nested_rev=n))
+            la, lb = tree_leaves(first.state), tree_leaves(resumed.state)
+            differ = [i for i, (x, y) in enumerate(zip(la, lb))
+                      if not (torch.equal(x, y) if torch.is_tensor(x) else x == y)]
+            same_accs = res_a["accs"] == res_b["accs"] and res_a["nlls"] == res_b["nlls"]
+            emit({"phase": "lifecycle", "card": card, "config": f"{name} checkpoint resume "
+                  f"{n1} + {n2} steps", "leaves": len(la), "leaves_differing": differ,
+                  "accs_equal": same_accs, "accs": res_b["accs"], "save_ms": save_ms,
+                  "load_ms": load_ms, "bytes": Path(path).stat().st_size,
+                  "launches": launches})
+            if differ or not same_accs or len(la) != len(lb):
+                mismatched[name] = differ
+        if mismatched:
+            raise AssertionError(f"checkpoint resume not bit for bit: leaves {mismatched}")
+
+        # a scoring run with logged pseudodata, then a warm start from it
+        sc_kw = dict(method="psvi_learn_v", num_pseudo=30, mc_samples=10,
+                     architecture="logistic_regression", inner_it=10, data_minibatch=128,
+                     init_sd=1e-3, num_epochs=101, log_every=50, seed=0, scoring_run=True,
+                     log_pseudodata=True, data_folder=str(tmp), dnm="halfmoon")
+        eng, res, launches, secs, step_ms = run_lifecycle(
+            mods, make_psvi_engine, halfmoon,
+            only(nested_fwd=101, nested_outer=101, nested_rev=101), **sc_kw)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            eng._forgetting_calculator()
+        forget_ms = (time.perf_counter() - t0) / 20 * 1e3
+        scores = np.genfromtxt(tmp / "score_psvi_halfmoon_0.csv", delimiter=",", names=True)
+        emb = np.loadtxt(tmp / "embedding_halfmoon_0.csv", delimiter=",")
+        grid_err = max(float(np.abs(g.sum(axis=0) - 1).max()) for g in res["grid_preds"])
+        emit({"phase": "lifecycle", "card": card, "config": "halfmoon logreg psvi_learn_v M=30 "
+              "scoring_run log_pseudodata", "accs": res["accs"], "launches": launches,
+              "seconds": secs, "fused_step_ms_by_shape": step_ms,
+              "forgetting_calculator_ms": forget_ms, "score_columns": list(scores.dtype.names),
+              "score_rows": len(scores), "embedding_shape": list(emb.shape),
+              "grid_preds": [list(g.shape) for g in res["grid_preds"]],
+              "grid_sum_max_err": grid_err})
+        if (list(scores.dtype.names) != ["el2n", "forgetting", "entropy", "least_confidence"]
+                or len(scores) != halfmoon.N or emb.shape != (halfmoon.N, 2)):
+            raise AssertionError(f"scoring CSVs: columns {scores.dtype.names}, "
+                                 f"{len(scores)} rows, embeddings {emb.shape}")
+        if len(res["grid_preds"]) != 3 or len(res["us"]) != 3 or not grid_err <= 1e-4:
+            raise AssertionError(f"grid predictions: {len(res['grid_preds'])}, err {grid_err}")
+        save_results({"halfmoon": {"psvi_learn_v": {30: {0: res}}}}, str(tmp / "run"))
+        saved_v = torch.as_tensor(res["vs"][-1])
+        ws_kw = {**sc_kw, "method": "psvi_evaluate", "num_epochs": 11, "log_every": 10,
+                 "scoring_run": False, "log_pseudodata": False, "results_folder": str(tmp)}
+        loaded = {}
+
+        def warm_start(e):
+            e.load_saved_coreset("run", "halfmoon", "psvi_learn_v", 30, ablated_weights=False,
+                                 ablated_alpha=False, ablated_labels=False)
+            loaded["v"] = bool(torch.equal(e.state.v.cpu(), saved_v))
+
+        eng, res, launches, secs, _ = run_lifecycle(mods, make_psvi_engine, halfmoon, only(),
+                                                    prepare=warm_start, **ws_kw)
+        kept = bool(torch.equal(eng.state.v.cpu(), saved_v))
+        emit({"phase": "lifecycle", "card": card, "config": "halfmoon logreg psvi_evaluate M=30 "
+              "warm start from the saved scoring run", "steps": 11, "accs": res["accs"],
+              "v_equals_saved": loaded["v"], "v_kept": kept, "launches": launches,
+              "seconds": secs, "step_path": eng.step_path})
+        if not (loaded["v"] and kept):
+            raise AssertionError(f"warm start: v equals the saved v {loaded['v']}, kept {kept}")
 
 
 def median_ms(fn, reps=60, warmup=5):
@@ -1530,6 +1756,10 @@ def main() -> int:
 
     # 4b. the remaining methods and trainers, which no kernel serves
     method_engines = check_methods(mods, make_psvi_engine, blobs, mnist, only)
+
+    # 4c. the coreset lifecycle, through the same kernels at shapes that
+    # change mid-run
+    check_lifecycle(mods, make_psvi_engine, blobs, halfmoon, mnist, only, lenet_kw, card)
 
     # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; sinus
     # regressor 1-40-1, M=10, B=64; LeNet flagship)

@@ -1,4 +1,4 @@
-"""Device resolution and the float32 policy.
+"""Device resolution, the float32 policy and the determinism policy.
 
 ``device=None`` means the CUDA card: the port has no CPU fallback. The CPU
 runs only when the caller asks for it (``device="cpu"``), as the tests do.
@@ -17,6 +17,14 @@ holds their gate of 1e-5·max|ref| against the plain fp32 version, which a
 single TF32 pass does not. Both ops are ``once_differentiable``, so no
 second-order term passes through them; no kernel of the nested path (B1,
 B2) uses TF32.
+
+Every kernel of the port sums in a fixed order, so a rerun is bitwise; so
+is a resumed run (``PSVI.load_checkpoint``). The one library call on a
+step's path that is not, by default, is cuDNN's backward of a
+convolution: the LeNet outer IW-ELBO's gradient through conv2 then
+differs in the last bits from run to run. So :func:`resolve_device` also
+asks cuDNN for its deterministic algorithms (on the H100 the LeNet step
+took the same time both ways; PERF.md §6).
 """
 
 from __future__ import annotations
@@ -25,9 +33,11 @@ import torch
 
 
 def fp32_exact():
-    """Disable TF32 for CUDA matmuls and cuDNN convolutions (process-wide)."""
+    """Disable TF32 for CUDA matmuls and cuDNN convolutions, and take
+    cuDNN's deterministic algorithms (process-wide)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 def resolve_device(device=None) -> torch.device:

@@ -36,7 +36,15 @@ method of ``METHOD_SPECS``:
   ``retrain_on_coreset``;
 - ``PSVIRegressor`` — the Gaussian likelihood at precision ``tau``, the
   pseudo-targets z learned with the other hyperparameters, RMSE and
-  predictive-LL evaluation.
+  predictive-LL evaluation;
+- the coreset lifecycle (JAX ``psvi.py:1380-1838``): ``prune_coreset``,
+  the incremental (class-by-class) coreset with replay
+  (``increment_coreset``, ``sample_replay_indices``,
+  ``_advance_increment_task``), ``save_checkpoint``/``load_checkpoint``
+  (bit-exact resume), ``load_saved_coreset`` (warm start from a saved
+  run), ``reseed``, ``pred_on_grid``, the data-difficulty scoring run and
+  ``profile_dir``. A change of M or of the class count re-chooses the step
+  (``_rebuild``), so the fused gates are checked again at the new shape.
 
 Noise, batches and initial parameters come from one ``torch.Generator``
 per engine on its device, seeded from ``seed`` (the JAX engine's
@@ -50,6 +58,7 @@ and noise; the tests use that seam to line the port up with JAX.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, NamedTuple
 
@@ -65,8 +74,10 @@ from psvi_torch.ops import fused_lenet as FL
 from psvi_torch.ops import fused_nested as FN
 from psvi_torch.ops import hypergrad as H
 from psvi_torch.ops import optim as O
+from psvi_torch.utils.checkpoint import load_state, save_state
 from psvi_torch.utils.config import METHOD_SPECS
 from psvi_torch.utils.resource import LogResource
+from psvi_torch.utils.results import retrieve_results
 from psvi_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -118,6 +129,22 @@ class PSVI:
     LeNet kernel pair on CUDA. The JAX engine never auto-selected its
     Pallas pair because of the Mosaic compile envelope (S ≤ 4, M·P1² ≤
     4096); the CUDA kernels have no such envelope.
+
+    The lifecycle options, with JAX's defaults and meanings: ``prune``
+    down-samples the coreset to ``prune_sizes[i]`` after step
+    ``(i + 1)·prune_interval``; ``increment`` starts on classes {0, 1} at
+    M = ``increment_sizes[0]`` and adds one class and its points every
+    ``increment_interval`` steps, the train set then the new class plus a
+    replay drawn from the coreset; ``log_pseudodata`` logs u, z and, for
+    2-D inputs, ``pred_on_grid`` at every evaluation; ``scoring_run``
+    tracks forgetting events and writes the data-difficulty scores and the
+    embeddings as CSV files into ``data_folder``, named by ``dnm`` and the
+    seed; ``results_folder`` is where ``load_saved_coreset`` looks;
+    ``init_dataset`` = (x, y) is the pool the pseudodata init subsamples
+    in place of the train set; ``profile_dir`` writes a torch.profiler
+    Chrome trace of the run there. The step is re-chosen after each prune
+    and increment, so a shape the fused gate refuses takes the plain step
+    (and ``fused_inner=True`` raises there).
     """
 
     likelihood = "categorical"
@@ -150,7 +177,14 @@ class PSVI:
         learn_z=None,
         reset: bool = False,
         reset_interval: int = 10,
+        prune: bool = False,
+        prune_interval=None,
+        prune_sizes: tuple = (),
+        increment: bool = False,
+        increment_interval=None,
+        increment_sizes: tuple = (),
         retrain_on_coreset: bool = False,
+        log_pseudodata: bool = False,
         compute_weights_entropy: bool = True,
         tau: float = 0.1,
         hyper_K: int = 30,
@@ -161,6 +195,12 @@ class PSVI:
         remat_inner: bool = False,
         backend: str = "xla",
         fused_inner="auto",
+        data_folder=None,
+        results_folder=None,
+        dnm: str = "data",
+        scoring_run: bool = False,
+        profile_dir=None,
+        init_dataset=None,
         device=None,
         **unported,
     ):
@@ -192,8 +232,10 @@ class PSVI:
         if learn_z:
             self.spec = dataclasses.replace(self.spec, learn_z=True)
         self.seed = seed
+        # N stays the full data.N under increment, as in JAX: the core
+        # weights N·f(v) and the StepLR quarter read it
         self.N, self.D, self.nc = data.N, data.D, data.nc
-        self.num_pseudo = num_pseudo
+        self.num_pseudo = increment_sizes[0] if increment and increment_sizes else num_pseudo
         # PSVI_No_IW trains on one sample and evaluates on five (ref :1411-1472)
         self.mc_samples = 1 if self.spec.single_sample_train else mc_samples
         self.mc_samples_eval = 5 if self.spec.single_sample_train else mc_samples
@@ -208,6 +250,15 @@ class PSVI:
         self.register_elbos = register_elbos
         self.init_args = init_args
         self.reset, self.reset_interval = reset, reset_interval
+        self.prune, self.prune_interval = prune, prune_interval
+        self.prune_sizes = tuple(prune_sizes or ())
+        self.increment, self.increment_interval = increment, increment_interval
+        self.increment_sizes = tuple(increment_sizes or ())
+        self.log_pseudodata = log_pseudodata
+        self.data_folder, self.results_folder, self.dnm = data_folder, results_folder, dnm
+        self.scoring_run = scoring_run
+        self.profile_dir = profile_dir
+        self.init_dataset = init_dataset
         self.retrain_on_coreset = retrain_on_coreset
         self.backend = backend
         self.compute_weights_entropy = compute_weights_entropy
@@ -220,29 +271,60 @@ class PSVI:
         self.elbos: list = []
         self.results: dict = {}
         self.chosen_indices: list = []
+        # the scoring run's per-datapoint trackers (_forgetting_calculator)
+        self.forgetting_events = self.last_acc = self.never_learnt = None
 
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
 
-        dev = self.device
-        self.x_train = torch.as_tensor(data.x, dtype=torch.float32, device=dev)
-        self.y_train = torch.as_tensor(data.y, dtype=torch.float32, device=dev)
-        self.x_test = torch.as_tensor(data.xt, dtype=torch.float32, device=dev)
-        self.y_test = torch.as_tensor(data.yt, dtype=torch.float32, device=dev)
-        self.n_train_now = int(self.x_train.shape[0])
-        self.data_minibatch = min(data_minibatch, self.N, self.n_train_now)
-
-        # conv + max-pool pairs fold into the parity-split pooled conv, as
-        # the JAX engine's default fuse_convpool; then the dense backend
-        self.net = with_dense_backend(fuse_conv_pool(set_up_model(
-            architecture, self.D, n_hidden, self.nc, init_sd, n_layers=n_layers,
-            n_channels=data.channels or 1)), backend).to(dev)
+        self.data_minibatch = min(data_minibatch, self.N)
+        if self.increment:  # the first task: classes {0, 1} (ref run_psvi :823-832)
+            self.nc = 2
+            self._reset_increment_data()
+        else:
+            self._set_data(data.x, data.y, data.xt, data.yt)
+        self._build_model()
         self._init_state()
-        self._step = self._trainer_fn()
+        self._rebuild()
+        # what prune and increment change, for reseed
+        self._orig_num_pseudo, self._orig_nc = self.num_pseudo, self.nc
 
     # ------------------------------------------------------------------
     # construction
     # ------------------------------------------------------------------
+
+    def _set_data(self, x, y, xt, yt):
+        """Put the current train and test sets on the device; the minibatch
+        shrinks to a smaller train set and never grows back."""
+        dev = self.device
+        self.x_train = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        self.y_train = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        self.x_test = torch.as_tensor(xt, dtype=torch.float32, device=dev)
+        self.y_test = torch.as_tensor(yt, dtype=torch.float32, device=dev)
+        self.n_train_now = int(self.x_train.shape[0])
+        self.data_minibatch = min(self.data_minibatch, self.n_train_now)
+
+    def _reset_increment_data(self):
+        """The incremental run's first task, classes {0, 1} (JAX
+        ``_reset_increment_data``)."""
+        d = self.data
+        tr, te = np.isin(d.y, [0, 1]), np.isin(d.yt, [0, 1])
+        self._set_data(d.x[tr], d.y[tr], d.xt[te], d.yt[te])
+        self.train_data_so_far = self.n_train_now
+
+    def _build_model(self):
+        """The net at the current class count (JAX ``_build_model``): conv +
+        max-pool pairs fold into the parity-split pooled conv, as the JAX
+        engine's default fuse_convpool; then the dense backend."""
+        self.net = with_dense_backend(fuse_conv_pool(set_up_model(
+            self.architecture, self.D, self.n_hidden, self.nc, self.init_sd,
+            n_layers=self.n_layers, n_channels=self.data.channels or 1)),
+            self.backend).to(self.device)
+
+    def _rebuild(self):
+        """Re-choose the step for the current M, class count and minibatch
+        (JAX ``_compile``): the fused gates are checked again."""
+        self._step = self._trainer_fn()
 
     def _core_weights(self, v, alpha):
         """N·f(v) and f(v) (ref ``psvi_classes.py:111,1358-1360,1486-1488``)."""
@@ -251,16 +333,30 @@ class PSVI:
             fv = torch.exp(alpha[0]) * fv
         return self.N * fv, fv
 
+    def _init_pool(self):
+        """The (x, y) the pseudodata init draws from, as NumPy arrays:
+        ``init_dataset`` when given (ref :115,234), else the current train
+        set (under ``increment`` the first task's, not ``data.x``)."""
+        if self.init_dataset is not None:
+            return np.asarray(self.init_dataset[0]), np.asarray(self.init_dataset[1])
+        return self.x_train.cpu().numpy(), self.y_train.cpu().numpy()
+
     def _init_pseudodata(self):
         """Pseudodata init (ref :229-308) on the host with NumPy, the same
-        draws as the JAX engine: 'subsample' = class-balanced random subset;
-        'random' = noisy empirical mean + balanced labels."""
+        draws as the JAX engine: 'subsample' = class-balanced random subset
+        of the current train set, or of ``init_dataset`` when one is given;
+        'saved' the same ('load_saved_coreset' warm-starts from a stored
+        run); 'random' = noisy empirical mean + balanced labels."""
         M, nc = self.num_pseudo, self.nc
-        x_np, y_np = np.asarray(self.data.x), np.asarray(self.data.y)
+        x_np, y_np = self._init_pool()
         rng = np.random.default_rng(self.seed)
         ppc = [M // nc] * nc
         ppc[-1] = M - sum(ppc[:-1])
-        if self.init_args == "subsample":
+        if self.init_args == "custom":
+            raise NotImplementedError(
+                "init_args='custom' needs the selection subsystem (CoresetSelect), which is "
+                "not ported yet (ROADMAP.md, queue A item 10)")
+        if self.init_args in ("subsample", "saved"):
             us, zs, idcs = [], [], []
             for c in range(nc):
                 cls_idx = np.where(y_np == c)[0]
@@ -275,7 +371,7 @@ class PSVI:
             u = mean + 1.0 * rng.standard_normal((M,) + x_np.shape[1:]).astype(np.float32)
             z = np.concatenate([np.full(p, c, dtype=np.float32) for c, p in enumerate(ppc)])
         else:
-            raise ValueError(f"unknown or unported init_args {self.init_args!r}")
+            raise ValueError(f"unknown init_args {self.init_args!r}")
         dev = self.device
         return (torch.as_tensor(u, dtype=torch.float32, device=dev),
                 torch.as_tensor(z, dtype=torch.float32, device=dev))
@@ -329,6 +425,156 @@ class PSVI:
         :1110-1128)."""
         params = self.net.init(self.gen)
         self.state = self.state._replace(params=params, opt_net=self.opt_net.init(params))
+
+    def reseed(self, seed: int):
+        """Re-initialise for a new trial of the same static config (JAX
+        ``reseed``): the original M, class count and, under ``increment``,
+        the first task's data come back, then a fresh state from ``seed``."""
+        self.seed = seed
+        self.gen.manual_seed(seed)
+        self.elbos, self.results, self.chosen_indices = [], {}, []
+        self.forgetting_events = self.last_acc = self.never_learnt = None
+        if self.num_pseudo != self._orig_num_pseudo or self.nc != self._orig_nc:
+            self.num_pseudo, self.nc = self._orig_num_pseudo, self._orig_nc
+            if self.increment:
+                self._reset_increment_data()
+            self._build_model()
+        self._init_state()
+        self._rebuild()
+
+    # ------------------------------------------------------------------
+    # lifecycle: checkpoints, saved coresets, prune, increment
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, path: str):
+        """The whole state and the generator's state in one ``.npz``, for a
+        bit-exact resume (JAX ``save_checkpoint``; the generator's state
+        takes the place of JAX's key)."""
+        save_state(path, self.state, extra={"gen": self.gen.get_state()})
+
+    def load_checkpoint(self, path: str):
+        """Resume from ``save_checkpoint``'s file, written by an engine of
+        the same static config (``ValueError`` otherwise)."""
+        state, extra = load_state(path, self.state)
+        if "gen" not in extra:
+            raise ValueError(f"{path}: no generator state; not a checkpoint of this package")
+        self.state = state
+        self.gen.set_state(torch.as_tensor(extra["gen"], dtype=torch.uint8))
+
+    def load_saved_coreset(self, subfolder_name: str, dataset: str, method: str,
+                           coreset_size: int, trial: int = 0, ablated_weights: bool = True,
+                           ablated_alpha: bool = True, ablated_labels: bool = True,
+                           fnm: str = "results"):
+        """Warm-start the coreset from a saved run (JAX
+        ``load_saved_coreset``; ref ``custom_init_evaluate`` :377-442): the
+        stored chosen points of the train set, and the stored weights, α and
+        labels unless ablated; ablated weights are drawn standard normal
+        from NumPy's ``default_rng(seed)``, ablated α is 0 and ablated
+        labels are the points' own. The Adam states of u, v, z and α start
+        fresh."""
+        d = retrieve_results(self.results_folder or "results", subfolder_name, dataset,
+                             method, coreset_size, trial, fnm=fnm)
+        rng = np.random.default_rng(self.seed)
+        dev = self.device
+        self.chosen_indices = [int(i) for i in d["chosen_indices"]]
+        idx = torch.as_tensor(self.chosen_indices, dtype=torch.long, device=dev)
+        u = self.x_train[idx]
+        if ablated_labels or d["labels"] is None:
+            z = self.y_train[idx]
+        else:
+            z = torch.as_tensor(d["labels"], dtype=torch.float32, device=dev)
+        if self._learn_z_kldiv and z.dim() == 1:
+            z = torch.nn.functional.one_hot(z.long(), self.nc).to(torch.float32)
+        if ablated_weights or d["weights"] is None:
+            v = rng.standard_normal(self.num_pseudo).astype(np.float32)
+        else:
+            v = d["weights"]
+        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        alpha = (torch.zeros(1, device=dev) if ablated_alpha else
+                 torch.as_tensor(np.atleast_1d(d["alpha"]), dtype=torch.float32, device=dev))
+        self.state = self.state._replace(
+            u=u, z=z, v=v, alpha=alpha, opt_u=self.opt_u.init(u), opt_v=self.opt_v.init(v),
+            opt_z=self.opt_z.init(z), opt_alpha=self.opt_alpha.init(alpha))
+
+    def prune_coreset(self, to_size: int, keep=None):
+        """Down-sample the coreset to ``to_size`` points drawn without
+        replacement with probabilities f(v)/Σf(v) (JAX ``prune_coreset``;
+        ref :1177-1192); ``keep`` hands in the indices instead. v restarts
+        at 0, and the Adam states of u, v, z, the net and the joint trainer
+        restart at the new M."""
+        st = self.state
+        if keep is None:
+            _, fv = self._core_weights(st.v, st.alpha)
+            keep = torch.multinomial(fv / fv.sum(), to_size, replacement=False,
+                                     generator=self.gen)
+        keep = torch.as_tensor(keep, dtype=torch.long, device=self.device)
+        self._set_coreset(st.u[keep], st.z[keep], torch.zeros(to_size, device=self.device))
+
+    def increment_coreset(self, to_size: int, new_class: int, increment_idx: int):
+        """Grow the coreset to ``to_size`` with points of ``new_class``
+        (JAX ``increment_coreset``; ref :1194-1217), drawn from the whole
+        train set by NumPy's ``default_rng(seed + increment_idx)`` (under
+        ``init_args='random'``, noisy means); the new weights are Σv/to_size.
+        The Adam states of u, v, z, α, the net and the joint trainer
+        restart at the new M."""
+        st = self.state
+        dev = self.device
+        n_extra = to_size - int(st.v.shape[0])
+        v = torch.cat([st.v, (torch.sum(st.v) / to_size) * torch.ones(n_extra, device=dev)])
+        if self.increment:
+            x_np, y_np = np.asarray(self.data.x), np.asarray(self.data.y)
+        else:
+            x_np, y_np = self.x_train.cpu().numpy(), self.y_train.cpu().numpy()
+        rng = np.random.default_rng(self.seed + increment_idx)
+        if self.init_args == "random":
+            mean = x_np.mean(axis=0, keepdims=True)
+            new_u = mean + rng.standard_normal((n_extra,) + x_np.shape[1:]).astype(np.float32)
+            new_z = np.full(n_extra, float(new_class))
+        else:
+            cls_idx = np.where(y_np == new_class)[0]
+            take = rng.choice(cls_idx, size=n_extra, replace=len(cls_idx) < n_extra)
+            new_u, new_z = x_np[take], y_np[take]
+        u = torch.cat([st.u, torch.as_tensor(new_u, dtype=torch.float32, device=dev)])
+        z = torch.cat([st.z, torch.as_tensor(new_z, dtype=torch.float32, device=dev)])
+        self._set_coreset(u, z, v, opt_alpha=self.opt_alpha.init(st.alpha))
+
+    def _set_coreset(self, u, z, v, **fresh):
+        """Install a coreset of another size: M follows u, the Adam states of
+        u, v, z, the net and the joint trainer (and those in ``fresh``)
+        restart, and the step is chosen again."""
+        st = self.state
+        self.num_pseudo = int(u.shape[0])
+        self.state = st._replace(
+            u=u, z=z, v=v, opt_u=self.opt_u.init(u), opt_v=self.opt_v.init(v),
+            opt_z=self.opt_z.init(z),
+            opt_joint=self.opt_joint.init(self._joint_leaves(st.params, u, v)),
+            opt_net=self.opt_net.init(st.params), **fresh)
+        self._rebuild()
+
+    def sample_replay_indices(self):
+        """The replay: ``train_data_so_far`` coreset indices drawn with
+        replacement by the current f(v) (JAX ``sample_replay_indices``).
+        Call it before ``increment_coreset``: the reference draws over the
+        pre-increment weights (ref :952)."""
+        _, fv = self._core_weights(self.state.v, self.state.alpha)
+        return torch.multinomial(fv / fv.sum(), self.train_data_so_far, replacement=True,
+                                 generator=self.gen)
+
+    def _advance_increment_task(self, increment_idx: int, samples):
+        """The next task (JAX ``_advance_increment_task``; ref :946-965):
+        train on class ``increment_idx + 1`` plus the replay of the coreset
+        points ``samples``, test on classes 0..increment_idx + 1. The old
+        points keep their leading positions through the increment, so the
+        replay gathers from the grown u and z."""
+        samples = torch.as_tensor(samples, dtype=torch.long, device=self.device)
+        rep_u = self.state.u[samples].cpu().numpy()
+        rep_z = self.state.z[samples].cpu().numpy()
+        d, new_cls = self.data, increment_idx + 1
+        tr, te = d.y == new_cls, np.isin(d.yt, list(range(new_cls + 1)))
+        self._set_data(np.concatenate([d.x[tr], rep_u]), np.concatenate([d.y[tr], rep_z]),
+                       d.xt[te], d.yt[te])
+        self.train_data_so_far = self.n_train_now
+        self._rebuild()
 
     # ------------------------------------------------------------------
     # objectives
@@ -745,18 +991,46 @@ class PSVI:
     # ------------------------------------------------------------------
 
     def run_psvi(self) -> dict:
+        """Run the engine (``_run_psvi_impl``); under ``profile_dir``, inside
+        torch.profiler, with its Chrome trace written into that directory
+        (JAX writes an XLA trace there, ``psvi.py:1566-1574``). On CUDA a
+        trace that recorded no device activity raises."""
+        if not self.profile_dir:
+            return self._run_psvi_impl()
+        from torch.profiler import ProfilerActivity, profile
+
+        on_card = self.device.type == "cuda"
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+        with profile(activities=acts) as prof:
+            results = self._run_psvi_impl()
+        if on_card and not any(e.device_type == torch.autograd.DeviceType.CUDA
+                               for e in prof.events()):
+            raise RuntimeError("torch.profiler recorded no CUDA activity: the device "
+                               "trace did not start")
+        os.makedirs(self.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(self.profile_dir, f"psvi_{self.dnm}_{self.seed}.trace.json"))
+        return results
+
+    def _run_psvi_impl(self) -> dict:
         """Train for ``num_epochs`` outer steps, evaluating every
-        ``log_every``; with ``retrain_on_coreset``, then re-fit the net on the
-        coreset alone for as many steps, evaluated without the IW correction
-        (ref :967-1003). Returns the reference's results dict (JAX engine
-        ``psvi.py:1713-1720``): raw v in ``vs`` while training, f(v) while
-        retraining."""
+        ``log_every``, with the lifecycle hooks in JAX's order
+        (``psvi.py:1593-1721``): the forgetting calculator, the evaluation
+        (and u, z and the grid predictions under ``log_pseudodata``), the
+        reset, the step, then the prune and the increment; with
+        ``retrain_on_coreset``, then re-fit the net on the coreset alone for
+        as many steps, evaluated without the IW correction (ref :967-1003);
+        then the scoring. Returns the reference's results dict: raw v in
+        ``vs`` while training, f(v) while retraining."""
         nlls, accs, csizes, iws_ent, nesses, vs_ent, vs, times = [], [], [], [], [], [], [], [0.0]
+        us, zs, grid_preds = [], [], []
         if self.spec.learn_alpha:
             self.results.setdefault("alpha", [])
         log_resource = LogResource(self.device)
         t_start = time.time()
+        prune_idx = increment_idx = 0
         for it in range(self.num_epochs):
+            self._forgetting_calculator()
             if it % self.log_every == 0:
                 acc, nll, iw_ent, ness, vent = self._evaluate_fn(self.state)
                 accs.append(float(acc))
@@ -770,6 +1044,11 @@ class PSVI:
                 nesses.append(float(ness))
                 if self.spec.learn_alpha:
                     self.results["alpha"].append(self.state.alpha.cpu().numpy())
+                if self.log_pseudodata:
+                    us.append(self.state.u.cpu().numpy())
+                    zs.append(self.state.z.cpu().numpy())
+                    if self.D == 2:
+                        grid_preds.append(self.pred_on_grid())
             if self.reset and it % self.reset_interval == 0:
                 self.weight_reset()
             self.state, aux = self._step(self.state)
@@ -782,6 +1061,22 @@ class PSVI:
                 self.elbos.append((2 if self.trainer == "joint" else 0,
                                    -float(aux["outer_loss"])))
             log_resource.update()
+            if (self.prune and it > 0 and self.prune_interval
+                    and it % self.prune_interval == 0 and prune_idx < len(self.prune_sizes)):
+                self.prune_coreset(self.prune_sizes[prune_idx])
+                prune_idx += 1
+                self.weight_reset()
+            if (self.increment and it > 0 and self.increment_interval
+                    and it % self.increment_interval == 0
+                    and increment_idx < len(self.increment_sizes) - 1):
+                increment_idx += 1
+                self.nc += 1
+                self._build_model()
+                self.weight_reset()
+                replay = self.sample_replay_indices()
+                self.increment_coreset(self.increment_sizes[increment_idx],
+                                       new_class=increment_idx + 1, increment_idx=increment_idx)
+                self._advance_increment_task(increment_idx, replay)
         if self.retrain_on_coreset:
             self.weight_reset()
             for it in range(self.num_epochs):
@@ -795,13 +1090,114 @@ class PSVI:
                     vs.append(fv.cpu().numpy())
                 self.state, _ = self._retrain_step(self.state)
         resources = log_resource.get_resources()
+        self._do_scoring()
         self.results.update(
             accs=accs, nlls=nlls, csizes=csizes, times=times[1:], elbos=self.elbos,
             went=iws_ent, ness=nesses, vent=vs_ent, vs=vs,
             avg_epoch_time=resources["time"], gpu_memory=resources["memory"],
             chosen_indices=self.chosen_indices,
         )
+        if self.log_pseudodata:
+            self.results.update(us=us, zs=zs, grid_preds=grid_preds)
         return self.results
+
+    # ------------------------------------------------------------------
+    # the data-difficulty scoring run (ref :1219-1339) and the grid
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _train_set_mean_probs(self, eps=None, batch: int = 1024):
+        """The MC-mean softmax probabilities over the (ordered) train set,
+        ``batch`` points at a time; ``eps`` injects one noise tree per batch
+        (else each is drawn)."""
+        out = []
+        for j, i in enumerate(range(0, self.n_train_now, batch)):
+            e = eps[j] if eps is not None else self._sample_eps(self.mc_samples_eval)
+            logits = self.net.apply(self.state.params, e, self.x_train[i:i + batch])
+            out.append(torch.softmax(logits.mean(dim=0), dim=-1).cpu().numpy())
+        return np.concatenate(out, axis=0)
+
+    def _forgetting_calculator(self, eps=None):
+        """Forgetting events over the train set, once before every step of
+        a scoring run (ref ``_forgetting_calculator`` :1277-1306); ``eps``
+        as for ``_train_set_mean_probs``."""
+        if not self.scoring_run:
+            return
+        if self.forgetting_events is None:
+            n = self.n_train_now
+            self.forgetting_events = np.zeros(n, np.float32)
+            self.last_acc = np.zeros(n, np.float32)
+            self.never_learnt = np.ones(n, np.float32)
+        probs = self._train_set_mean_probs(eps)
+        y = self.y_train.cpu().numpy().astype(int)
+        curr_acc = (probs.argmax(-1) == y).astype(np.float32)
+        self.forgetting_events[self.last_acc > curr_acc] += 1
+        self.last_acc = curr_acc
+        self.never_learnt = np.minimum(self.never_learnt, 1.0 - curr_acc)
+
+    def _do_scoring(self, eps=None, emb_eps=None):
+        """The final EL2N, forgetting, entropy and least-confidence scores of
+        a scoring run, one row per train point, into
+        ``{data_folder}/score_psvi_{dnm}_{seed}.csv`` (ref ``_do_scoring``
+        :1219-1274), then the embeddings. ``eps`` and ``emb_eps`` inject
+        the per-batch noise of the probabilities and of the embeddings."""
+        if not self.scoring_run:
+            return
+        probs = self._train_set_mean_probs(eps)
+        y = self.y_train.cpu().numpy().astype(int)
+        onehot = np.eye(self.nc, dtype=np.float32)[y]
+        entropy = -(probs * np.log(probs + 1e-20)).sum(1)
+        least_conf = 1.0 - probs.max(1)
+        el2n = np.linalg.norm(probs - onehot, axis=1)
+        self.forgetting_events = np.maximum(self.num_epochs * self.never_learnt,
+                                            self.forgetting_events)
+        folder = self.data_folder or "."
+        os.makedirs(folder, exist_ok=True)
+        np.savetxt(os.path.join(folder, f"score_psvi_{self.dnm}_{self.seed}.csv"),
+                   np.column_stack([el2n, self.forgetting_events, entropy, least_conf]),
+                   delimiter=",", header="el2n,forgetting,entropy,least_confidence",
+                   comments="")
+        self._save_embeddings(emb_eps)
+
+    @torch.no_grad()
+    def _save_embeddings(self, eps=None, batch: int = 1024):
+        """The penultimate layer's activations summed over the S samples,
+        one row per train point, into
+        ``{data_folder}/embedding_{dnm}_{seed}.csv`` (ref ``_get_embeddings``
+        :1308-1339); ``eps`` injects one noise tree per batch."""
+        S = self.mc_samples_eval
+        rows = []
+        for j, i in enumerate(range(0, self.n_train_now, batch)):
+            e = eps[j] if eps is not None else self._sample_eps(S)
+            xb = self.x_train[i:i + batch]
+            h = xb.unsqueeze(0).expand((S,) + tuple(xb.shape))
+            for layer, p, el in zip(list(self.net.layers)[:-1], self.state.params[:-1], e[:-1]):
+                h = layer.apply(p, el, h)
+            rows.append(h.sum(dim=0).cpu().numpy())
+        np.savetxt(os.path.join(self.data_folder or ".", f"embedding_{self.dnm}_{self.seed}.csv"),
+                   np.concatenate(rows, axis=0), delimiter=",")
+
+    @torch.no_grad()
+    def pred_on_grid(self, n_test_per_dim: int = 250, correction: bool = True, eps=None):
+        """The predictive probabilities over the 2-D grid [-3, 4] × [-2, 3]
+        (ref :1130-1175), in JAX's ``indexing="ij"`` order: a (nc, n²) array.
+        ``eps`` injects the noise tree (S = ``mc_samples_eval``)."""
+        dev = self.device
+        g0, g1 = torch.meshgrid(torch.linspace(-3, 4, n_test_per_dim, device=dev),
+                                torch.linspace(-2, 3, n_test_per_dim, device=dev),
+                                indexing="ij")
+        grid = torch.stack([g0.reshape(-1), g1.reshape(-1)], dim=-1)
+        if eps is None:
+            eps = self._sample_eps(self.mc_samples_eval)
+        st = self.state
+        cw, _ = self._core_weights(st.v, st.alpha)
+        logits = self.net.apply(st.params, eps, torch.cat([st.u, grid]))
+        M = st.u.shape[0]
+        lw = E.importance_log_weights(self.net, st.params, eps, st.u, st.z, cw,
+                                      likelihood=self.likelihood, learn_z=self._learn_z_kldiv,
+                                      nc=self.nc, tau=self.tau, pseudo_out=logits[:, :M])
+        probs, _ = E.predictive_mixture(logits[:, M:], lw, correction=correction)
+        return probs.T.cpu().numpy()
 
 
 class PSVIRegressor(PSVI):
@@ -817,9 +1213,10 @@ class PSVIRegressor(PSVI):
         """A random subsample of (x, y) pairs (ref :2019-2031), the same
         draws as the JAX engine for the same seed."""
         rng = np.random.default_rng(self.seed)
-        idx = torch.as_tensor(rng.choice(self.x_train.shape[0], size=self.num_pseudo,
-                                         replace=False), device=self.device)
-        return self.x_train[idx], self.y_train[idx].reshape(-1)
+        x_pool, y_pool = self._init_pool()
+        idx = rng.choice(x_pool.shape[0], size=self.num_pseudo, replace=False)
+        return (torch.as_tensor(x_pool[idx], dtype=torch.float32, device=self.device),
+                torch.as_tensor(y_pool[idx].reshape(-1), dtype=torch.float32, device=self.device))
 
     @torch.no_grad()
     def _evaluate_fn(self, state: PSVIState, correction: bool = True, eps=None):
@@ -846,10 +1243,11 @@ class PSVIRegressor(PSVI):
         iw_ent, ness, vent = E.iw_diagnostics(weights, fv, self.num_pseudo)
         return rmse, ll, iw_ent, ness, vent
 
-    def run_psvi(self) -> dict:
+    def _run_psvi_impl(self) -> dict:
         """Train for ``num_epochs`` outer steps, evaluating every
         ``log_every``; returns the JAX regressor's results dict
-        (``psvi.py:1895-1919``). ``vs`` holds f(v), not the raw v."""
+        (``psvi.py:1895-1919``). ``vs`` holds f(v), not the raw v. As in
+        JAX, the regressor's loop has no prune, increment or scoring hook."""
         lls, rmses, csizes, vs, times = [], [], [], [], [0.0]
         if self.spec.learn_alpha:
             self.results.setdefault("alpha", [])

@@ -1,7 +1,9 @@
-"""Minimal pytree helpers over tuples, lists and dicts of tensors.
+"""Minimal pytree helpers over tuples, named tuples, lists and dicts of tensors.
 
 Parameters and noise are nested tuples of per-layer dicts, as in the JAX
-package; these three helpers are all the port needs to map over them.
+package, and the engine state is a named tuple of them (with Adam states,
+also named tuples); these three helpers are all the port needs to map over
+them.
 """
 
 from __future__ import annotations
@@ -12,9 +14,9 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(
-            tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)
-        )
+        mapped = (tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+        # a named tuple takes its fields positionally
+        return type(tree)(*mapped) if hasattr(tree, "_fields") else type(tree)(mapped)
     return fn(tree, *rest)
 
 

@@ -415,7 +415,8 @@ def test_supports_gating():
 
 def test_unported_options_raise():
     data = read_dataset("halfmoon")
-    for option in (dict(inner_unroll=2), dict(inner_optimizer="sgd"), dict(prune=True)):
+    for option in (dict(inner_unroll=2), dict(inner_optimizer="sgd"),
+                   dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PSVI(data, **option, **ENGINE_KW)
     # the hyper trainer and the ablated method are ported: the plain path serves them
