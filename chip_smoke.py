@@ -116,6 +116,20 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              within 1e-4, the forgetting calculator's ms; a psvi_evaluate
              engine warm-started from that run's saved results, v equal
              to the saved ``vs[-1]``, 11 steps, no kernel launch;
+   options — the engine options and the data readers (``check_options``):
+             the literal and argmax-pooled LeNet flagship through
+             ``lenet_fwd``/``lenet_rev``, 3 steps each, within the B2 gate of
+             the default's state; ``fused_eps="stream"`` at the dense,
+             regression and LeNet flagships and LeNet M=16 S=4 T=5, the
+             fused step against ``_nested_step`` from one generator state
+             and both against float64; every inner optimizer (B1 only
+             under Adam); bf16 and packed LeNet and the bf16 LeNet joint run
+             through ``backend="pallas"``, no kernel launch; ``synth_cifar``
+             read; the argmax pool's tie on the card; then each run of
+             ``OPTIONS_RUNS`` (another optimizer, bf16, packed, the stream
+             noise, normal_mvn and synth_mnist_hard) held to
+             ``OPTIONS_GATES``, JAX's lowest accuracy over three seeds minus
+             0.05, every launch count exact;
 5. times   — CUDA-event medians of each kernel (each head at its main
              path's shapes; the dense ones also as 50 calls queued behind a
              device sleep), its plain version, the fused engine steps and
@@ -140,6 +154,8 @@ raises, so the script exits non-zero and prints no ``ok`` line.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import re
@@ -278,6 +294,56 @@ LIFECYCLE_RUNS = [
 # the CPU, minus 0.05 (scripts/torch_methods_jax_gates.py; PERF.md §2)
 LIFECYCLE_GATES = {"prune 48->24 at 50": 0.90, "increment 24-36-48 every 34": 0.895,
                    "joint pallas prune 48->24 at 50": 0.845}
+
+
+# The options phase: the engine options and the data readers, each run
+# through run_psvi with its final evaluation after steps − 1 steps;
+# (label, dataset, base options, engine options, steps, the fused path
+# it must take: "dense" (B1 once a step), "lenet" (B2 once a step) or
+# None (no kernel: another inner optimizer, bf16 or packed))
+LOGREG_BASE = dict(method="psvi_learn_v", num_pseudo=30, mc_samples=10,
+                   architecture="logistic_regression", inner_it=10, data_minibatch=128,
+                   init_sd=1e-3, seed=0)
+LENET_BASE = dict(method="psvi_learn_v", architecture="lenet", num_pseudo=100, mc_samples=10,
+                  inner_it=20, data_minibatch=256, init_sd=1e-3, seed=0)
+OPTIONS_RUNS = [
+    ("four_blobs fn 2-40-4 M=48 fused_eps=stream", "four_blobs", METHODS_BASE,
+     dict(fused_eps="stream"), 101, "dense"),
+    ("four_blobs fn 2-40-4 M=48 inner rmsprop", "four_blobs", METHODS_BASE,
+     dict(inner_optimizer="rmsprop"), 26, None),
+    ("four_blobs fn 2-40-4 M=48 inner adamw", "four_blobs", METHODS_BASE,
+     dict(inner_optimizer="adamw"), 26, None),
+    ("halfmoon logreg M=30 bfloat16", "halfmoon", LOGREG_BASE,
+     dict(compute_dtype="bfloat16"), 101, None),
+    ("four_blobs fn 2-40-4 M=48 packed", "four_blobs", METHODS_BASE, dict(packed=True), 26, None),
+    ("normal_mvn logreg M=30", "normal_mvn", LOGREG_BASE, {}, 26, "dense"),
+    ("synth_mnist_hard lenet M=100 S=10 T=20 B=256", "synth_mnist_hard", LENET_BASE, {}, 31,
+     "lenet"),
+]
+# each run's gate: the JAX engine's lowest final accuracy over seeds 0-2 on
+# the CPU, minus 0.05, and those accuracies (scripts/torch_methods_jax_gates.py
+# --phases options; PERF.md §2); the stream run keeps the engine phase's
+# 0.90 for four_blobs. synth_mnist_hard has a Bayes ceiling near 0.90, and
+# JAX's seeds leave its gate above chance (0.1).
+OPTIONS_JAX_ACCS = {
+    "four_blobs fn 2-40-4 M=48 fused_eps=stream": [0.945, 0.945, 0.970],
+    "four_blobs fn 2-40-4 M=48 inner rmsprop": [0.945, 0.950, 0.965],
+    "four_blobs fn 2-40-4 M=48 inner adamw": [0.925, 0.950, 0.965],
+    "halfmoon logreg M=30 bfloat16": [0.820, 0.840, 0.765],
+    "four_blobs fn 2-40-4 M=48 packed": [0.925, 0.950, 0.960],
+    "normal_mvn logreg M=30": [0.6875, 0.6475, 0.3875],
+    "synth_mnist_hard lenet M=100 S=10 T=20 B=256": [0.850, 0.835, 0.839],
+}
+OPTIONS_GATES = {
+    "four_blobs fn 2-40-4 M=48 fused_eps=stream": 0.90,
+    "four_blobs fn 2-40-4 M=48 inner rmsprop": 0.895,
+    "four_blobs fn 2-40-4 M=48 inner adamw": 0.875,
+    "halfmoon logreg M=30 bfloat16": 0.715,
+    "four_blobs fn 2-40-4 M=48 packed": 0.875,
+    # below chance (0.5): JAX's seed 2 reads 0.3875 after 26 steps
+    "normal_mvn logreg M=30": 0.3375,
+    "synth_mnist_hard lenet M=100 S=10 T=20 B=256": 0.785,
+}
 
 
 _T0 = time.perf_counter()
@@ -644,11 +710,15 @@ def run_engine(mods, make_psvi_engine, data, expected, **kw):
     after; each kernel must have launched ``expected[name]`` times. Returns
     (engine, results, launch counts, seconds)."""
     eng = make_psvi_engine(data, **kw)
-    losses = []
+    losses, events = [], []
     step = eng._step
 
     def recording_step(state):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
         state, aux = step(state)
+        ev[1].record()
+        events.append(ev)
         losses.append(aux["outer_loss"])
         return state, aux
 
@@ -666,11 +736,14 @@ def run_engine(mods, make_psvi_engine, data, expected, **kw):
     finite = bool(torch.isfinite(torch.stack(losses)).all())
     if not finite:
         raise AssertionError("non-finite outer loss on the main path")
+    # the step's median ms over the run (CUDA events around each call)
+    eng.step_ms = float(np.median([a.elapsed_time(b) for a, b in events]))
     return eng, res, launches, secs
 
 
 def hypergrads_of(eng, step, state, batch, eps):
-    """One step and the hypergradients it hands to the hyper-Adam update."""
+    """One step and the hypergradients it hands to the hyper-Adam update
+    (``batch`` and ``eps`` None: the step draws its own)."""
     seen = {}
     apply = eng._apply_hyper_updates
 
@@ -931,6 +1004,276 @@ def check_lifecycle(mods, make_psvi_engine, blobs, halfmoon, mnist, only, lenet_
               "seconds": secs, "step_path": eng.step_path})
         if not (loaded["v"] and kept):
             raise AssertionError(f"warm start: v equals the saved v {loaded['v']}, kept {kept}")
+
+
+def _gate_close(a, b):
+    """The B1/B2 gate: cosine > 0.9999 and max|Δ| ≤ 1e-3·max|ref|."""
+    c, r = _cos(a, b), _rel(a, b)
+    return {"cos": c, "rel": r, "ok": c > COS_MIN and r <= REL_G}
+
+
+def _double(tree):
+    """A tree's floating tensors in float64."""
+    from psvi_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point()
+                    else x, tree)
+
+
+@contextlib.contextmanager
+def _plain_versions(FN, FL):
+    """The fused steps through the kernels' plain versions (any dtype), for
+    a float64 reference on CUDA tensors."""
+    flat, unroll = FN.fused_nested_flat, FL.lenet_unroll
+    FN.fused_nested_flat = functools.partial(flat, backend="torch")
+    FL.lenet_unroll = functools.partial(unroll, backend="torch")
+    try:
+        yield
+    finally:
+        FN.fused_nested_flat, FL.lenet_unroll = flat, unroll
+
+
+@contextlib.contextmanager
+def _double_bias_corrections(O):
+    """The plain step's Adam with its bias corrections in double, the fused
+    steps' convention."""
+    bc = O.bias_corrections
+    O.bias_corrections = lambda t, b1, b2: (1.0 - b1 ** t, math.sqrt(1.0 - b2 ** t))
+    try:
+        yield
+    finally:
+        O.bias_corrections = bc
+
+
+def _state_leaves(st):
+    """u, v, α, z and the net's leaves of a state, by name."""
+    from psvi_torch.utils.tree import tree_leaves
+
+    out = {k: getattr(st, k) for k in ("u", "v", "alpha", "z")}
+    out.update({f"net{i}": x for i, x in enumerate(tree_leaves(st.params))})
+    return out
+
+
+def check_options(mods, make_psvi_engine, read_dataset, data, only, reg_kw, card, dev):
+    """The options phase: the engine options and the data readers through
+    the user's entry points, every launch counter set to 0 just before each
+    run and read just after.
+
+    1. The literal LeNet: the flagship, three steps each of the default,
+       ``fuse_convpool=False`` and ``pool_backend="argmax"`` from one seed
+       (the same draws); each launches ``lenet_fwd``/``lenet_rev`` as the
+       default does and ends within the B2 gate of its state.
+    2. ``fused_eps="stream"`` at the dense flagship, the regression step,
+       the LeNet flagship and LeNet at M=16 S=4 T=5: one fused step and one
+       ``_nested_step`` from the same generator state, both generators left
+       in the same state, the fused step 1 launch of each kernel, the plain
+       one 0; the same draws in float64 through both steps with the same
+       constants (the fused one through its kernels' plain versions): the
+       same function, within the B1/B2 gate; and, except at the LeNet
+       flagship, where the plain fp32 step itself misses that gate against
+       its own float64 run, u, v, α, z and the net at the gate between the
+       fp32 steps and the fused step's hypergradients within it of its own
+       float64 run (g_α at its rtol).
+    3. Every inner optimizer of the registry, three steps each on the dense
+       flagship: finite, v moved; B1 once a step under Adam, never else.
+    4. bf16 and packed at the LeNet flagship (3 steps: finite, no B2
+       launch, the step's ms beside the fp32 plain step's), the LeNet joint
+       trainer with ``backend="pallas"`` under bf16 (no B3 launch).
+    5. ``synth_cifar`` read; the argmax pool's tie on the card.
+    6. Each run of ``OPTIONS_RUNS`` held to its gate."""
+    from psvi_torch.models import layers as TL
+    from psvi_torch.ops import fused_lenet as FL
+    from psvi_torch.ops import fused_nested as FN
+    from psvi_torch.ops import optim as O
+
+    blobs, mnist, sinus = data["four_blobs"], data["synth_mnist"], data["sinus"]
+    failed = []  # every check runs; the phase fails at its end if any did
+    lenet3 = {**LENET_BASE, "num_epochs": 3, "log_every": 2}
+
+    # 1. the literal and argmax-pooled LeNet through B2, against the default
+    ref = None
+    for label, opts in (("default", {}), ("fuse_convpool=False", dict(fuse_convpool=False)),
+                        ("pool_backend=argmax", dict(pool_backend="argmax"))):
+        eng, res, launches, secs = run_engine(mods, make_psvi_engine, mnist,
+                                              only(lenet_fwd=3, lenet_rev=3), **lenet3, **opts)
+        layers = [type(l).__name__ for l in eng.net.layers[:2]]
+        leaves = _state_leaves(eng.state)
+        if ref is None:
+            ref, diff = leaves, {}
+        else:
+            diff = {k: _gate_close(leaves[k], ref[k]) for k in ("u", "v")}
+            net = [_gate_close(leaves[k], ref[k]) for k in leaves if k.startswith("net")]
+            diff["net_worst"] = min(net, key=lambda d: (d["ok"], d["cos"], -d["rel"]))
+        emit({"phase": "options", "card": card, "config": "synth_mnist lenet psvi_learn_v M=100 "
+              f"S=10 T=20 B=256 {label}", "layers": layers, "steps": 3, "accs": res["accs"],
+              "launches": launches, "step_ms": eng.step_ms, "step_path": eng.step_path,
+              "vs_default": diff, "seconds": secs})
+        if eng.step_path != "_nested_step_fused_lenet" or not all(
+                d["ok"] for d in diff.values()):
+            failed.append(f"LeNet {label}: path {eng.step_path}, against the default "
+                                 f"{diff}")
+
+    # 2. fused_eps="stream": the fused step against the plain step
+    # (name, data, options, launches of the fused step, fp32 gated): at the
+    # LeNet flagship the plain fp32 step itself misses the gate against its
+    # own float64 run (PERF.md §6), so there the fp32 numbers are
+    # reported and the float64 same-function check gates; the fp32 gates
+    # hold the LeNet pair at a shorter unroll of the same widths
+    for name, d, kw, expect, fp32_gated in (
+            ("four_blobs fn 2-40-4 psvi_learn_v M=48 S=10 T=10 B=128", blobs, METHODS_BASE,
+             only(nested_fwd=1, nested_outer=1, nested_rev=1), True),
+            ("sinus regressor_net 1-40-1 psvi_learn_v_regressor M=10 S=10 T=10 B=64", sinus,
+             reg_kw, only(nested_fwd_gaussian=1, nested_outer_gaussian=1,
+                          nested_rev_gaussian=1), True),
+            ("synth_mnist lenet psvi_learn_v M=100 S=10 T=20 B=256", mnist, LENET_BASE,
+             only(lenet_fwd=1, lenet_rev=1), False),
+            ("synth_mnist lenet psvi_learn_v M=16 S=4 T=5 B=64", mnist,
+             {**LENET_BASE, "num_pseudo": 16, "mc_samples": 4, "inner_it": 5,
+              "data_minibatch": 64}, only(lenet_fwd=1, lenet_rev=1), True)):
+        kw = {k: v for k, v in kw.items() if k not in ("num_epochs", "log_every")}
+        fused = make_psvi_engine(d, **kw, fused_inner=True, fused_eps="stream")
+        plain = make_psvi_engine(d, **kw, fused_inner=False)
+        gen0 = plain.gen.get_state()
+        torch.cuda.synchronize()
+        for mod in mods:
+            mod.reset_launches()
+        sf, af, gf = hypergrads_of(fused, fused._step, fused.state, None, None)
+        torch.cuda.synchronize()
+        launches = read_launches(mods, expect)
+        sp, ap, gp = hypergrads_of(plain, plain._step, plain.state, None, None)
+        torch.cuda.synchronize()
+        read_launches(mods, expect)  # the plain step adds none
+        same_draws = bool(torch.equal(fused.gen.get_state(), plain.gen.get_state()))
+        # the same draws again, in float64: the plain step, as it is (the
+        # plain fp32 step's own reference) and with the fused steps' Adam
+        # bias corrections in double (JAX's fused cores compute them in
+        # double, its plain step in float32), and the fused step through its
+        # kernels' plain versions: with the same constants, the same function
+        plain.gen.set_state(gen0)
+        batch, eps = _double(plain._sample_batch()), _double(plain._stream_eps())
+        s64, a64, g64 = hypergrads_of(plain, plain._nested_step, _double(plain.state), batch, eps)
+        with _double_bias_corrections(O):
+            sd, ad, gd = hypergrads_of(plain, plain._nested_step, _double(plain.state), batch,
+                                       eps)
+        with _plain_versions(FN, FL), _double_bias_corrections(O):
+            sq, aq, gq = hypergrads_of(fused, fused._step, _double(fused.state), batch, eps)
+        torch.cuda.synchronize()
+        ld, lq, l0 = _state_leaves(sd), _state_leaves(sq), _state_leaves(plain.state)
+        moved = [k for k in ld if not torch.equal(ld[k], _double(l0[k]))]
+        same_fn = {f"g_{k}": _gate_close(gq[k], gd[k]) for k in gd}
+        same_fn.update({k: _gate_close(lq[k], ld[k]) for k in moved})
+        grads = {}
+        for k in gd:
+            if k == "alpha":
+                rel = {w: float((g[k].double() - r[k]).abs().max() / r[k].abs().max())
+                       for w, g, r in (("fused", gf, gq), ("plain", gp, g64))}
+                grads[k] = {"fused_vs_own_float64": rel["fused"],
+                            "plain_vs_own_float64": rel["plain"],
+                            "ok": rel["fused"] <= RTOL_ALPHA}
+            else:
+                own = _gate_close(gf[k].double(), gq[k])
+                grads[k] = {"fused_vs_own_float64": own,
+                            "plain_vs_own_float64": _gate_close(gp[k].double(), g64[k]),
+                            "fused_vs_plain": _gate_close(gf[k], gp[k]), "ok": own["ok"]}
+        lf, lp = _state_leaves(sf), _state_leaves(sp)
+        states = {k: _gate_close(lf[k], lp[k]) for k in moved}
+        emit({"phase": "options", "card": card, "config": f"{name} fused_eps=stream: the fused "
+              "step against _nested_step from one generator state; both in float64 with the "
+              "same constants (the fused step through its kernels' plain versions); each fp32 "
+              "step's hypergradients against its own float64 run", "fp32_gated": fp32_gated,
+              "launches": launches, "paths": [fused._step.__name__, plain._step.__name__],
+              "same_draws": same_draws, "float64_same_function": same_fn, "hypergrads": grads,
+              "states_fused_vs_plain": states,
+              "loss": {"fused": float(af["outer_loss"]), "plain": float(ap["outer_loss"]),
+                       "plain_float64": float(a64["outer_loss"]),
+                       "fused_float64": float(aq["outer_loss"])}})
+        bad = [f"float64 {k}" for k, v in same_fn.items() if not v["ok"]]
+        if fp32_gated:
+            bad += ([f"g_{k}" for k, v in grads.items() if not v["ok"]]
+                    + [k for k, v in states.items() if not v["ok"]])
+        if not same_draws or bad or not set(gf) == set(gp) == set(gd) == set(gq):
+            failed.append(f"stream {name}: same draws {same_draws}, outside the gate {bad}")
+    run = dict(METHODS_BASE)
+
+    # 3. every inner optimizer, three steps each
+    for opt in sorted(O.REGISTRY):
+        expect = only(nested_fwd=3, nested_outer=3, nested_rev=3) if opt == "adam" else only()
+        eng, res, launches, secs = run_engine(mods, make_psvi_engine, blobs, expect, **run,
+                                              inner_optimizer=opt, num_epochs=3, log_every=2)
+        moved = not torch.equal(eng.state.v, eng.state0.v)
+        emit({"phase": "options", "card": card, "config": f"four_blobs fn 2-40-4 M=48 inner "
+              f"{opt}", "steps": 3, "accs": res["accs"], "launches": launches,
+              "step_ms": eng.step_ms, "step_path": eng.step_path, "v_moved": moved})
+        if not moved or not all(math.isfinite(x) for x in res["accs"] + res["nlls"]):
+            failed.append(f"inner {opt}: v moved {moved}, accs {res['accs']}")
+
+    # 4. bf16 and packed at the LeNet flagship; the LeNet joint run under bf16
+    plain_fp32 = make_psvi_engine(mnist, **LENET_BASE, fused_inner=False)
+    batch = plain_fp32._sample_batch()
+    st = plain_fp32.state
+    fp32_ms = median_ms(lambda: plain_fp32._nested_step(st, batch), reps=3, warmup=1)
+    for label, opts in (("compute_dtype=bfloat16", dict(compute_dtype="bfloat16")),
+                        ("packed", dict(packed=True))):
+        eng, res, launches, secs = run_engine(mods, make_psvi_engine, mnist, only(),
+                                              **lenet3, **opts)
+        moved = not torch.equal(eng.state.v, eng.state0.v)
+        emit({"phase": "options", "card": card, "config": "synth_mnist lenet psvi_learn_v M=100 "
+              f"S=10 T=20 B=256 {label}", "steps": 3, "accs": res["accs"], "launches": launches,
+              "step_ms": eng.step_ms, "fp32_plain_step_ms": fp32_ms,
+              "step_path": eng.step_path, "v_moved": moved})
+        if not moved or not all(math.isfinite(x) for x in res["accs"] + res["nlls"]):
+            failed.append(f"LeNet {label}: v moved {moved}, accs {res['accs']}")
+    eng, res, launches, secs = run_engine(
+        mods, make_psvi_engine, mnist, only(),
+        **{**lenet3, "trainer": "joint", "backend": "pallas", "compute_dtype": "bfloat16"})
+    emit({"phase": "options", "card": card, "config": "synth_mnist lenet psvi_learn_v M=100 S=10 "
+          "B=256 joint backend=pallas compute_dtype=bfloat16", "steps": 3, "accs": res["accs"],
+          "launches": launches, "step_ms": eng.step_ms, "step_path": eng.step_path})
+    if not all(math.isfinite(x) for x in res["accs"] + res["nlls"]):
+        failed.append(f"LeNet joint bf16: accs {res['accs']}")
+
+    # 5. synth_cifar read; the argmax pool's tie on the card: the first
+    # index of each window takes the gradient, as on the CPU and as the
+    # card's max_pool2d routes it
+    t0 = time.perf_counter()
+    cifar = read_dataset("synth_cifar")
+    read_s = time.perf_counter() - t0
+    x = torch.randint(-2, 3, (4, 6, 28, 28), generator=torch.Generator().manual_seed(0)).float()
+    w = torch.randn(4, 6, 14, 14, generator=torch.Generator().manual_seed(1))
+    g = {}
+    for where, pool in (("cpu", lambda a: TL._argmax_pool(a, 2)),
+                        ("cuda", lambda a: TL._argmax_pool(a, 2)),
+                        ("cuda max_pool2d", lambda a: torch.nn.functional.max_pool2d(a, 2))):
+        xx = x.to("cpu" if where == "cpu" else dev).requires_grad_(True)
+        (g[where],) = torch.autograd.grad(torch.sum(w.to(xx.device) * pool(xx)), xx)
+    ties_ok = all(torch.equal(g["cpu"], v.cpu()) for v in g.values())
+    emit({"phase": "options", "card": card, "config": "readers and ties",
+          "synth_cifar": {"x": list(cifar.x.shape), "xt": list(cifar.xt.shape), "N": cifar.N,
+                          "D": cifar.D, "nc": cifar.nc, "channels": cifar.channels,
+                          "read_s": read_s},
+          "argmax_ties_first_index_on_card": ties_ok})
+    if cifar.x.shape != (6000, 3, 32, 32) or not ties_ok:
+        failed.append(f"synth_cifar {cifar.x.shape}, ties {ties_ok}")
+
+    # 6. the gated runs
+    for label, name, base, opts, steps, path in OPTIONS_RUNS:
+        expect = {"dense": only(nested_fwd=steps, nested_outer=steps, nested_rev=steps),
+                  "lenet": only(lenet_fwd=steps, lenet_rev=steps), None: only()}[path]
+        d = data[name] if name in data else read_dataset(name)
+        eng, res, launches, secs = run_engine(mods, make_psvi_engine, d, expect,
+                                              **{**base, **opts, "num_epochs": steps,
+                                                 "log_every": steps - 1})
+        acc, gate = res["accs"][-1], OPTIONS_GATES[label]
+        emit({"phase": "options", "card": card, "config": label, "steps": steps,
+              "accs": res["accs"], "nlls": res["nlls"], "gate": gate,
+              "jax_accs_seeds_0_1_2": OPTIONS_JAX_ACCS[label], "launches": launches,
+              "step_ms": eng.step_ms, "step_path": eng.step_path, "seconds": secs})
+        if not all(math.isfinite(x) for x in res["accs"] + res["nlls"]):
+            failed.append(f"{label}: non-finite accuracy or NLL")
+        if gate is not None and not acc >= gate:
+            failed.append(f"{label}: final accuracy {acc} < {gate}")
+    if failed:
+        raise AssertionError("options phase: " + "; ".join(failed))
 
 
 def median_ms(fn, reps=60, warmup=5):
@@ -1760,6 +2103,11 @@ def main() -> int:
     # 4c. the coreset lifecycle, through the same kernels at shapes that
     # change mid-run
     check_lifecycle(mods, make_psvi_engine, blobs, halfmoon, mnist, only, lenet_kw, card)
+
+    # 4d. the engine options and the data readers
+    check_options(mods, make_psvi_engine, read_dataset,
+                  {"four_blobs": blobs, "halfmoon": halfmoon, "synth_mnist": mnist,
+                   "sinus": sinus}, only, reg_kw, card, dev)
 
     # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; sinus
     # regressor 1-40-1, M=10, B=64; LeNet flagship)

@@ -11,12 +11,16 @@ Entry points take ``device=None``, which means CUDA; without a GPU they
 raise. Pass ``device="cpu"`` to run the plain PyTorch path on the CPU.
 
 Layout:
-  device.py   device resolution, fp32 policy
-  data/       synthetic datasets (halfmoon, four_blobs, synth_lr_<D>)
-  models/     mean-field variational layers and the dense network builders
-  ops/        ELBOs, differentiable Adam, the fused nested-step kernels
-  inference/  the PSVI engine (nested trainer)
-  utils/      method specs, JAX-to-torch conversion, resource logging
+  device.py   device resolution, the fp32 and determinism policy
+  data/       every dataset reader of the JAX package (generated,
+              scikit-learn's, file-gated)
+  models/     mean-field variational layers, the network builders, packed nets
+  ops/        ELBOs, the differentiable optimizers, hypergradient solvers,
+              the hand-written CUDA kernels and their plain versions
+  inference/  the PSVI engines (nested, joint, alternating and hyper
+              trainers; the lifecycle; the engine options)
+  utils/      method specs, JAX-to-torch conversion, checkpoints, results,
+              resource logging
 """
 
 from psvi_torch.device import resolve_device

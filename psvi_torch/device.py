@@ -18,6 +18,11 @@ single TF32 pass does not. Both ops are ``once_differentiable``, so no
 second-order term passes through them; no kernel of the nested path (B1,
 B2) uses TF32.
 
+Under ``compute_dtype="bfloat16"`` the layers' products take bf16 operands
+(JAX's contract: bf16 products accumulated in float32). cuBLAS may reduce a
+bf16 GEMM in reduced precision unless told not to, so the policy also turns
+``allow_bf16_reduced_precision_reduction`` off.
+
 Every kernel of the port sums in a fixed order, so a rerun is bitwise; so
 is a resumed run (``PSVI.load_checkpoint``). The one library call on a
 step's path that is not, by default, is cuDNN's backward of a
@@ -33,9 +38,11 @@ import torch
 
 
 def fp32_exact():
-    """Disable TF32 for CUDA matmuls and cuDNN convolutions, and take
-    cuDNN's deterministic algorithms (process-wide)."""
+    """Disable TF32 for CUDA matmuls and cuDNN convolutions and reduced-
+    precision bf16 reductions, and take cuDNN's deterministic algorithms
+    (process-wide)."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
 

@@ -44,7 +44,12 @@ method of ``METHOD_SPECS``:
   (bit-exact resume), ``load_saved_coreset`` (warm start from a saved
   run), ``reseed``, ``pred_on_grid``, the data-difficulty scoring run and
   ``profile_dir``. A change of M or of the class count re-chooses the step
-  (``_rebuild``), so the fused gates are checked again at the new shape.
+  (``_rebuild``), so the fused gates are checked again at the new shape;
+- the engine options (JAX ``psvi.py:120-181``): the inner optimizer by
+  name (``ops/optim.REGISTRY``), ``compute_dtype`` (bf16 operands, fp32
+  loss math), ``pool_backend`` and ``fuse_convpool`` (the literal conv →
+  MaxPool2d LeNet, which the LeNet kernel pair also serves), ``packed``
+  (``models/packed.py``), ``fused_eps`` and ``inner_unroll``.
 
 Noise, batches and initial parameters come from one ``torch.Generator``
 per engine on its device, seeded from ``seed`` (the JAX engine's
@@ -67,8 +72,10 @@ import torch
 
 from psvi_torch.data.datasets import DataBundle
 from psvi_torch.device import resolve_device
-from psvi_torch.models.layers import VILinear, fuse_conv_pool, with_dense_backend
+from psvi_torch.models.layers import (VILinear, fuse_conv_pool, with_compute_dtype,
+                                     with_dense_backend, with_pool_backend)
 from psvi_torch.models.networks import set_up_model
+from psvi_torch.models.packed import pack_net
 from psvi_torch.ops import elbo as E
 from psvi_torch.ops import fused_lenet as FL
 from psvi_torch.ops import fused_nested as FN
@@ -79,6 +86,16 @@ from psvi_torch.utils.config import METHOD_SPECS
 from psvi_torch.utils.resource import LogResource
 from psvi_torch.utils.results import retrieve_results
 from psvi_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+# JAX constructor options the port does not have yet, by ROADMAP.md queue A
+# item: selection and the baselines (10), parallelism (11)
+_UNPORTED = {
+    **dict.fromkeys(("mfvi_selection_method", "pretrain_epochs", "load_from_saved",
+                     "multiple_pts_per_cluster", "alpha_dirichlet", "choose_difficult",
+                     "distance_fn", "last_layer_only", "loaded_from_psvi"), "A.10"),
+    **dict.fromkeys(("mesh", "shard_batch", "shard_mc", "stream_data"), "A.11"),
+}
 
 
 class PSVIState(NamedTuple):
@@ -145,6 +162,37 @@ class PSVI:
     Chrome trace of the run there. The step is re-chosen after each prune
     and increment, so a shape the fused gate refuses takes the plain step
     (and ``fused_inner=True`` raises there).
+
+    The engine options, with JAX's defaults and errors:
+
+    - ``inner_optimizer``: the inner loop's optimizer by name, any key of
+      ``ops/optim.REGISTRY`` (case-insensitive; ``ValueError`` otherwise),
+      at lr0net; the nested, truncated and hyper steps take it, the
+      truncated warm-up keeps its own Adam(1e-4). Both fused gates require
+      ``"adam"``.
+    - ``compute_dtype``: ``"bfloat16"`` casts the matmul and conv operands
+      and keeps the activations bf16 between layers; parameters, KL, NKL
+      and the loss math stay float32 (``models/layers.with_compute_dtype``).
+      B3 is float32 only, so its layers take the plain product; both fused
+      gates refuse any other dtype than float32.
+    - ``pool_backend``: ``"reshape"`` or ``"argmax"`` (the gradient to each
+      window's first argmax, ``layers._argmax_pool``). Another backend than
+      ``"reshape"``, ``fuse_convpool=False`` or ``packed`` keeps the literal
+      conv → MaxPool2d net; else conv + pool pairs fold into the
+      parity-split pooled conv. The LeNet kernel pair serves both forms.
+    - ``packed``: the flat ``{mu, rho}`` net of ``models/packed.py``
+      (``ValueError`` where it cannot be packed); the fused gates refuse it.
+    - ``fused_eps``: the fused steps' noise. ``"batched"`` draws the inner
+      noise in the kernels' flat layout in one ``torch.randn`` a step;
+      ``"stream"`` draws it as ``_nested_step`` does (the batch, T
+      ``_sample_eps``, the outer draw) and packs it, so from one generator
+      state the fused and plain steps see the same ε. JAX's ``"batched"``
+      LeNet mode draws the noise in the kernel (``eps_mode="prng"``); the
+      port reads a drawn ε instead (ROADMAP.md §B).
+    - ``inner_unroll``: ``None`` or an integer, stored as ``max(int(x), 1)``.
+      It unrolls JAX's ``lax.scan``, which has no torch meaning: the port's
+      inner loop is a Python loop, and the option has no effect.
+    - ``spec``: a ``MethodSpec`` in place of ``METHOD_SPECS[method]``.
     """
 
     likelihood = "categorical"
@@ -201,13 +249,29 @@ class PSVI:
         scoring_run: bool = False,
         profile_dir=None,
         init_dataset=None,
+        inner_optimizer: str = "adam",
+        inner_unroll=None,
+        compute_dtype: str = "float32",
+        pool_backend: str = "reshape",
+        fuse_convpool: bool = True,
+        fused_eps: str = "batched",
+        packed=None,
+        spec=None,
         device=None,
         **unported,
     ):
+        for name in unported:
+            if name not in _UNPORTED:
+                raise TypeError(f"PSVI() got an unexpected keyword argument {name!r}")
         if unported:
             raise NotImplementedError(
-                f"options {sorted(unported)} are not ported yet (ROADMAP.md, queue A)"
-            )
+                "options not ported yet: " + ", ".join(
+                    f"{k} (ROADMAP.md, {_UNPORTED[k]})" for k in sorted(unported)))
+        if inner_optimizer.lower() not in O.REGISTRY:
+            raise ValueError(f"unknown inner_optimizer {inner_optimizer!r}; "
+                             f"available: {sorted(O.REGISTRY)}")
+        if fused_eps not in ("batched", "stream"):
+            raise ValueError(f"unknown fused_eps {fused_eps!r}")
         if backend == "pallas" and trainer in ("nested", "hyper"):
             raise ValueError(
                 "backend='pallas' serves first-order paths only (joint/alternating "
@@ -228,7 +292,7 @@ class PSVI:
         self.device = resolve_device(device)
         self.data = data
         self.method = method
-        self.spec = METHOD_SPECS[method]
+        self.spec = spec if spec is not None else METHOD_SPECS[method]
         if learn_z:
             self.spec = dataclasses.replace(self.spec, learn_z=True)
         self.seed = seed
@@ -268,6 +332,10 @@ class PSVI:
         self.truncated, self.truncated_K = truncated, truncated_K
         self.remat_inner = remat_inner
         self.fused_inner = fused_inner
+        self.inner_optimizer = inner_optimizer.lower()
+        self.inner_unroll = None if inner_unroll is None else max(int(inner_unroll), 1)
+        self.compute_dtype, self.pool_backend = compute_dtype, pool_backend
+        self.fuse_convpool, self.fused_eps, self.packed = fuse_convpool, fused_eps, packed
         self.elbos: list = []
         self.results: dict = {}
         self.chosen_indices: list = []
@@ -313,13 +381,27 @@ class PSVI:
         self.train_data_so_far = self.n_train_now
 
     def _build_model(self):
-        """The net at the current class count (JAX ``_build_model``): conv +
-        max-pool pairs fold into the parity-split pooled conv, as the JAX
-        engine's default fuse_convpool; then the dense backend."""
-        self.net = with_dense_backend(fuse_conv_pool(set_up_model(
-            self.architecture, self.D, self.n_hidden, self.nc, self.init_sd,
-            n_layers=self.n_layers, n_channels=self.data.channels or 1)),
-            self.backend).to(self.device)
+        """The net at the current class count, in JAX ``_build_model``'s
+        order: the compute dtype; then the pool backend, or, unless packed,
+        conv + max-pool pairs folded into the parity-split pooled conv
+        (``fuse_convpool``); then the dense backend; then packing."""
+        net = set_up_model(self.architecture, self.D, self.n_hidden, self.nc, self.init_sd,
+                           n_layers=self.n_layers, n_channels=self.data.channels or 1)
+        if self.compute_dtype != "float32":
+            net = with_compute_dtype(net, self.compute_dtype)
+        if self.pool_backend != "reshape":
+            net = with_pool_backend(net, self.pool_backend)
+        elif self.fuse_convpool and not self.packed:
+            net = fuse_conv_pool(net)
+        if self.backend != "xla":
+            net = with_dense_backend(net, self.backend)
+        if self.packed:
+            packed = pack_net(net)
+            if packed is None:
+                raise ValueError(f"packed=True unsupported for architecture "
+                                 f"{self.architecture!r} (non-mean-field or stateful layers)")
+            net = packed
+        self.net = net.to(self.device)
 
     def _rebuild(self):
         """Re-choose the step for the current M, class count and minibatch
@@ -400,7 +482,7 @@ class PSVI:
         self.opt_joint = O.adam(self.lrs["joint"])
         # the retrain loop takes a fresh Adam at lr0joint (ref :971)
         self.opt_retrain = O.adam(self.lrs["joint"])
-        self.inner_opt = O.adam(self.lrs["net"])
+        self.inner_opt = O.make(self.inner_optimizer, self.lrs["net"])
         # StepLR schedule for the net lr (ref :803-807,864-866)
         epoch_quarter = (self.N // self.data_minibatch) // 4
         self.lr_net_sched = O.step_lr(
@@ -803,18 +885,28 @@ class PSVI:
             learn_z=bool(self.spec.learn_z and self.likelihood == "gaussian"),
         )
 
+    def _stream_eps(self):
+        """The noise of ``_nested_step``, in its order: T inner trees, then
+        the outer tree (``fused_eps="stream"``)."""
+        return ([self._sample_eps(self.mc_samples) for _ in range(self.inner_it)],
+                self._sample_eps(self.mc_samples))
+
     def _nested_step_fused(self, state: PSVIState, batch=None, eps=None):
         """The nested step through the fused kernels: the CUDA kernels on
-        the card, their plain versions on the CPU. The noise is drawn in
-        the kernels' flat layout in one call per step; injected noise
-        (``eps`` as for ``_nested_step``) is packed into it. The targets
-        are class labels, or for a Gaussian likelihood the real pseudo- and
-        batch targets as flat (M,) and (B,) rows."""
+        the card, their plain versions on the CPU. Under ``fused_eps=
+        "batched"`` the noise is drawn in the kernels' flat layout in one
+        call per step; injected noise (``eps`` as for ``_nested_step``), or
+        under ``"stream"`` noise drawn as ``_nested_step`` draws it, is
+        packed into it. The targets are class labels, or for a Gaussian
+        likelihood the real pseudo- and batch targets as flat (M,) and (B,)
+        rows."""
         xb, yb = batch if batch is not None else self._sample_batch()
         if self.likelihood == "gaussian":
             yb = yb.reshape(-1)
         didx = self._fused_dense_idx()
         cfg = self._fused_cfg(xb.shape[0])
+        if eps is None and self.fused_eps == "stream":
+            eps = self._stream_eps()
         if eps is None:
             e_in = torch.randn((cfg.T, cfg.n_eps), generator=self.gen, device=self.device)
             e_out = torch.randn((cfg.n_eps,), generator=self.gen, device=self.device)
@@ -839,12 +931,17 @@ class PSVI:
         """The LeNet nested step with the T-iteration inner unroll through
         the kernel pair (``ops/fused_lenet.py``: the CUDA kernels on the
         card, their plain versions on the CPU) and the outer IW-ELBO and
-        its gradient through autograd, as ``_nested_step``. The inner noise
-        is drawn in the kernels' flat layout in one call per step; injected
-        noise (``eps`` as for ``_nested_step``) is packed into it."""
+        its gradient through autograd, as ``_nested_step``. Under
+        ``fused_eps="batched"`` the inner noise is drawn in the kernels' flat
+        layout in one call per step; injected noise (``eps`` as for
+        ``_nested_step``), or under ``"stream"`` noise drawn as
+        ``_nested_step`` draws it, is packed into it. The net is the folded
+        or the literal LeNet; both hold the same parameter tree."""
         xb, yb = batch if batch is not None else self._sample_batch()
         cfg = FL.cfg_from_engine(self)
         didx = self.net.variational_layers
+        if eps is None and self.fused_eps == "stream":
+            eps = self._stream_eps()
         if eps is None:
             e_in = torch.randn((cfg.T, cfg.n_eps), generator=self.gen, device=self.device)
             eps_outer = self._sample_eps(self.mc_samples)
@@ -1166,14 +1263,18 @@ class PSVI:
         ``{data_folder}/embedding_{dnm}_{seed}.csv`` (ref ``_get_embeddings``
         :1308-1339); ``eps`` injects one noise tree per batch."""
         S = self.mc_samples_eval
+        packed = hasattr(self.net, "unpack")  # the flat representation
+        params = self.net.unpack(self.state.params) if packed else self.state.params
         rows = []
         for j, i in enumerate(range(0, self.n_train_now, batch)):
             e = eps[j] if eps is not None else self._sample_eps(S)
+            if packed:
+                e = self.net.unpack_eps(e)
             xb = self.x_train[i:i + batch]
             h = xb.unsqueeze(0).expand((S,) + tuple(xb.shape))
-            for layer, p, el in zip(list(self.net.layers)[:-1], self.state.params[:-1], e[:-1]):
+            for layer, p, el in zip(list(self.net.layers)[:-1], params[:-1], e[:-1]):
                 h = layer.apply(p, el, h)
-            rows.append(h.sum(dim=0).cpu().numpy())
+            rows.append(h.sum(dim=0).float().cpu().numpy())
         np.savetxt(os.path.join(self.data_folder or ".", f"embedding_{self.dnm}_{self.seed}.csv"),
                    np.concatenate(rows, axis=0), delimiter=",")
 

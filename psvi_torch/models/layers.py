@@ -2,10 +2,11 @@
 
 Counterpart of ``psvi_tpu/models/layers.py``'s ``VILinear``, ``VIConv2d``,
 ``VIConvPool2d`` (with ``PrePatched`` and ``fuse_conv_pool``),
-``MaxPool2d`` (reshape backend), ``Flatten``, ``ReLU``, ``Identity``,
-``Sequential`` and ``with_dense_backend``. Each layer is an ``nn.Module`` that holds its configuration; the computation is
-functional so that ``torch.autograd`` can differentiate through the inner
-unroll:
+``MaxPool2d`` (both backends, ``_argmax_pool``), ``Flatten``, ``ReLU``,
+``Identity``, ``Sequential`` and the net rewrites ``with_dense_backend``,
+``with_compute_dtype`` and ``with_pool_backend``. Each layer is an
+``nn.Module`` that holds its configuration; the computation is functional
+so that ``torch.autograd`` can differentiate through the inner unroll:
 
 - ``init(generator)`` returns the parameter dict ``{'mu_w','rho_w','mu_b',
   'rho_b'}`` (sd stored pre-softplus) on the generator's device;
@@ -18,6 +19,12 @@ unroll:
 
 Activations carry a leading sample axis ``(S, N, ...)``; the first
 variational layer accepts an unbatched ``(N, ...)`` input and adds it.
+
+Mixed precision (``compute_dtype="bfloat16"`` on the variational layers,
+JAX's rules): the matmul and conv operands are cast to bf16 and the
+activations stay bf16 between layers; the parameters, KL, NKL and all loss
+math stay float32, and ``Sequential.apply`` casts the net's output back to
+float32.
 """
 
 from __future__ import annotations
@@ -46,6 +53,24 @@ def softplus(x):
 
 def _normal_logpdf(x, mu, sd):
     return -0.5 * torch.square((x - mu) / sd) - torch.log(sd) - _HALF_LOG_2PI
+
+
+def _dtype(name: str) -> torch.dtype:
+    """The torch dtype of a ``compute_dtype`` name (``"float32"``,
+    ``"bfloat16"``, ...)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"unknown compute_dtype {name!r}")
+    return dt
+
+
+def _to_compute(name: str, *xs):
+    """``xs`` cast to the compute dtype ``name``; under float32 (or for a
+    float64 run) they pass as they are, and None passes through."""
+    cd = _dtype(name)
+    if cd == torch.float32:
+        return xs
+    return tuple(None if x is None else x.to(cd) for x in xs)
 
 
 def _gaussian_kl(mu_q, sd_q, sd_p: float):
@@ -127,20 +152,25 @@ class VILinear(_MeanField):
     selects the same path: ``"xla"``, the plain product; ``"pallas"``, which
     in the port means kernel B3 (``ops/sampled_linear.py``, hand-written
     CUDA on the card) for every batched (S, N, in) input. B3's backward is
-    first-order only, so ``"pallas"`` serves the first-order paths."""
+    first-order only, so ``"pallas"`` serves the first-order paths; under a
+    compute dtype other than float32 the layer takes the plain formulation
+    (B3 is float32 only), as the JAX layer does."""
 
     def __init__(self, in_dim: int, out_dim: int, init_sd: float = 0.01,
-                 prior_sd: float = 1.0, use_bias: bool = True, backend: str = "xla"):
+                 prior_sd: float = 1.0, use_bias: bool = True, backend: str = "xla",
+                 compute_dtype: str = "float32"):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
         self.init_sd, self.prior_sd = init_sd, prior_sd
         self.use_bias = use_bias
         self.count_kl = True
         self.backend = backend
+        self.compute_dtype = compute_dtype
 
     def extra_repr(self):
         return (f"{self.in_dim}, {self.out_dim}, init_sd={self.init_sd}, "
-                f"prior_sd={self.prior_sd}, backend={self.backend}")
+                f"prior_sd={self.prior_sd}, backend={self.backend}, "
+                f"compute_dtype={self.compute_dtype}")
 
     def init(self, generator):
         # torch nn.Linear.reset_parameters: U(±1/√fan_in) means
@@ -171,13 +201,19 @@ class VILinear(_MeanField):
 
     def apply(self, params, eps, x):
         # x: (N, in) unbatched or (S, N, in); w: (S, out, in); b: (S, out)
-        if x.dim() == 3 and self.backend == "pallas" and self.use_bias:
+        if (x.dim() == 3 and self.backend == "pallas" and self.use_bias
+                and self.compute_dtype == "float32"):
             # imported here, as the JAX layer does (layers.py:158)
             from psvi_torch.ops.sampled_linear import sampled_linear
 
             return sampled_linear(x, params["mu_w"], params["rho_w"], params["mu_b"],
                                   params["rho_b"], eps["w"], eps["b"])
         w, b = self._theta(params, eps)
+        return self.apply_theta(w, b, x)
+
+    def apply_theta(self, w, b, x):
+        """Forward with explicit samples w (S, out, in), b (S, out)."""
+        x, w, b = _to_compute(self.compute_dtype, x, w, b)
         if x.dim() == 2:
             y = torch.einsum("ni,soi->sno", x, w)
         else:
@@ -200,18 +236,19 @@ class VIConv2d(_MeanField):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, init_sd: float = 0.01, prior_sd: float = 1.0,
-                 use_bias: bool = True, count_kl: bool = False):
+                 use_bias: bool = True, count_kl: bool = False, compute_dtype: str = "float32"):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.init_sd, self.prior_sd = init_sd, prior_sd
         self.use_bias, self.count_kl = use_bias, count_kl
+        self.compute_dtype = compute_dtype
 
     def config(self) -> dict:
         return dict(in_channels=self.in_channels, out_channels=self.out_channels,
                     kernel_size=self.kernel_size, stride=self.stride, padding=self.padding,
                     init_sd=self.init_sd, prior_sd=self.prior_sd, use_bias=self.use_bias,
-                    count_kl=self.count_kl)
+                    count_kl=self.count_kl, compute_dtype=self.compute_dtype)
 
     def extra_repr(self):
         return ", ".join(f"{k}={v}" for k, v in self.config().items())
@@ -254,6 +291,7 @@ class VIConv2d(_MeanField):
             return self._apply_patches(w, b, x)
         if x.dim() == 4:
             x = x.unsqueeze(0).expand((w.shape[0],) + tuple(x.shape))
+        x, w, b = _to_compute(self.compute_dtype, x, w, b)
         S, N, C, H, W = x.shape
         K, k = w.shape[1], self.kernel_size
         OH, OW = self._out_hw(H, W)
@@ -278,7 +316,9 @@ class VIConv2d(_MeanField):
     def _apply_patches(self, w, b, x):
         """im2col formulation for an unbatched input (N, C, H, W)."""
         S, K, C, k = w.shape[0], w.shape[1], self.in_channels, self.kernel_size
-        y = torch.einsum("nqchw,socq->snohw", self._patches(x), w.reshape(S, K, C, k * k))
+        P, wf, b = _to_compute(self.compute_dtype, self._patches(x),
+                               w.reshape(S, K, C, k * k), b)
+        y = torch.einsum("nqchw,socq->snohw", P, wf)
         if b is not None:
             y = y + b[:, None, :, None, None]
         return y
@@ -326,11 +366,12 @@ class VIConvPool2d(VIConv2d):
 
     def extract_patches(self, x):
         """Stride-1 im2col patches reshaped for the parity einsums:
-        (N, q, C, PH, pk, PW, pk)."""
+        (N, q, C, PH, pk, PW, pk), in the compute dtype."""
         P = self._patches(x)
         N, q, C, OH, OW = P.shape
         pk = self.pool_k
-        return P.reshape(N, q, C, OH // pk, pk, OW // pk, pk)
+        (Pr,) = _to_compute(self.compute_dtype, P.reshape(N, q, C, OH // pk, pk, OW // pk, pk))
+        return Pr
 
     def apply_theta(self, w, b, x):
         if isinstance(x, PrePatched):
@@ -346,7 +387,7 @@ class VIConvPool2d(VIConv2d):
 
     def _parity_matmuls(self, w, b, Pr):
         S, K, C, k = w.shape[0], w.shape[1], self.in_channels, self.kernel_size
-        wf = w.reshape(S, K, C, k * k)
+        wf, b = _to_compute(self.compute_dtype, w.reshape(S, K, C, k * k), b)
         y = None
         for a_ in range(self.pool_k):
             for b_ in range(self.pool_k):
@@ -378,17 +419,35 @@ class Flatten(Layer):
         return x.reshape(*x.shape[:-3], -1)
 
 
+def _argmax_pool(x, k: int):
+    """Non-overlapping k×k max-pool whose gradient goes to the recorded
+    argmax of each window, the first index on ties, as torch's
+    ``MaxPool2d`` and JAX's ``_argmax_pool`` route it (the ``"reshape"``
+    backend's ``torch.amax`` splits it over tied positions instead). The
+    value is the window's max; the gradient is ``gather``'s, whose own
+    gradient is a scatter, so every order of derivative exists. (JAX's
+    int8 residual is a memory device of XLA's and has no meaning here.)"""
+    *lead, H, W = x.shape
+    xw = x.reshape(*lead, H // k, k, W // k, k).movedim(-3, -2).reshape(
+        *lead, H // k, W // k, k * k)
+    idx = torch.argmax(xw, dim=-1, keepdim=True)  # the first maximal index
+    return torch.gather(xw, -1, idx).squeeze(-1)
+
+
+_POOL_BACKENDS = ("reshape", "argmax")
+
+
 class MaxPool2d(Layer):
     """Max-pool over (H, W); leading axes pass through (ref
-    ``BatchMaxPool2d``, ``psvi/models/neural_net.py:249-255``). Only the
-    ``"reshape"`` backend is ported."""
+    ``BatchMaxPool2d``, ``psvi/models/neural_net.py:249-255``).
+    ``backend="argmax"`` takes :func:`_argmax_pool` on the non-overlapping
+    path."""
 
     def __init__(self, kernel_size: int, stride: int, padding: int = 0,
                  backend: str = "reshape"):
         super().__init__()
-        if backend != "reshape":
-            raise NotImplementedError(
-                f"pool backend {backend!r} is not ported yet (ROADMAP.md, queue A item 8)")
+        if backend not in _POOL_BACKENDS:
+            raise ValueError(f"unknown pool backend {backend!r}")
         self.kernel_size, self.stride, self.padding, self.backend = (
             kernel_size, stride, padding, backend)
 
@@ -396,6 +455,8 @@ class MaxPool2d(Layer):
         k, s, p = self.kernel_size, self.stride, self.padding
         *lead, H, W = x.shape
         if k == s and p == 0 and H % k == 0 and W % k == 0:
+            if self.backend == "argmax":
+                return _argmax_pool(x, k)
             return torch.amax(x.reshape(*lead, H // k, k, W // k, k), dim=(-3, -1))
         y = F.max_pool2d(x.reshape(1, -1, H, W), k, s, p)
         return y.reshape(*lead, *y.shape[-2:])
@@ -411,7 +472,8 @@ def fuse_conv_pool(net: "Sequential") -> "Sequential":
         l = layers[i]
         nxt = layers[i + 1] if i + 1 < len(layers) else None
         if (type(l) is VIConv2d and isinstance(nxt, MaxPool2d)
-                and nxt.kernel_size == nxt.stride and nxt.padding == 0):
+                and nxt.kernel_size == nxt.stride and nxt.padding == 0
+                and nxt.backend == "reshape"):
             out += [VIConvPool2d(**l.config(), pool_k=nxt.kernel_size), Identity()]
             i += 2
         else:
@@ -420,17 +482,48 @@ def fuse_conv_pool(net: "Sequential") -> "Sequential":
     return Sequential(out)
 
 
-def with_dense_backend(net: "Sequential", backend: str) -> "Sequential":
-    """A copy of ``net`` with every ``VILinear``'s ``backend`` replaced
-    (``"xla"`` or ``"pallas"``); convolutions and the input net are left as
-    they are."""
-    if backend not in ("xla", "pallas"):
-        raise ValueError(f"unknown dense backend {backend!r}")
+def _rewrite_layers(net: "Sequential", fn) -> "Sequential":
+    """A copy of ``net`` with ``fn`` run on each of its layers, which it may
+    change in place (JAX ``_rewrite_layers``; the container layers JAX
+    recurses through arrive with the model zoo, ROADMAP.md A.8). The input
+    net is left as it is."""
     net = copy.deepcopy(net)
     for layer in net.layers:
-        if isinstance(layer, VILinear):
-            layer.backend = backend
+        fn(layer)
     return net
+
+
+def _set_if(kind, **attrs):
+    def fn(layer):
+        if isinstance(layer, kind):
+            for k, v in attrs.items():
+                setattr(layer, k, v)
+    return fn
+
+
+def with_dense_backend(net: "Sequential", backend: str) -> "Sequential":
+    """A copy of ``net`` with every ``VILinear``'s ``backend`` replaced
+    (``"xla"`` or ``"pallas"``); convolutions are left as they are."""
+    if backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown dense backend {backend!r}")
+    return _rewrite_layers(net, _set_if(VILinear, backend=backend))
+
+
+def with_compute_dtype(net: "Sequential", dtype: str) -> "Sequential":
+    """A copy of ``net`` with every variational layer's ``compute_dtype``
+    replaced (``"bfloat16"`` for mixed precision): only the matmul and conv
+    operands are cast; parameters, KL, NKL and the loss math stay
+    float32."""
+    _dtype(dtype)
+    return _rewrite_layers(net, _set_if((VILinear, VIConv2d), compute_dtype=dtype))
+
+
+def with_pool_backend(net: "Sequential", backend: str) -> "Sequential":
+    """A copy of ``net`` with every ``MaxPool2d``'s ``backend`` replaced
+    (``"argmax"``: :func:`_argmax_pool`)."""
+    if backend not in _POOL_BACKENDS:
+        raise ValueError(f"unknown pool backend {backend!r}")
+    return _rewrite_layers(net, _set_if(MaxPool2d, backend=backend))
 
 
 def _infer_mc_samples(eps) -> Optional[int]:
@@ -458,6 +551,10 @@ class Sequential(nn.Module):
         in_ndim = x.dim()
         for layer, p, e in zip(self.layers, params, eps):
             x = layer.apply(p, e, x)
+        if x.is_floating_point() and x.element_size() < 4:
+            # the mixed-precision boundary: the objective's math runs in fp32
+            # (a float64 run, the tests' oracles, stays float64)
+            x = x.float()
         if x.dim() == in_ndim and not any(l.is_variational for l in self.layers):
             S = mc_samples if mc_samples is not None else _infer_mc_samples(eps)
             x = x.unsqueeze(0).expand((S,) + tuple(x.shape))

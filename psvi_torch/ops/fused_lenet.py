@@ -52,8 +52,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from psvi_torch.models.layers import (Flatten, Identity, ReLU, Sequential, VIConvPool2d,
-                                      VILinear, fuse_conv_pool, softplus)
+from psvi_torch.models.layers import (Flatten, Identity, MaxPool2d, ReLU, Sequential, VIConv2d,
+                                      VIConvPool2d, VILinear, fuse_conv_pool, softplus)
 from psvi_torch.models.networks import make_lenet
 from psvi_torch.ops import elbo
 from psvi_torch.ops.fused_nested import (_F, _I, _P, _adam, _check, _cw_vjp, _labels, _one_hot,
@@ -558,9 +558,12 @@ def lenet_unroll(p0, u, v, alpha, z, eps_in, lr: float, cfg: LeNetCfg, backend=N
 # the gate
 # ---------------------------------------------------------------------------
 
-# the fused LeNet's exact layer sequence (make_lenet after fuse_conv_pool)
+# the fused LeNet's exact layer sequence (make_lenet after fuse_conv_pool),
+# and the literal one (make_lenet: conv, MaxPool2d), whose layers at the
+# same indices hold the same parameters
 _SEQUENCE = (VIConvPool2d, Identity, ReLU, VIConvPool2d, Identity, ReLU, Flatten,
              VILinear, ReLU, VILinear, ReLU, VILinear)
+_LITERAL = (VIConv2d, MaxPool2d, ReLU, VIConv2d, MaxPool2d, ReLU) + _SEQUENCE[6:]
 
 
 # LeNetCfg's geometry as (in channels, out channels, kernel, padding,
@@ -569,23 +572,37 @@ _CONV1 = (1, LeNetCfg.K1, LeNetCfg.k, LeNetCfg.k // 2, 1, 2)
 _CONV2 = (LeNetCfg.K1, LeNetCfg.K2, LeNetCfg.k, 0, 1, 2)
 
 
-def _conv_geometry(c):
-    return c.in_channels, c.out_channels, c.kernel_size, c.padding, c.stride, c.pool_k
+def _conv_geometry(c, pool=None):
+    """A conv's geometry; a literal conv takes its pool's kernel from the
+    MaxPool2d after it, which must be non-overlapping and unpadded."""
+    if pool is None:
+        pk = c.pool_k
+    elif pool.stride == pool.kernel_size and pool.padding == 0:
+        pk = pool.kernel_size
+    else:
+        return None
+    return c.in_channels, c.out_channels, c.kernel_size, c.padding, c.stride, pk
 
 
 def _lenet_dense(engine):
-    """The three dense layers when the engine's net is exactly the fused
-    LeNet the kernels compute, at the geometry they are checked at, else
-    None."""
+    """The three dense layers when the engine's net is exactly the LeNet
+    the kernels compute, folded (``VIConvPool2d``) or literal (``VIConv2d``
+    then ``MaxPool2d(2, 2)``, either pool backend: the same function), at
+    the geometry they are checked at, else None."""
     net = engine.net
     if not isinstance(net, Sequential):
         return None
     L = list(net.layers)
-    if len(L) != len(_SEQUENCE) or any(type(l) is not t for l, t in zip(L, _SEQUENCE)):
+    seq = next((q for q in (_SEQUENCE, _LITERAL)
+                if len(L) == len(q) and all(type(l) is t for l, t in zip(L, q))), None)
+    if seq is None:
         return None
+    pools = (L[1], L[4]) if seq is _LITERAL else (None, None)
     c1, c2, dense = L[0], L[3], [L[7], L[9], L[11]]
-    if (_conv_geometry(c1) != _CONV1 or _conv_geometry(c2) != _CONV2
+    if (_conv_geometry(c1, pools[0]) != _CONV1 or _conv_geometry(c2, pools[1]) != _CONV2
             or engine.D != LeNetCfg.H ** 2):
+        return None
+    if any(l.compute_dtype != "float32" for l in (c1, c2, *dense)):
         return None
     if (tuple(l.in_dim for l in dense) != FC_HIDDEN
             or tuple(l.out_dim for l in dense[:2]) != FC_HIDDEN[1:]):
@@ -599,13 +616,15 @@ def _lenet_dense(engine):
 
 def supports(engine) -> bool:
     """True when the engine's nested step can run as the LeNet kernel pair:
-    exactly the fused LeNet (conv-pool, Identity, ReLU, conv-pool,
-    Identity, ReLU, Flatten, fc1, ReLU, fc2, ReLU, fc3; conv KL not
-    counted, one dense prior_sd) of ``make_lenet`` on 28×28 single-channel
-    images (conv 6/16/5, fc 400-120-84-classes); float32 parameters and
-    data; categorical hard labels; the plain nested trainer (not truncated,
-    ablated or evaluate-only) with inner Adam; and the CUDA design's caps (2 ≤ S ≤ 64, M ≤ 1024, classes ≤
-    32)."""
+    exactly the LeNet of ``make_lenet``, folded (conv-pool, Identity, ReLU,
+    conv-pool, Identity, ReLU, Flatten, fc1, ReLU, fc2, ReLU, fc3) or
+    literal (conv, MaxPool2d(2, 2) of either backend, ReLU, ... at the same
+    indices); conv KL not counted, one dense prior_sd; on 28×28
+    single-channel images (conv 6/16/5, fc 400-120-84-classes); float32
+    compute, parameters and data; categorical hard labels; the plain nested
+    trainer (not truncated, ablated or evaluate-only) with inner Adam; and
+    the CUDA design's caps (2 ≤ S ≤ 64, M ≤ 1024, classes ≤ 32). A packed
+    net is not a ``Sequential`` and is refused, as in JAX."""
     dense = _lenet_dense(engine)
     if dense is None:
         return False
@@ -619,6 +638,7 @@ def supports(engine) -> bool:
         and engine.inner_it >= 1
         and engine.trainer == "nested"
         and not engine.truncated
+        and engine.inner_optimizer == "adam"
         and engine.likelihood == "categorical"
         and not engine.spec.learn_z
         and not engine.spec.ablated

@@ -855,10 +855,12 @@ def fused_nested_outer(params0, u, v, alpha, z, xb, yb, eps_inner, eps_outer, lr
 def supports(engine) -> bool:
     """True when the engine's nested step can run as the fused kernels: an
     all-dense ``VILinear (ReLU VILinear)*`` net with biases, KL counted and
-    one prior_sd; a categorical likelihood with hard labels, or a Gaussian
-    one with one output, its targets learned or not; the plain nested
-    trainer (not truncated, ablated or evaluate-only) with inner Adam; and the CUDA design's caps (L ≤ 8, 2 ≤ S ≤ 32,
-    S·max(width) ≤ 2048, M + B ≤ 2048)."""
+    one prior_sd, float32 compute; a categorical likelihood with hard
+    labels, or a Gaussian one with one output, its targets learned or not;
+    the plain nested trainer (not truncated, ablated or evaluate-only) with
+    inner Adam; and the CUDA design's caps (L ≤ 8, 2 ≤ S ≤ 32,
+    S·max(width) ≤ 2048, M + B ≤ 2048). A packed net is not a
+    ``Sequential`` and is refused, as in JAX."""
     net = engine.net
     if not isinstance(net, Sequential) or not len(net.layers):
         return False
@@ -869,7 +871,7 @@ def supports(engine) -> bool:
     if type(layers[-1]) is not VILinear:
         return False
     dense = layers[0::2]
-    if not all(l.use_bias and l.count_kl for l in dense):
+    if not all(l.use_bias and l.count_kl and l.compute_dtype == "float32" for l in dense):
         return False
     if not all(l.prior_sd == dense[0].prior_sd for l in dense):
         return False
@@ -884,6 +886,7 @@ def supports(engine) -> bool:
         and engine.inner_it >= 1
         and engine.trainer == "nested"
         and not engine.truncated
+        and engine.inner_optimizer == "adam"
         and engine.likelihood in ("categorical", "gaussian")
         and (engine.likelihood == "categorical" or widths[-1] == 1)
         # learned Gaussian targets are a plain hypergradient g_z; the

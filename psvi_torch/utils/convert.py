@@ -6,6 +6,10 @@ and turn them into the port's tensors here, so that both compute the same
 function. Nothing here imports JAX; the caller does the conversion to
 NumPy.
 
+A packed JAX net's state (``packed=True``: flat ``{'mu', 'rho'}``
+parameters and their Adam moments) carries across by the same functions:
+the flat dict is a tree like any other.
+
 ``device=None`` means the CUDA card, as everywhere in the port; the tests
 pass ``device="cpu"``.
 """

@@ -1,19 +1,21 @@
-"""Quality gates of ``chip_smoke.py``'s methods and lifecycle phases, from
-the JAX package.
+"""Quality gates of ``chip_smoke.py``'s methods, lifecycle and options
+phases, from the JAX package.
 
 Runs the JAX engine's ``run_psvi`` on the CPU at each run of
 ``chip_smoke.METHODS_RUNS`` (four_blobs fn 2-40-4, M=48, S=10, T=10,
 B=128, init_sd 1e-3; the remaining methods and the hyper trainer) and of
 ``chip_smoke.LIFECYCLE_RUNS`` (the same cell with a prune, with the
-incremental coreset, and under the joint trainer with a prune) over seeds
-0, 1 and 2, and prints one JSON line per run: the final accuracy of each
-seed and the gate, the lowest minus 0.05, that the card's run of the port
-must meet. The joint run takes JAX's ``backend="xla"``: the Pallas op
-computes the same function, and the port's run on the card goes through
-its CUDA kernel B3.
+incremental coreset, and under the joint trainer with a prune) and of
+``chip_smoke.OPTIONS_RUNS`` (the engine options and the readers, each on
+its own dataset and cell) over seeds 0, 1 and 2, and prints one JSON line
+per run: the final accuracy of each seed and the gate, the lowest minus
+0.05, that the card's run of the port must meet. Every run takes JAX's
+plain step (``fused_inner=False``) and ``backend="xla"``: the Pallas ops
+compute the same functions, and the port's runs on the card go through its
+CUDA kernels.
 
 Usage: JAX_PLATFORMS=cpu python scripts/torch_methods_jax_gates.py
-       [--seeds 0 1 2] [--phases methods lifecycle]
+       [--seeds 0 1 2] [--phases methods lifecycle options]
 """
 
 import argparse
@@ -42,16 +44,21 @@ def chip_smoke():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
-    ap.add_argument("--phases", nargs="+", choices=["methods", "lifecycle"],
-                    default=["methods", "lifecycle"])
+    ap.add_argument("--phases", nargs="+", choices=["methods", "lifecycle", "options"],
+                    default=["methods", "lifecycle", "options"])
     args = ap.parse_args()
     cs = chip_smoke()
-    data = read_dataset("four_blobs")
-    runs = {"methods": cs.METHODS_RUNS, "lifecycle": cs.LIFECYCLE_RUNS}
-    for label, opts, steps in [r for phase in args.phases for r in runs[phase]]:
+    # (label, dataset, base options, engine options, steps)
+    runs = {"methods": [(label, "four_blobs", cs.METHODS_BASE, opts, steps)
+                        for label, opts, steps in cs.METHODS_RUNS],
+            "lifecycle": [(label, "four_blobs", cs.METHODS_BASE, opts, steps)
+                          for label, opts, steps in cs.LIFECYCLE_RUNS],
+            "options": [r[:5] for r in cs.OPTIONS_RUNS]}
+    for label, name, base, opts, steps in [r for phase in args.phases for r in runs[phase]]:
         accs, t0 = [], time.time()
+        data = read_dataset(name)
         for seed in args.seeds:
-            kw = {**cs.METHODS_BASE, **opts, "seed": seed, "num_epochs": steps,
+            kw = {**base, **opts, "seed": seed, "num_epochs": steps,
                   "log_every": steps - 1, "fused_inner": False, "backend": "xla"}
             res = PSVI(data, **kw).run_psvi()
             accs.append(float(res["accs"][-1]))

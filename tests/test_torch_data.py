@@ -35,7 +35,16 @@ def test_synth_mnist_shapes():
     assert (d.N, d.D, d.nc, d.channels) == (6000, 784, 10, 1)
 
 
-def test_unported_dataset_points_to_roadmap():
-    for name in ("mnist", "fashion_mnist", "cifar10", "synth_cifar"):
-        with pytest.raises(ValueError, match="ROADMAP"):
+def test_unported_dataset_points_to_roadmap(tmp_path):
+    """Every name of JAX's registry reads; the file-gated ones raise
+    FileNotFoundError without their file (tests/test_torch_data_readers.py
+    reads them from files), and a name outside the registry raises
+    ValueError, as JAX's reader does."""
+    for name in ("mnist", "fashion_mnist", "cifar10"):
+        with pytest.raises(ValueError, match="unknown dataset"):
             read_dataset(name)
+    for name in ("MNIST", "FashionMNIST", "Cifar10", "phishing"):
+        with pytest.raises(FileNotFoundError, match=name.lower() if name != "phishing"
+                           else "phishing.npz"):
+            read_dataset(name, data_folder=str(tmp_path))
+    assert read_dataset("synth_cifar").x.shape == (6000, 3, 32, 32)

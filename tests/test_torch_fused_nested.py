@@ -415,10 +415,17 @@ def test_supports_gating():
 
 def test_unported_options_raise():
     data = read_dataset("halfmoon")
+    # JAX's options of queue A items 10 (selection) and 11 (parallelism)
+    for option, item in ((dict(mesh=None), "A.11"), (dict(stream_data=True), "A.11"),
+                         (dict(pretrain_epochs=5), "A.10")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
+            PSVI(data, **option, **ENGINE_KW)
+    # the engine options are ported; the dense gate refuses all but inner Adam
+    # and float32 compute
     for option in (dict(inner_unroll=2), dict(inner_optimizer="sgd"),
                    dict(compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PSVI(data, **option, **ENGINE_KW)
+        eng = PSVI(data, **option, **ENGINE_KW)
+        assert FN.supports(eng) == ("inner_unroll" in option)
     # the hyper trainer and the ablated method are ported: the plain path serves them
     assert PSVI(data, trainer="hyper", **ENGINE_KW)._step.__name__ == "_hyper_step"
     assert PSVI(data, method="psvi_ablated", **ENGINE_KW)._step.__name__ == "_nested_step"

@@ -65,7 +65,7 @@ def test_viconv2d_apply_kl_nkl(C, K, k, pad, side, batched):
     _close(tl.nkl(tp, te), jl.nkl(jp, je), rtol=1e-4)
     assert not tl.count_kl and tl.config() == dict(
         in_channels=C, out_channels=K, kernel_size=k, stride=1, padding=pad, init_sd=0.05,
-        prior_sd=0.7, use_bias=True, count_kl=False)
+        prior_sd=0.7, use_bias=True, count_kl=False, compute_dtype="float32")
 
 
 @pytest.mark.parametrize("form", ["parity", "prepatched", "batched", "ragged"])
@@ -97,8 +97,10 @@ def test_maxpool_and_flatten(shape, k, s, p):
     ty = TL.MaxPool2d(k, s, p).apply({}, {}, _t(x))
     _close(ty, jy, rtol=0, atol=0)
     _close(TL.Flatten().apply({}, {}, ty), JL.Flatten().apply({}, {}, jy), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.MaxPool2d(2, 2, backend="argmax")
+    # the argmax backend: the same values (its gradient: test_torch_engine_options.py)
+    _close(TL.MaxPool2d(k, s, p, backend="argmax").apply({}, {}, _t(x)), jy, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown pool backend"):
+        TL.MaxPool2d(2, 2, backend="int8")
 
 
 @pytest.mark.parametrize("fused", [True, False])

@@ -75,10 +75,17 @@ def test_read_regression_dataset_matches_jax(seed):
     assert (a.y_mean, a.y_std, a.taus) == (b.y_mean, b.y_std, b.taus)
 
 
-def test_unported_regression_dataset_raises():
-    for name in ("boston", "concrete", "diabetes"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            read_regression_dataset(name)
+def test_unported_regression_dataset_raises(tmp_path):
+    """The UCI sets are file-gated: without their file each raises
+    FileNotFoundError naming it, as JAX's reader does (a file written to
+    tmp_path reads: tests/test_torch_data_readers.py); scikit-learn's
+    diabetes reads as JAX's."""
+    for name, fname in (("boston", "housing.data"), ("concrete", "Concrete_Data.xls")):
+        with pytest.raises(FileNotFoundError, match=fname):
+            read_regression_dataset(name, data_dir=str(tmp_path))
+    a, b = read_regression_dataset("diabetes"), jax_read_regression_dataset("diabetes")
+    for k in ("x", "y", "xt", "yt", "xv", "yv"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
 
 
 @pytest.mark.parametrize("n_layers", [1, 2])
