@@ -39,7 +39,9 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              N=356), fn's second layer (40→4, N=176) and ragged and edge shapes
              (N = 1 and 7, Dout = 1, S = 1, S = 64 with N = 2048, 2048→64,
              which runs the forward's Din-chunk branch, and 37→20, its
-             4-byte copies), with the split counts of its plan; its
+             4-byte copies) and the zoo's dense heads (AlexNet's 4096→384,
+             384→192, 192→10 at S=10, N=228; ResNet-18's 512→10 at S=4,
+             N=178), with the split counts of its plan; its
              Function's backward against autograd through the plain
              version;
    sampled_linear_prng — kernel B4 (four kernels, one Philox generator):
@@ -130,12 +132,28 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              noise, normal_mvn and synth_mnist_hard) held to
              ``OPTIONS_GATES``, JAX's lowest accuracy over three seeds minus
              0.05, every launch count exact;
+   zoo     — the model zoo (``check_zoo``): AlexNet (M=100, S=5, T=10,
+             B=128, 21 steps) and ResNet-18 (M=50, S=4, T=5, B=128, 11
+             steps) at full width on synth_cifar under the nested
+             trainer in fp32, halfmoon fn2 2-50-2 and the full-covariance
+             logreg (M=30, 101 steps) and fn2 under the hyper trainer (CG,
+             11 steps), no kernel launched, each held to ``ZOO_GATES``
+             with its step's median ms and peak memory; the joint trainer
+             on both nets with ``backend="pallas"`` beside ``"xla"`` (one
+             step from one state and generator within B3's gate, and
+             within 1e-6 of the xla step fed B3's head values, B3's
+             launches by shape as derived, AlexNet's accuracy within 0.05
+             of the xla run's after 31 steps); one full-width AlexNet and
+             ResNet-18 nested step in float64 on the card against the host
+             (CPU) in float64; AlexNet under bf16 with
+             ``remat_inner``; one AlexNet nested step rerun bit for bit;
 5. times   — CUDA-event medians of each kernel (each head at its main
              path's shapes; the dense ones also as 50 calls queued behind a
              device sleep), its plain version, the fused engine steps and
              the plain autograd engine steps; B3, its plain version and a
              cuBLAS product on pre-sampled weights at the LeNet fc shapes
-             (calls queued back to back behind a device sleep), and so B4a–c
+             and the zoo's heads (calls queued back to back behind a
+             device sleep), and so B4a–c
              at fc1–fc3 and N = 1024 beside B3 and a cuBLAS product, B4d at
              the fc shapes and S = 4000 with its plan; each methods run's
              step (beside the fused nested step at the same config) and the
@@ -145,7 +163,8 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
    profile — torch.profiler's device time by CUDA kernel over one call of
              each LeNet kernel, one fused LeNet engine step, one LeNet
              joint step with each backend, and 20 calls each of B4c (its
-             two passes), B4b, B4a and B3 at fc1.
+             two passes), B4b, B4a and B3 at fc1; and over one AlexNet and
+             one ResNet-18 nested step, with each one's busy share.
 
 Then, as its last three lines: the ``kernels`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Any failed check
@@ -345,6 +364,79 @@ OPTIONS_GATES = {
     "synth_mnist_hard lenet M=100 S=10 T=20 B=256": 0.785,
 }
 
+# The zoo phase: the model zoo's nested runs through run_psvi, each with its
+# final evaluation after steps − 1 steps; (label, dataset, engine options,
+# steps). AlexNet and ResNet-18 run RESULTS.md's synth_cifar configurations
+# (the nested trainer, psvi_learn_v) in fp32 without remat; the
+# full-covariance nets the halfmoon logreg cell's (LOGREG_BASE).
+ZOO_BASE = dict(method="psvi_learn_v", init_sd=1e-3, seed=0)
+ALEXNET_KW = dict(ZOO_BASE, architecture="alexnet", num_pseudo=100, mc_samples=5, inner_it=10,
+                  data_minibatch=128)
+RESNET_KW = dict(ZOO_BASE, architecture="resnet", num_pseudo=50, mc_samples=4, inner_it=5,
+                 data_minibatch=128)
+FN2_KW = dict(LOGREG_BASE, architecture="fn2", n_hidden=50)
+ZOO_RUNS = [
+    ("synth_cifar alexnet M=100 S=5 T=10 B=128", "synth_cifar", ALEXNET_KW, 21),
+    ("synth_cifar resnet18 M=50 S=4 T=5 B=128", "synth_cifar", RESNET_KW, 11),
+    ("halfmoon fn2 2-50-2 M=30", "halfmoon", FN2_KW, 101),
+    ("halfmoon logreg_fullcov M=30", "halfmoon",
+     dict(LOGREG_BASE, architecture="logistic_regression_fullcov"), 101),
+    ("halfmoon fn2 2-50-2 M=30 hyper cg_normaleq", "halfmoon",
+     dict(FN2_KW, trainer="hyper", hypergrad_approx="cg_normaleq"), 11),
+]
+# each run's gate: the JAX engine's lowest final accuracy over seeds 0-2 on
+# the CPU, minus 0.05, and those accuracies (scripts/torch_methods_jax_gates.py
+# --phases zoo); for AlexNet and ResNet-18 the accuracy RESULTS.md records for
+# the JAX package's run of the same configuration under bf16 and remat
+# (1.000 at the last evaluation) minus 0.05: their unrolled inner loops take
+# about 16 GB in JAX (RESULTS.md), so the gates script runs them only as a
+# phase of their own, ``--phases zoo_cifar``, on a host with that memory free
+# (not yet run). Both nets reach 1.0 on synth_cifar within the first few
+# steps, so these two gates catch a broken run more than a wrong step: the
+# float64 check below (ZOO_F64_RUNS) holds the step itself
+ZOO_JAX_ACCS = {
+    "synth_cifar alexnet M=100 S=5 T=10 B=128": "RESULTS.md: 1.000 at steps 5, 10 and 20",
+    "synth_cifar resnet18 M=50 S=4 T=5 B=128": "RESULTS.md: 1.000 at step 10",
+    "halfmoon fn2 2-50-2 M=30": [0.845, 0.870, 0.860],
+    "halfmoon logreg_fullcov M=30": [0.805, 0.840, 0.855],
+    "halfmoon fn2 2-50-2 M=30 hyper cg_normaleq": [0.640, 0.740, 0.795],
+}
+ZOO_GATES = {
+    "synth_cifar alexnet M=100 S=5 T=10 B=128": 0.95,
+    "synth_cifar resnet18 M=50 S=4 T=5 B=128": 0.95,
+    "halfmoon fn2 2-50-2 M=30": 0.795,
+    "halfmoon logreg_fullcov M=30": 0.755,
+    "halfmoon fn2 2-50-2 M=30 hyper cg_normaleq": 0.59,
+}
+# B3 at the zoo's dense heads, (label, S, N, Din, Dout): AlexNet's three
+# under the joint trainer at S=10, N = M + B = 100 + 128, and ResNet-18's at
+# its nested run's S=4, N = 50 + 128
+ZOO_SL_SHAPES = [
+    ("alexnet fc1", 10, 228, 4096, 384), ("alexnet fc2", 10, 228, 384, 192),
+    ("alexnet fc3", 10, 228, 192, 10), ("resnet18 fc", 4, 178, 512, 10),
+]
+
+# the joint step on the zoo nets, B3 beside xla from one state and draw
+# (scripts/torch_zoo_fp64_gaps.py, H100): the B3 step against the xla step
+# fed B3's head values read ≤ 1.6e-7·max|ref| in every leaf (the backward
+# is autograd's; only the heads' forward rounding differs), gated at 1e-6;
+# the B3 step against the xla step read 1.26e-3 (AlexNet's conv2 ρ) and
+# 4.6e-5 (ResNet-18), where the fp32 xla step itself lies 3.2e-3–4.3e-3
+# (AlexNet's conv2 leaves) and up to 6.5e-2 (ResNet-18) off its float64
+# run: gated at 5e-3
+REL_B3_HEADS_ONLY, REL_JOINT_MOMENT = 1e-6, 5e-3
+# one full-width nested step of each conv net on the card against the same
+# step on the host, both in float64 (fewer samples and inner steps than the
+# runs, the same widths): the script read 1.8e-9 (AlexNet) and 2.9e-8
+# (ResNet-18) at the runs' own M, S, T, B, gated at 1e-6; the fp32 step is
+# reported beside it (far from float64: Adam's first inner step,
+# −lr·sign(g), flips where |g| lies within fp32's rounding)
+REL_F64_HOST = 1e-6
+ZOO_F64_RUNS = [
+    ("synth_cifar alexnet M=100 S=2 T=3 B=128", {**ALEXNET_KW, "mc_samples": 2, "inner_it": 3}),
+    ("synth_cifar resnet18 M=50 S=2 T=2 B=64",
+     {**RESNET_KW, "mc_samples": 2, "inner_it": 2, "data_minibatch": 64}),
+]
 
 _T0 = time.perf_counter()
 
@@ -1276,6 +1368,331 @@ def check_options(mods, make_psvi_engine, read_dataset, data, only, reg_kw, card
         raise AssertionError("options phase: " + "; ".join(failed))
 
 
+def _nondeterministic_ops(fn):
+    """The ops PyTorch names as having no deterministic implementation
+    while ``fn`` runs (``use_deterministic_algorithms`` in warn-only mode)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    names = {str(w.message).split(" does not have")[0] for w in caught
+             if "deterministic" in str(w.message)}
+    return sorted(names)
+
+
+def _dense_outputs(net, params, eps, x):
+    """Each VILinear's output in a forward of ``net`` (its top-level layers)."""
+    from psvi_torch.models.layers import VILinear
+
+    outs = []
+    with torch.no_grad():
+        for layer, p, e in zip(net.layers, params, eps):
+            x = layer.apply(p, e, x)
+            if isinstance(layer, VILinear):
+                outs.append(x)
+    return outs
+
+
+def joint_moment(eng, state, batch, eps, heads_from_b3=False):
+    """The joint Adam's first moment (0.1·the gradient) after one step of
+    ``eng`` from ``state`` on the given draws, by leaf. With
+    ``heads_from_b3`` each dense head's forward value is B3's on the same
+    inputs, its backward autograd's (``y + (y_B3 − y).detach()``), which
+    isolates what B3's forward rounding alone does to the step."""
+    from psvi_torch.models.layers import VILinear
+    from psvi_torch.ops import sampled_linear as SL
+    from psvi_torch.utils.tree import tree_leaves
+
+    apply = VILinear.apply
+
+    def b3_values(self, params, e, x):
+        y = apply(self, params, e, x)
+        if x.dim() != 3:
+            return y
+        with torch.no_grad():
+            yk = SL._sampled_linear_cuda(x, params["mu_w"], params["rho_w"], params["mu_b"],
+                                         params["rho_b"], e["w"], e["b"])
+        return y + (yk - y).detach()
+
+    if heads_from_b3:
+        VILinear.apply = b3_values
+    try:
+        new, _ = eng._joint_step(state, batch=batch, eps=eps)
+    finally:
+        VILinear.apply = apply
+    torch.cuda.synchronize()
+    return [x for x in tree_leaves(new.opt_joint.mu) if torch.is_tensor(x)]
+
+
+def _to_cpu(tree):
+    from psvi_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x, tree)
+
+
+def nested_vs_host(make_psvi_engine, data, kw, remat64=False):
+    """One nested step of ``kw``'s engine on the card in fp32, then the same
+    draws and state in float64 on the card and on the host (the CPU's conv,
+    pooling and norm ops: a reference that shares no kernel with cuDNN).
+    Returns the hypergradients' max|Δ|/max|ref| and cosine of each card run
+    against the host's, the losses and each float64 run's seconds."""
+    eng = make_psvi_engine(data, **kw)
+    gen0 = eng.gen.get_state()
+    _, a32, g32 = hypergrads_of(eng, eng._nested_step, eng.state, None, None)
+    eng.gen.set_state(gen0)
+    batch = eng._sample_batch()
+    eps = ([eng._sample_eps(kw["mc_samples"]) for _ in range(kw["inner_it"])],
+           eng._sample_eps(kw["mc_samples"]))
+    args = (_double(eng.state), _double(batch), _double(eps))
+    card64 = make_psvi_engine(data, **kw, remat_inner=True) if remat64 else eng
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, a64, g64 = hypergrads_of(card64, card64._nested_step, *args)
+    torch.cuda.synchronize()
+    secs = {"card_float64": time.perf_counter() - t0}
+    peak = torch.cuda.max_memory_allocated()
+    host = make_psvi_engine(data, **kw, remat_inner=remat64, device="cpu")
+    t0 = time.perf_counter()
+    _, ah, gh = hypergrads_of(host, host._nested_step, *_to_cpu(args))
+    secs["host_float64"] = time.perf_counter() - t0
+
+    def pair(x, y):
+        return {"rel": _rel(x.double().cpu(), y), "cos": _cos(x.cpu(), y)}
+
+    return {"float64_remat_inner": remat64, "card_float64_peak_memory_bytes": peak,
+            "seconds": secs, "host_threads": torch.get_num_threads(),
+            "loss": {"fp32": float(a32["outer_loss"]), "card_float64": float(a64["outer_loss"]),
+                     "host_float64": float(ah["outer_loss"])},
+            "card_float64_vs_host_float64": {f"g_{k}": pair(g64[k], gh[k]) for k in gh},
+            "card_fp32_vs_host_float64": {f"g_{k}": pair(g32[k], gh[k]) for k in gh}}
+
+
+def zoo_b3_shapes(data, kw, heads):
+    """B3's launches in one joint run_psvi on a zoo net, by shape, derived
+    from its loops: each training step's forward and each evaluation's
+    forward over cat(u, test batch) launch it once a dense head, all at S
+    samples and N = M + B points (the last test batch is padded to B)."""
+    n = b3_expected(data, kw, 1) // len(heads)
+    N = kw["num_pseudo"] + min(kw["data_minibatch"], len(data.xt))
+    return {(kw["mc_samples"], N, i, o): n for i, o in heads}
+
+
+def check_zoo(mods, make_psvi_engine, read_dataset, halfmoon, only, card, SL):
+    """The zoo phase: the model zoo through the user's entry points, every
+    launch counter set to 0 just before each run and read just after.
+
+    1. ``ZOO_RUNS`` through run_psvi, the nested trainer (and the hyper
+       trainer for fn2): no kernel launch (B1 refuses the full-covariance
+       nets, B2 AlexNet and ResNet), each held to ``ZOO_GATES``, with its
+       step's median ms and peak memory; the synth_cifar runs in fp32
+       without ``remat_inner`` (an out-of-memory error fails the phase).
+    2. The joint trainer on AlexNet (S=10) and ResNet-18 (the nested run's
+       M, S, B), ``backend="pallas"`` beside ``"xla"``: one step of each
+       from the same state and generator, the loss and each dense head's
+       output on the step's draws within B3's gate, and the joint Adam's
+       first moment (0.1·the gradient) in every leaf at cosine > 0.99999,
+       within ``REL_JOINT_MOMENT`` of the xla step's and within
+       ``REL_B3_HEADS_ONLY`` of the xla step fed B3's head values
+       (``joint_moment``), each leaf's distance from the xla step in
+       float64 reported for both backends, beside the ReLU crossings after
+       the heads and the change of the IW-ELBO's importance weights; then
+       runs through B3, its launches by shape
+       exactly as ``zoo_b3_shapes`` derives them, AlexNet for 31 steps with
+       each backend, the accuracies within 0.05.
+    3. ``ZOO_F64_RUNS``: one full-width nested step of AlexNet and of
+       ResNet-18 in float64 on the card, g_u and g_v within
+       ``REL_F64_HOST`` of the same step in float64 on the host
+       (``nested_vs_host``); the fp32 step's distance reported.
+    4. AlexNet under bf16 with ``remat_inner``, 3 steps: finite, v moved,
+       no launch.
+    5. One AlexNet nested step rerun from the same state and generator:
+       bit for bit, or the ops PyTorch names as nondeterministic.
+    Every check runs; the phase fails at its end if any did. Returns the
+    nested engines by label and B3's launches by shape on the zoo."""
+    from psvi_torch.ops import elbo as E
+    from psvi_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    failed = []
+    cifar = read_dataset("synth_cifar")
+    dsets = {"synth_cifar": cifar, "halfmoon": halfmoon}
+
+    # 1. the nested runs, each held to its gate
+    engines = {}
+    for label, name, kw, steps in ZOO_RUNS:
+        opts = {**kw, "num_epochs": steps, "log_every": 5 if name == "synth_cifar" else steps - 1}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng, res, launches, secs = run_engine(mods, make_psvi_engine, dsets[name], only(),
+                                              **opts)
+        engines[label] = eng
+        acc, gate = res["accs"][-1], ZOO_GATES[label]
+        emit({"phase": "zoo", "card": card, "config": label, "steps": steps,
+              "accs": res["accs"], "nlls": res["nlls"], "gate": gate,
+              "jax_accs": ZOO_JAX_ACCS[label], "launches": launches, "step_ms": eng.step_ms,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "step_path": eng.step_path, "seconds": secs})
+        if not all(math.isfinite(x) for x in res["accs"] + res["nlls"]):
+            failed.append(f"{label}: non-finite accuracy or NLL")
+        if not acc >= gate:
+            failed.append(f"{label}: final accuracy {acc} < {gate}")
+
+    # 2. the joint trainer, B3 at the dense heads beside the plain product
+    shapes = {}
+    for net, kw, heads, steps in (
+            ("alexnet", {**ALEXNET_KW, "mc_samples": 10},
+             [(4096, 384), (384, 192), (192, 10)], 31),
+            ("resnet18", RESNET_KW, [(512, 10)], 3)):
+        kw = {**kw, "trainer": "joint", "num_epochs": steps, "log_every": 10 if steps > 3 else 2}
+        es = {b: make_psvi_engine(cifar, **kw, backend=b) for b in ("xla", "pallas")}
+        same_start = bool(torch.equal(es["xla"].gen.get_state(), es["pallas"].gen.get_state())
+                          and all(torch.equal(a, b) for a, b in zip(
+                              tree_leaves(es["xla"].state), tree_leaves(es["pallas"].state))
+                                  if torch.is_tensor(a)))
+        g0 = es["xla"].gen.get_state()
+        out = {b: e._joint_step(e.state) for b, e in es.items()}
+        # the step's draws again: the heads' outputs of each backend on
+        # them, the xla step fed B3's head values and the xla step in float64
+        es["xla"].gen.set_state(g0)
+        batch = es["xla"]._sample_batch()
+        eps = es["xla"]._sample_eps(kw["mc_samples"])
+        xb, st = batch[0], es["xla"].state
+        heads_out = {b: _dense_outputs(e.net, e.state.params, eps, torch.cat([e.state.u, xb]))
+                     for b, e in es.items()}
+        torch.cuda.synchronize()
+        loss = {b: o[1]["outer_loss"] for b, o in out.items()}
+        m = {b: [x for x in tree_leaves(o[0].opt_joint.mu) if torch.is_tensor(x)]
+             for b, o in out.items()}
+        m["xla_b3_heads"] = joint_moment(es["xla"], st, batch, eps, heads_from_b3=True)
+        m["xla64"] = joint_moment(es["xla"], _double(st), _double(batch), _double(eps))
+        moment = [{"leaf": i, "shape": list(x.shape), "cos": _cos(x, y), "rel": _rel(x, y),
+                   "rel_vs_xla_b3_heads": _rel(x, h), "rel_vs_float64": _rel(x.double(), d),
+                   "xla_rel_vs_float64": _rel(y.double(), d)}
+                  for i, (x, y, h, d) in enumerate(zip(m["pallas"], m["xla"], m["xla_b3_heads"],
+                                                       m["xla64"]))]
+        worst = max(moment, key=lambda d: d["rel"])
+        worst_heads = max(moment, key=lambda d: d["rel_vs_xla_b3_heads"])
+        worst_cos = min(d["cos"] for d in moment)
+        loss_rel = float(abs(loss["pallas"] - loss["xla"]) / abs(loss["xla"]))
+        outputs_rel = [_rel(x, y) for x, y in zip(heads_out["pallas"], heads_out["xla"])]
+        # a head's output next to 0 may take the other side of the ReLU
+        # after it: that unit's gradient then changes by its whole term
+        flips = [int(((x > 0) != (y > 0)).sum())
+                 for x, y in zip(heads_out["pallas"][:-1], heads_out["xla"][:-1])]
+        # the outer ELBO's importance log-weights −Σ_m cw_m·NLL_m + NKL on
+        # each backend's outputs: a softmax over S of terms ~1e6, so a
+        # relative change of the outputs near 1e-6 moves the weights, and
+        # with them every gradient, by more
+        st = es["xla"].state
+        cw, _ = es["xla"]._core_weights(st.v, st.alpha)
+        with torch.no_grad():
+            nkl = es["xla"].net.nkl(st.params, eps)
+            lw = {b: nkl - E.categorical_nll(h[-1][:, :st.u.shape[0]], st.z) @ cw
+                  for b, h in heads_out.items()}
+        iw = {"log_weights_max_abs_diff": float((lw["pallas"] - lw["xla"]).abs().max()),
+              "weights_max_abs_diff": float((torch.softmax(lw["pallas"], 0)
+                                             - torch.softmax(lw["xla"], 0)).abs().max()),
+              "log_weights_spread": float(lw["xla"].max() - lw["xla"].min())}
+        # then whole runs, B3's launches by shape as derived from the loops
+        expect = zoo_b3_shapes(cifar, kw, heads)
+        runs = {}
+        for b in ("pallas", "xla"):
+            n = sum(expect.values()) if b == "pallas" else 0
+            eng, res, launches, secs = run_engine(mods, make_psvi_engine, cifar,
+                                                  only(sampled_linear=n), **kw, backend=b)
+            runs[b] = {"accs": res["accs"], "nlls": res["nlls"], "launches": launches,
+                       "step_ms": eng.step_ms, "seconds": secs}
+            if b == "pallas":
+                got = dict(SL.LAUNCH_SHAPES)
+                shapes.update(got)
+        gap = abs(runs["pallas"]["accs"][-1] - runs["xla"]["accs"][-1])
+        emit({"phase": "zoo", "card": card, "config": f"synth_cifar {net} joint M="
+              f"{kw['num_pseudo']} S={kw['mc_samples']} B={kw['data_minibatch']}: "
+              "backend=pallas beside xla", "same_start": same_start,
+              "one_step": {"loss": {b: float(x) for b, x in loss.items()}, "loss_rel": loss_rel,
+                           "heads_outputs_rel": outputs_rel, "relu_flips_after_heads": flips,
+                           "importance_weights": iw, "first_moment_worst_leaf": worst,
+                           "first_moment_min_cos": worst_cos,
+                           "first_moment_worst_vs_xla_b3_heads": worst_heads},
+              "b3_launches_by_shape": {f"{s}x{n}x{i}x{o}": c for (s, n, i, o), c in got.items()},
+              "b3_expected_by_shape": {f"{s}x{n}x{i}x{o}": c
+                                       for (s, n, i, o), c in expect.items()},
+              "runs": runs, "acc_gap": gap})
+        bad = []
+        if not same_start:
+            bad.append("engines not at the same start")
+        if not (loss_rel <= REL_B3 and max(outputs_rel) <= REL_B3 and worst_cos > COS_B3
+                and worst["rel"] <= REL_JOINT_MOMENT
+                and worst_heads["rel_vs_xla_b3_heads"] <= REL_B3_HEADS_ONLY):
+            bad.append(f"one step: loss rel {loss_rel}, heads' outputs {outputs_rel}, "
+                       f"first moment {worst}, against the xla step fed B3's head values "
+                       f"{worst_heads}")
+        if got != expect:
+            bad.append(f"B3 launches {got} != {expect}")
+        if not all(math.isfinite(x) for r in runs.values() for x in r["accs"] + r["nlls"]):
+            bad.append("non-finite accuracy or NLL")
+        if steps > 3 and not gap <= 0.05:
+            bad.append(f"accuracy gap {gap} > 0.05")
+        if bad:
+            failed.append(f"{net} joint: " + "; ".join(bad))
+
+    # 3. one full-width nested step of each conv net in float64 on the card
+    # against the host
+    for label, kw in ZOO_F64_RUNS:
+        kw = {k: v for k, v in kw.items() if k not in ("num_epochs", "log_every")}
+        rep = nested_vs_host(make_psvi_engine, cifar, kw)
+        emit({"phase": "zoo", "card": card, "config": f"{label}: one nested step's "
+              "hypergradients, fp32 and float64 on the card against float64 on the host",
+              "gate_rel": REL_F64_HOST, **rep})
+        far = {k: v for k, v in rep["card_float64_vs_host_float64"].items()
+               if not v["rel"] <= REL_F64_HOST}
+        if far or set(rep["card_float64_vs_host_float64"]) != {"g_u", "g_v"}:
+            failed.append(f"{label} float64: card against host {far}")
+
+    # 4. AlexNet under bf16 with remat_inner: no kernel
+    eng, res, launches, secs = run_engine(
+        mods, make_psvi_engine, cifar, only(),
+        **{**ALEXNET_KW, "compute_dtype": "bfloat16", "remat_inner": True, "num_epochs": 3,
+           "log_every": 2})
+    moved = not torch.equal(eng.state.v, eng.state0.v)
+    emit({"phase": "zoo", "card": card, "config": "synth_cifar alexnet M=100 S=5 T=10 B=128 "
+          "compute_dtype=bfloat16 remat_inner", "steps": 3, "accs": res["accs"],
+          "launches": launches, "step_ms": eng.step_ms, "v_moved": moved, "seconds": secs})
+    if not moved or not all(math.isfinite(x) for x in res["accs"] + res["nlls"]):
+        failed.append(f"AlexNet bf16 remat: v moved {moved}, accs {res['accs']}")
+
+    # 5. one AlexNet nested step twice from the same state and generator
+    eng = engines[ZOO_RUNS[0][0]]
+    step, st, g0 = getattr(eng, eng.step_path), eng.state, eng.gen.get_state()
+    outs = []
+    for _ in range(2):
+        eng.gen.set_state(g0)
+        outs.append(tree_leaves(step(st)[0]))
+    torch.cuda.synchronize()
+    differ = [i for i, (a, b) in enumerate(zip(*outs))
+              if torch.is_tensor(a) and not torch.equal(a, b)]
+    ops = []
+    if differ:
+        eng.gen.set_state(g0)
+        ops = _nondeterministic_ops(lambda: step(st))
+    emit({"phase": "zoo", "card": card, "config": "synth_cifar alexnet nested step rerun from "
+          "one state and generator", "bit_for_bit": not differ, "leaves": len(outs[0]),
+          "differing_leaves": len(differ), "nondeterministic_ops": ops})
+    if differ and not ops:
+        failed.append(f"AlexNet rerun: {len(differ)} leaves differ and no op is named")
+    emit({"phase": "zoo", "card": card, "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError("zoo phase: " + "; ".join(failed))
+    return engines, shapes
+
+
 def median_ms(fn, reps=60, warmup=5):
     """Median per-call time from CUDA events around each call, issued back
     to back so the card stays busy between calls."""
@@ -1361,12 +1778,13 @@ def sl_inputs(S, N, Din, Dout, seed, dev):
 
 def check_sampled_linear(SL, chk, dev):
     """B3 against its plain version on the same CUDA inputs at every shape of
-    SL_SHAPES, and a rerun bit for bit; then the Function's backward (JAX's
-    _bwd in torch products, after the kernel's forward) against autograd
-    through the plain version, for a random output cotangent."""
+    SL_SHAPES and ZOO_SL_SHAPES, and a rerun bit for bit; then the
+    Function's backward (JAX's _bwd in torch products, after the kernel's
+    forward) against autograd through the plain version, for a random
+    output cotangent."""
     names = ("dx", "dmu_w", "drho_w", "dmu_b", "drho_b")
     rep = {"phase": "kernels", "config": "sampled_linear", "gate_rel": REL_B3, "shapes": {}}
-    for seed, (label, S, N, Din, Dout) in enumerate(SL_SHAPES):
+    for seed, (label, S, N, Din, Dout) in enumerate(SL_SHAPES + ZOO_SL_SHAPES):
         a = sl_inputs(S, N, Din, Dout, 100 + seed, dev)
         y = SL._sampled_linear_cuda(*a)
         same_bits([SL._sampled_linear_cuda(*a)], [y], "sampled_linear")
@@ -1685,10 +2103,11 @@ def sl_work(S, N, Din, Dout):
 def b3_expected(data, kw, forwards_per_step, retrain=False):
     """B3's launches in one run_psvi, derived from its loops. Each forward of
     the net launches it once for every VILinear that sees a batched (S, N, ·)
-    input: LeNet's three fc layers, every fn layer after the first. A
+    input: LeNet's and AlexNet's three fc layers, ResNet's head, every fn
+    layer after the first. A
     training step runs ``forwards_per_step`` forwards, an evaluation one per
     test batch, a retrain step one."""
-    n3 = 3 if kw["architecture"] == "lenet" else kw["n_layers"]
+    n3 = {"lenet": 3, "alexnet": 3, "resnet": 1}.get(kw["architecture"]) or kw["n_layers"]
     evals = len(range(0, kw["num_epochs"], kw["log_every"]))
     n_test = len(data.xt)
     per_eval = -(-n_test // min(kw["data_minibatch"], n_test))
@@ -2109,6 +2528,11 @@ def main() -> int:
                   {"four_blobs": blobs, "halfmoon": halfmoon, "synth_mnist": mnist,
                    "sinus": sinus}, only, reg_kw, card, dev)
 
+    # 4e. the model zoo: AlexNet and ResNet-18 on synth_cifar, the
+    # full-covariance nets, B3 at the zoo's dense heads
+    zoo_engines, zoo_shapes = check_zoo(mods, make_psvi_engine, read_dataset, halfmoon, only,
+                                        card, SL)
+
     # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; sinus
     # regressor 1-40-1, M=10, B=64; LeNet flagship)
     cfg = main_cfg(FN, blobs, [2, 40, 4], 48, True, False)
@@ -2156,6 +2580,22 @@ def main() -> int:
                 library="torch.baddbmm on pre-sampled W (cuBLAS product only, sampling "
                         "excluded)",
                 shape=f"S={S} N={N} {Din}->{Dout}", launches_of="LeNet joint run",
+                n_splits=SL._fwd_plan(S, N, Din, Dout),
+                per_call_ms=median_ms(lambda: SL._sampled_linear_cuda(*a))))
+        # B3 at the zoo's dense heads (AlexNet's three, ResNet-18's one)
+        for label, S, N, Din, Dout in ZOO_SL_SHAPES:
+            a = sl_inputs(S, N, Din, Dout, 200, dev)
+            w_t = (a[1][None] + softplus(a[2])[None] * a[5]).transpose(1, 2)
+            b = (a[3][None] + softplus(a[4])[None] * a[6])[:, None, :]
+            kernels.append(queued_row(
+                f"sampled_linear_{label}", SL_SOURCE, SL_REPLACES,
+                lambda: SL._sampled_linear_cuda(*a), lambda: SL.sampled_linear_reference(*a),
+                lambda: torch.baddbmm(b, a[0], w_t), *sl_work(S, N, Din, Dout),
+                zoo_shapes.get((S, N, Din, Dout), 0), chk, "sampled_linear",
+                library="torch.baddbmm on pre-sampled W (cuBLAS product only, sampling "
+                        "excluded)",
+                shape=f"S={S} N={N} {Din}->{Dout}",
+                launches_of=f"{label.split()[0]} joint run (backend=pallas)",
                 n_splits=SL._fwd_plan(S, N, Din, Dout),
                 per_call_ms=median_ms(lambda: SL._sampled_linear_cuda(*a))))
         # B4a-c at the fc shapes and the docstring's N = 1024: each beside its
@@ -2275,6 +2715,19 @@ def main() -> int:
                 np.median(fo["lenet_joint_step_ms"][backend]))
     emit({"phase": "profile", "card": card, "config": "synth_mnist LeNet M=100 S=10 T=20 B=256",
           **prof})
+    # the zoo's nested steps: device time by kernel and the busy share
+    zprof = {}
+    for label, eng in zoo_engines.items():
+        if not label.startswith("synth_cifar"):
+            continue
+        step, st, zb = getattr(eng, eng.step_path), eng.state, eng._sample_batch()
+        p = profile_calls({label: lambda: step(st, zb)})[label]
+        if p["device_ms"]:
+            p["busy_share"] = p["device_ms"] / p["wall_ms_profiled"]
+            p["busy_share_of_step"] = p["device_ms"] / eng.step_ms
+        p["step_ms_unprofiled"] = eng.step_ms
+        zprof[label] = p
+    emit({"phase": "profile", "card": card, "config": "zoo nested steps", **zprof})
 
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -1,15 +1,19 @@
-"""Mean-field variational layers: dense, conv and the LeNet glue.
+"""Variational layers: dense (mean-field and full-covariance), conv, and
+the stateless and normalising layers of the model zoo.
 
-Counterpart of ``psvi_tpu/models/layers.py``'s ``VILinear``, ``VIConv2d``,
-``VIConvPool2d`` (with ``PrePatched`` and ``fuse_conv_pool``),
-``MaxPool2d`` (both backends, ``_argmax_pool``), ``Flatten``, ``ReLU``,
-``Identity``, ``Sequential`` and the net rewrites ``with_dense_backend``,
-``with_compute_dtype`` and ``with_pool_backend``. Each layer is an
-``nn.Module`` that holds its configuration; the computation is functional
-so that ``torch.autograd`` can differentiate through the inner unroll:
+Counterpart of ``psvi_tpu/models/layers.py``'s ``VILinear``,
+``VILinearFullCov``, ``VIConv2d``, ``VIConvPool2d`` (with ``PrePatched``
+and ``fuse_conv_pool``), ``MaxPool2d`` (both backends, ``_argmax_pool``),
+``AvgPool2d``, ``BatchNorm2d``, ``LocalResponseNorm``, ``Flatten``,
+``ReLU``, ``Identity``, ``Residual``, ``Sequential`` and the net rewrites
+``with_dense_backend``, ``with_compute_dtype`` and ``with_pool_backend``.
+Each layer is an ``nn.Module`` that holds its configuration; the
+computation is functional so that ``torch.autograd`` can differentiate
+through the inner unroll:
 
-- ``init(generator)`` returns the parameter dict ``{'mu_w','rho_w','mu_b',
-  'rho_b'}`` (sd stored pre-softplus) on the generator's device;
+- ``init(generator)`` returns the parameter dict (for the mean-field
+  layers ``{'mu_w','rho_w','mu_b','rho_b'}``, sd stored pre-softplus) on
+  the generator's device;
 - ``sample_eps(generator, S)`` draws the standard-normal noise dict with a
   leading MC-sample axis ``S``;
 - ``apply(params, eps, x)`` runs the reparameterized forward for all S
@@ -36,6 +40,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from psvi_torch.utils.tree import tree_leaves
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -221,6 +227,91 @@ class VILinear(_MeanField):
         if b is not None:
             y = y + b[:, None, :]
         return y
+
+
+class VILinearFullCov(Layer):
+    """Full-covariance Gaussian variational dense layer (JAX
+    ``VILinearFullCov``; ref ``VILinearMultivariateNormal``,
+    ``psvi/models/neural_net.py:408-491``): the flattened weights and bias,
+    W first, share one multivariate normal N(mean, L Lᵀ), with L =
+    softplus(ρ) on the diagonal and ``corr`` on the full strictly-lower
+    triangle in row-major order (``jnp.tril_indices(n, k=-1)``'s). JAX
+    deliberately fills the whole triangle where the reference leaves the
+    last row without free entries; the port keeps JAX's family.
+
+    Parameters ``{'mean', 'rho', 'corr'}``, ``mean`` and ``corr`` starting
+    at zero; noise ``{'e': (S, n)}``; θ = mean + ε Lᵀ."""
+
+    def __init__(self, in_dim: int, out_dim: int, init_sd: float = 0.01,
+                 prior_sd: float = 1.0, use_bias: bool = True,
+                 compute_dtype: str = "float32"):
+        super().__init__()
+        self.in_dim, self.out_dim = in_dim, out_dim
+        self.init_sd, self.prior_sd = init_sd, prior_sd
+        self.use_bias = use_bias
+        self.count_kl = True
+        self.compute_dtype = compute_dtype
+
+    def extra_repr(self):
+        return (f"{self.in_dim}, {self.out_dim}, init_sd={self.init_sd}, "
+                f"prior_sd={self.prior_sd}, compute_dtype={self.compute_dtype}")
+
+    @property
+    def num_params(self) -> int:
+        return self.out_dim * self.in_dim + (self.out_dim if self.use_bias else 0)
+
+    def init(self, generator):
+        dev, n = generator.device, self.num_params
+        rho = float(inverse_softplus(self.init_sd))
+        return {"mean": torch.zeros(n, device=dev),
+                "rho": torch.full((n,), rho, device=dev),
+                "corr": torch.zeros(n * (n - 1) // 2, device=dev)}
+
+    def sample_eps(self, generator, mc_samples):
+        return {"e": torch.randn((mc_samples, self.num_params), generator=generator,
+                                 device=generator.device)}
+
+    def _scale_tril(self, params):
+        n, rho = self.num_params, params["rho"]
+        i, j = torch.tril_indices(n, n, offset=-1, device=rho.device)
+        return torch.diag(softplus(rho)).index_put((i, j), params["corr"])
+
+    def _theta_flat(self, params, eps):
+        L = self._scale_tril(params)
+        return params["mean"] + eps["e"] @ L.T, L
+
+    def apply(self, params, eps, x):
+        theta, _ = self._theta_flat(params, eps)
+        nw = self.out_dim * self.in_dim
+        w = theta[..., :nw].reshape(*theta.shape[:-1], self.out_dim, self.in_dim)
+        b = theta[..., nw:] if self.use_bias else None
+        x, w, b = _to_compute(self.compute_dtype, x, w, b)
+        y = torch.einsum("ni,soi->sno" if x.dim() == 2 else "sni,soi->sno", x, w)
+        if b is not None:
+            y = y + b[:, None, :]
+        return y
+
+    def kl(self, params):
+        # KL( N(μ, LLᵀ) ‖ N(0, σ_p² I) ), analytic (ref neural_net.py:435-436)
+        n, sp2 = self.num_params, self.prior_sd ** 2
+        L = self._scale_tril(params)
+        logdet_q = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+        tr = torch.sum(torch.square(L)) / sp2
+        quad = torch.sum(torch.square(params["mean"])) / sp2
+        logdet_p = 2.0 * n * math.log(self.prior_sd)
+        return 0.5 * (logdet_p - logdet_q - n + tr + quad)
+
+    def nkl(self, params, eps):
+        # log q(θ): θ − μ = Lε, so the quadratic form is ‖ε‖²
+        theta, L = self._theta_flat(params, eps)
+        lq = (-0.5 * torch.sum(torch.square(eps["e"]), dim=-1)
+              - torch.sum(torch.log(torch.diagonal(L))) - self.num_params * _HALF_LOG_2PI)
+        sp = torch.tensor(self.prior_sd, dtype=theta.dtype, device=theta.device)
+        return torch.sum(_normal_logpdf(theta, 0.0, sp), dim=-1) - lq
+
+    @property
+    def is_variational(self) -> bool:
+        return True
 
 
 class VIConv2d(_MeanField):
@@ -462,6 +553,72 @@ class MaxPool2d(Layer):
         return y.reshape(*lead, *y.shape[-2:])
 
 
+class AvgPool2d(Layer):
+    """Average pool over (H, W) with no padding (floor); leading axes pass
+    through. ``stride`` None means ``kernel_size``."""
+
+    def __init__(self, kernel_size: int, stride: Optional[int] = None):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+
+    def apply(self, params, eps, x):
+        k = self.kernel_size
+        *lead, H, W = x.shape
+        y = F.avg_pool2d(x.reshape(1, -1, H, W), k, self.stride if self.stride is not None else k)
+        return y.reshape(*lead, *y.shape[-2:])
+
+
+class BatchNorm2d(Layer):
+    """Batch normalisation per channel with the current batch's statistics
+    over every other axis, (S, N, H, W) together, and the biased variance
+    (JAX ``BatchNorm2d``; the reference's ``BayesBatchNorm2d``,
+    ``neural_net.py:257-263``, flattens (S, N) and never leaves train mode).
+    No running statistics are kept. Parameters ``{'gamma', 'beta'}``."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_features, self.eps = num_features, eps
+
+    def init(self, generator):
+        dev = generator.device
+        return {"gamma": torch.ones(self.num_features, device=dev),
+                "beta": torch.zeros(self.num_features, device=dev)}
+
+    def apply(self, params, eps, x):
+        # x: (S, N, C, H, W) or (N, C, H, W)
+        c_axis = x.dim() - 3
+        axes = tuple(i for i in range(x.dim()) if i != c_axis)
+        mean = torch.mean(x, dim=axes, keepdim=True)
+        var = torch.var(x, dim=axes, keepdim=True, correction=0)
+        shape = (1,) * c_axis + (-1, 1, 1)
+        xhat = (x - mean) * torch.rsqrt(var + self.eps)
+        return xhat * params["gamma"].reshape(shape) + params["beta"].reshape(shape)
+
+
+class LocalResponseNorm(Layer):
+    """Cross-channel local response normalisation (AlexNet; ref
+    ``nn.LocalResponseNorm(4, alpha=0.001/9, beta=0.75, k=1)``,
+    ``psvi/models/neural_net.py:384-388``), as JAX's layer computes it:
+    x / (k + α/n·Σ x²)^β with the sum over channels c − lo … c + hi, lo =
+    (n − 1)//2, hi = n − 1 − lo. ``F.local_response_norm`` puts the longer
+    side of an even window on the other side (lo = n//2), so at n = 4 it is
+    another function."""
+
+    def __init__(self, size: int, alpha: float = 1e-4, beta: float = 0.75, k: float = 1.0):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def apply(self, params, eps, x):
+        # x: (S, N, C, H, W) or (N, C, H, W)
+        n, C = self.size, x.shape[-3]
+        lo = (n - 1) // 2
+        sq = F.pad(torch.square(x), (0, 0, 0, 0, lo, n - 1 - lo))
+        ssum = sq.narrow(-3, 0, C)
+        for j in range(1, n):
+            ssum = ssum + sq.narrow(-3, j, C)
+        return x / torch.pow(self.k + (self.alpha / n) * ssum, self.beta)
+
+
 def fuse_conv_pool(net: "Sequential") -> "Sequential":
     """Fold every top-level ``(VIConv2d, MaxPool2d(k == s, p == 0))`` pair
     into a :class:`VIConvPool2d` + :class:`Identity` pair. Both MaxPool2d
@@ -483,13 +640,21 @@ def fuse_conv_pool(net: "Sequential") -> "Sequential":
 
 
 def _rewrite_layers(net: "Sequential", fn) -> "Sequential":
-    """A copy of ``net`` with ``fn`` run on each of its layers, which it may
-    change in place (JAX ``_rewrite_layers``; the container layers JAX
-    recurses through arrive with the model zoo, ROADMAP.md A.8). The input
-    net is left as it is."""
+    """A copy of ``net`` with ``fn`` run on each of its leaf layers, which it
+    may change in place, recursing through the containers (``Residual``'s
+    body and shortcut), as JAX ``_rewrite_layers``. The input net is left as
+    it is."""
     net = copy.deepcopy(net)
-    for layer in net.layers:
-        fn(layer)
+
+    def visit(layers):
+        for layer in layers:
+            if isinstance(layer, Residual):
+                visit(layer.body.layers)
+                visit(layer.shortcut.layers)
+            else:
+                fn(layer)
+
+    visit(net.layers)
     return net
 
 
@@ -515,7 +680,12 @@ def with_compute_dtype(net: "Sequential", dtype: str) -> "Sequential":
     operands are cast; parameters, KL, NKL and the loss math stay
     float32."""
     _dtype(dtype)
-    return _rewrite_layers(net, _set_if((VILinear, VIConv2d), compute_dtype=dtype))
+
+    def fn(layer):  # every layer that has one, as JAX rewrites them
+        if hasattr(layer, "compute_dtype"):
+            layer.compute_dtype = dtype
+
+    return _rewrite_layers(net, fn)
 
 
 def with_pool_backend(net: "Sequential", backend: str) -> "Sequential":
@@ -526,11 +696,11 @@ def with_pool_backend(net: "Sequential", backend: str) -> "Sequential":
     return _rewrite_layers(net, _set_if(MaxPool2d, backend=backend))
 
 
-def _infer_mc_samples(eps) -> Optional[int]:
-    for e in eps:
-        for v in e.values():
-            return int(v.shape[0])
-    return None
+def _infer_mc_samples(eps) -> int:
+    leaves = tree_leaves(eps)
+    if not leaves:
+        raise ValueError("cannot infer mc_samples from empty eps pytree")
+    return int(leaves[0].shape[0])
 
 
 class Sequential(nn.Module):
@@ -574,7 +744,11 @@ class Sequential(nn.Module):
                 term = layer.nkl(p, e)
                 total = term if total is None else total + term
         if total is None:
-            total = torch.zeros((_infer_mc_samples(eps),))
+            # no counted layer: zeros on the noise's device and dtype (an
+            # empty noise tree raises, as in JAX)
+            S = _infer_mc_samples(eps)
+            leaf = tree_leaves(eps)[0]
+            total = torch.zeros((S,), dtype=leaf.dtype, device=leaf.device)
         return total
 
     @property
@@ -591,3 +765,52 @@ class Sequential(nn.Module):
                 and first.supports_parity(tuple(x.shape))):
             return PrePatched(first.extract_patches(x), x.shape)
         return x
+
+
+class Residual(Layer):
+    """Residual block, y = relu(body(x) + shortcut(x)) (JAX ``Residual``; ref
+    ``psvi/models/neural_net.py:532-584``). ``body`` and ``shortcut`` are
+    Sequentials (an empty shortcut is the identity); parameters and noise
+    are ``{'body', 'shortcut'}`` dicts, drawn body first. The block counts
+    as variational, and its KL is counted, only where a sub-layer is
+    variational with its KL counted: the builders' convs are not, so a
+    ResNet's KL and NKL are its last ``VILinear``'s alone."""
+
+    def __init__(self, body: Sequential, shortcut: Sequential):
+        super().__init__()
+        self.body, self.shortcut = body, shortcut
+
+    def init(self, generator):
+        return {"body": self.body.init(generator), "shortcut": self.shortcut.init(generator)}
+
+    def sample_eps(self, generator, mc_samples):
+        return {"body": self.body.sample_eps(generator, mc_samples),
+                "shortcut": self.shortcut.sample_eps(generator, mc_samples)}
+
+    @staticmethod
+    def _sub_apply(net, params, eps, x):
+        # x already carries the S axis: the layers run without a broadcast
+        for layer, p, e in zip(net.layers, params, eps):
+            x = layer.apply(p, e, x)
+        return x
+
+    def apply(self, params, eps, x):
+        out = self._sub_apply(self.body, params["body"], eps["body"], x)
+        sc = self._sub_apply(self.shortcut, params["shortcut"], eps["shortcut"], x)
+        return torch.relu(out + sc)
+
+    def kl(self, params):
+        return self.body.kl(params["body"]) + self.shortcut.kl(params["shortcut"])
+
+    def nkl(self, params, eps):
+        return (self.body.nkl(params["body"], eps["body"])
+                + self.shortcut.nkl(params["shortcut"], eps["shortcut"]))
+
+    @property
+    def is_variational(self) -> bool:
+        return any(l.is_variational and l.count_kl
+                   for l in list(self.body.layers) + list(self.shortcut.layers))
+
+    @property
+    def count_kl(self) -> bool:
+        return self.is_variational

@@ -3,7 +3,10 @@
 Parameters and noise are nested tuples of per-layer dicts, as in the JAX
 package, and the engine state is a named tuple of them (with Adam states,
 also named tuples); these three helpers are all the port needs to map over
-them.
+them. A dict's entries are visited in the order of their sorted keys, as
+JAX visits them, so two trees of the same structure give their leaves in
+one order whatever order their dicts were built in (a tree carried across
+from JAX has its keys sorted, the port's layers build theirs in another).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over structurally identical trees."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (tuple, list)):
         mapped = (tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
         # a named tuple takes its fields positionally
@@ -23,7 +26,7 @@ def tree_map(fn, tree, *rest):
 def tree_leaves(tree) -> list:
     """Leaves in the deterministic order ``tree_map`` visits them."""
     if isinstance(tree, dict):
-        return [x for k in tree for x in tree_leaves(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
         return [x for t in tree for x in tree_leaves(t)]
     return [tree]

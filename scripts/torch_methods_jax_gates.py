@@ -1,4 +1,4 @@
-"""Quality gates of ``chip_smoke.py``'s methods, lifecycle and options
+"""Quality gates of ``chip_smoke.py``'s methods, lifecycle, options and zoo
 phases, from the JAX package.
 
 Runs the JAX engine's ``run_psvi`` on the CPU at each run of
@@ -7,7 +7,10 @@ B=128, init_sd 1e-3; the remaining methods and the hyper trainer) and of
 ``chip_smoke.LIFECYCLE_RUNS`` (the same cell with a prune, with the
 incremental coreset, and under the joint trainer with a prune) and of
 ``chip_smoke.OPTIONS_RUNS`` (the engine options and the readers, each on
-its own dataset and cell) over seeds 0, 1 and 2, and prints one JSON line
+its own dataset and cell) and of ``chip_smoke.ZOO_RUNS`` (``zoo``: the
+full-covariance nets on halfmoon; ``zoo_cifar``: AlexNet and ResNet-18 on
+synth_cifar, whose unrolled inner loops take about 16 GB, RESULTS.md) over
+seeds 0, 1 and 2, and prints one JSON line
 per run: the final accuracy of each seed and the gate, the lowest minus
 0.05, that the card's run of the port must meet. Every run takes JAX's
 plain step (``fused_inner=False``) and ``backend="xla"``: the Pallas ops
@@ -15,7 +18,7 @@ compute the same functions, and the port's runs on the card go through its
 CUDA kernels.
 
 Usage: JAX_PLATFORMS=cpu python scripts/torch_methods_jax_gates.py
-       [--seeds 0 1 2] [--phases methods lifecycle options]
+       [--seeds 0 1 2] [--phases methods lifecycle options zoo zoo_cifar]
 """
 
 import argparse
@@ -44,8 +47,9 @@ def chip_smoke():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
-    ap.add_argument("--phases", nargs="+", choices=["methods", "lifecycle", "options"],
-                    default=["methods", "lifecycle", "options"])
+    ap.add_argument("--phases", nargs="+",
+                    choices=["methods", "lifecycle", "options", "zoo", "zoo_cifar"],
+                    default=["methods", "lifecycle", "options", "zoo"])
     args = ap.parse_args()
     cs = chip_smoke()
     # (label, dataset, base options, engine options, steps)
@@ -53,7 +57,11 @@ def main():
                         for label, opts, steps in cs.METHODS_RUNS],
             "lifecycle": [(label, "four_blobs", cs.METHODS_BASE, opts, steps)
                           for label, opts, steps in cs.LIFECYCLE_RUNS],
-            "options": [r[:5] for r in cs.OPTIONS_RUNS]}
+            "options": [r[:5] for r in cs.OPTIONS_RUNS],
+            "zoo": [(label, name, opts, {}, steps) for label, name, opts, steps in cs.ZOO_RUNS
+                    if name != "synth_cifar"],
+            "zoo_cifar": [(label, name, opts, {}, steps) for label, name, opts, steps
+                          in cs.ZOO_RUNS if name == "synth_cifar"]}
     for label, name, base, opts, steps in [r for phase in args.phases for r in runs[phase]]:
         accs, t0 = [], time.time()
         data = read_dataset(name)

@@ -93,8 +93,10 @@ def test_set_up_model_dense_dispatch():
     assert [type(l).__name__ for l in net.layers] == ["VILinear", "ReLU", "VILinear"]
     assert [type(l).__name__ for l in set_up_model("logistic_regression", 2, None, 2, 1e-3).layers] \
         == ["VILinear"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        set_up_model("alexnet", 3072, None, 10, 1e-3)
+    # the model zoo's architectures build (tests/test_torch_model_zoo.py
+    # holds them against JAX)
+    assert type(set_up_model("alexnet", 3072, None, 10, 1e-3, n_channels=3).layers[0]).__name__ \
+        == "VIConv2d"
     with pytest.raises(ValueError):
         set_up_model("nope", 2, 4, 2, 1e-3)
 
