@@ -147,6 +147,20 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              ResNet-18 nested step in float64 on the card against the host
              (CPU) in float64; AlexNet under bf16 with
              ``remat_inner``; one AlexNet nested step rerun bit for bit;
+   baselines — the baselines and coreset selection (``check_baselines``):
+             every runner of ``BASELINE_RUNS`` through its JAX signature on
+             halfmoon logreg (M=30), four_blobs fn 2-40-4 (M=48) and sinus,
+             no kernel launched, each held to ``BASELINE_GATES`` (JAX's
+             lowest final accuracy over seeds 0-2 minus 0.05; sinus: its
+             highest RMSE plus 0.05), with every Laplace evaluation's
+             seconds and the NUTS evaluation's accept statistic,
+             divergences and seconds; ``CUSTOM_RUNS``, the engine with
+             ``init_args='custom'``: the selection launches nothing, then
+             B1 (five score methods on four_blobs, 26 steps) or B2 (the
+             LeNet flagship on its pretrained net's embeddings, 11 steps)
+             once a step, each held to its gate; k-means on those LeNet
+             embeddings on the card against the native C++ build from one
+             set of k-means++ centroids, inertia within 1e-4, both timed;
 5. times   — CUDA-event medians of each kernel (each head at its main
              path's shapes; the dense ones also as 50 calls queued behind a
              device sleep), its plain version, the fused engine steps and
@@ -437,6 +451,146 @@ ZOO_F64_RUNS = [
     ("synth_cifar resnet18 M=50 S=2 T=2 B=64",
      {**RESNET_KW, "mc_samples": 2, "inner_it": 2, "data_minibatch": 64}),
 ]
+
+# The baselines phase (queue A.10): the baselines and coreset selection.
+# Each runner keeps JAX's signature: (label, module, runner, dataset,
+# options). halfmoon Bayesian logreg at BENCHMARKS.md's target M=30 (the
+# growth baselines run until the coreset reaches it; GIGA 10·M + 1 epochs,
+# a greedy step every 10; opsvi and mfvi_subset 101 epochs at M=30); four_blobs
+# fn 2-40-4 (BENCHMARKS.md's four_blobs table: M=48, 101 epochs, the MFVI
+# selection flows pretraining 5 epochs); sinus regressor_net 1-40-1 with
+# the tau grid search (20 epochs of B=128 steps). The halfmoon runs take
+# lr0net=1e-2 (the package default is 1e-3): a run's final accuracy is one
+# Laplace evaluation, 1000 Adam steps from θ0 ~ N(0, I), and at 1e-3 those
+# steps cannot reach the MAP (|θ| ≈ 5.6 on a coreset of 30), so the reading
+# is a draw of an unconverged fit (JAX over seeds 0-7: sparsevi 0.575-0.825,
+# mfvi_subset 0.495-0.83; the card's seed 0 read 0.43 and 0.19, its
+# evaluation of one coreset over 16 draws 0.14-0.86): no gate can hold it.
+# At 1e-2 JAX reads 0.82-0.875 and 0.825-0.875 over seeds 0-7. k-means and
+# EL2N keep 1e-3: they evaluate each coreset with the weights of the
+# previous one (the reference's order), near the prior whatever the fit.
+HALFMOON_LR = dict(mc_samples=10, seed=0, lr0net=1e-2)
+BLOBS_FN = dict(architecture="fn", n_hidden=40, nc=4, mc_samples=10, data_minibatch=128,
+                init_sd=1e-3, seed=0)
+BASELINE_RUNS = [
+    ("halfmoon random M=30", "baselines", "run_random", "halfmoon",
+     dict(HALFMOON_LR, num_epochs=31, log_every=30)),
+    ("halfmoon giga log_every M=30", "baselines", "run_giga", "halfmoon",
+     dict(HALFMOON_LR, num_epochs=301, log_every=10, data_minibatch=128)),
+    ("halfmoon giga every_step M=30", "baselines", "run_giga", "halfmoon",
+     dict(HALFMOON_LR, num_epochs=301, log_every=10, data_minibatch=128,
+          giga_growth="every_step")),
+    ("halfmoon sparsevi M=30", "baselines", "run_sparsevi", "halfmoon",
+     dict(HALFMOON_LR, num_epochs=31, log_every=30, inner_it=20, outer_it=100,
+          data_minibatch=128)),
+    ("halfmoon opsvi M=30", "baselines", "run_opsvi", "halfmoon",
+     dict(HALFMOON_LR, num_pseudo=30, num_epochs=101, log_every=50, inner_it=20,
+          data_minibatch=128)),
+    ("halfmoon sparsebbvi M=30", "sparsebbvi", "run_sparsevi_with_bb_elbo", "halfmoon",
+     dict(HALFMOON_LR, num_epochs=31, log_every=30, inner_it=10, outer_it=20,
+          data_minibatch=128)),
+    ("halfmoon mfvi_subset M=30", "baselines", "run_mfvi_subset", "halfmoon",
+     dict(HALFMOON_LR, architecture="logistic_regression", nc=2, num_pseudo=30, num_epochs=101,
+          log_every=50, init_sd=1e-3, data_minibatch=128)),
+    ("halfmoon kmeans M=30", "baselines", "run_kmeans", "halfmoon",
+     dict(HALFMOON_LR, nc=2, num_epochs=31, log_every=30, lr0net=1e-3)),
+    ("halfmoon el2n M=30", "baselines", "run_el2n_coreset", "halfmoon",
+     dict(HALFMOON_LR, nc=2, num_epochs=31, log_every=30, lr0net=1e-3)),
+    ("halfmoon random mcmc M=30", "baselines", "run_random", "halfmoon",
+     dict(HALFMOON_LR, num_epochs=31, log_every=30, mcmc=True)),
+    ("four_blobs fn 2-40-4 mfvi", "baselines", "run_mfvi", "four_blobs",
+     dict(BLOBS_FN, num_epochs=101, log_every=50)),
+    ("four_blobs fn 2-40-4 mfvi_subset M=48", "baselines", "run_mfvi_subset", "four_blobs",
+     dict(BLOBS_FN, num_pseudo=48, num_epochs=101, log_every=50)),
+    ("four_blobs fn 2-40-4 mfvi_selection el2n M=48", "baselines", "run_selection_with_mfvi",
+     "four_blobs", dict(BLOBS_FN, mfvi_selection_method="el2n", num_pseudo=48,
+                        num_epochs=101, log_every=50, pretrain_epochs=5)),
+    ("four_blobs fn 2-40-4 mfvi_selection kmeans M=48", "baselines", "run_selection_with_mfvi",
+     "four_blobs", dict(BLOBS_FN, mfvi_selection_method="kmeans", num_pseudo=48,
+                        num_epochs=101, log_every=50, pretrain_epochs=5)),
+    ("sinus mfvi_regressor", "baselines", "run_mfvi_regressor", "sinus",
+     dict(mc_samples=10, num_epochs=20, log_every=50, seed=0, model_selection=True)),
+    ("sinus mfvi_subset_regressor M=50", "baselines", "run_mfvi_subset_regressor", "sinus",
+     dict(mc_samples=10, num_epochs=20, log_every=50, seed=0, num_pseudo=50)),
+]
+# the engine with init_args='custom' at the methods phase's base (four_blobs
+# fn 2-40-4, M=48, S=10, T=10, B=128), B1 once a step, and at the LeNet
+# flagship (synth_mnist, M=100, S=10, T=20, B=256) on the pretrained net's
+# embeddings, B2 once a step; (label, dataset, options, steps, fused path)
+CUSTOM_RUNS = [
+    *[(f"four_blobs fn 2-40-4 M=48 custom {m}", "four_blobs",
+       dict(METHODS_BASE, init_args="custom", mfvi_selection_method=m), 26, "dense")
+      for m in ("kmeans", "submodular", "entropy", "scored_kmeans_entropy", "kmeans_gradient")],
+    ("synth_mnist lenet M=100 S=10 T=20 B=256 custom kmeans", "synth_mnist",
+     dict(LENET_BASE, init_args="custom", mfvi_selection_method="kmeans", pretrain_epochs=5),
+     11, "lenet"),
+]
+# each run's gate: the JAX package's lowest final accuracy over seeds 0-2 on
+# the CPU minus 0.05 (sinus: its highest final test RMSE plus 0.05), and
+# those readings (scripts/torch_methods_jax_gates.py --phases baselines)
+BASELINE_JAX = {
+    'halfmoon random M=30': [0.87, 0.865, 0.84],
+    'halfmoon giga log_every M=30': [0.295, 0.775, 0.745],
+    'halfmoon giga every_step M=30': [0.86, 0.885, 0.855],
+    'halfmoon sparsevi M=30': [0.835, 0.84, 0.865],
+    'halfmoon opsvi M=30': [0.855, 0.875, 0.875],
+    'halfmoon sparsebbvi M=30': [0.78, 0.825, 0.84],
+    'halfmoon mfvi_subset M=30': [0.865, 0.85, 0.875],
+    'halfmoon kmeans M=30': [0.42, 0.505, 0.62],
+    'halfmoon el2n M=30': [0.42, 0.505, 0.62],
+    'halfmoon random mcmc M=30': [0.88, 0.87, 0.84],
+    'four_blobs fn 2-40-4 mfvi': [0.945, 0.945, 0.945],
+    'four_blobs fn 2-40-4 mfvi_subset M=48': [0.935, 0.945, 0.96],
+    'four_blobs fn 2-40-4 mfvi_selection el2n M=48': [0.73, 0.51, 0.66],
+    'four_blobs fn 2-40-4 mfvi_selection kmeans M=48': [0.955, 0.96, 0.95],
+    'sinus mfvi_regressor': [0.3909, 0.4187, 0.4088],
+    'sinus mfvi_subset_regressor M=50': [0.4051, 0.4409, 0.4109],
+    'four_blobs fn 2-40-4 M=48 custom kmeans': [0.96, 0.95, 0.965],
+    'four_blobs fn 2-40-4 M=48 custom submodular': [0.965, 0.94, 0.95],
+    'four_blobs fn 2-40-4 M=48 custom entropy': [0.845, 0.8, 0.865],
+    'four_blobs fn 2-40-4 M=48 custom scored_kmeans_entropy': [0.97, 0.96, 0.97],
+    'four_blobs fn 2-40-4 M=48 custom kmeans_gradient': [0.96, 0.94, 0.95],
+    'synth_mnist lenet M=100 S=10 T=20 B=256 custom kmeans': [1.0, 1.0, 1.0],
+}
+BASELINE_GATES = {
+    'halfmoon random M=30': 0.79,
+    'halfmoon giga log_every M=30': 0.245,
+    'halfmoon giga every_step M=30': 0.805,
+    'halfmoon sparsevi M=30': 0.785,
+    'halfmoon opsvi M=30': 0.805,
+    'halfmoon sparsebbvi M=30': 0.73,
+    'halfmoon mfvi_subset M=30': 0.8,
+    'halfmoon kmeans M=30': 0.37,
+    'halfmoon el2n M=30': 0.37,
+    'halfmoon random mcmc M=30': 0.79,
+    'four_blobs fn 2-40-4 mfvi': 0.895,
+    'four_blobs fn 2-40-4 mfvi_subset M=48': 0.885,
+    'four_blobs fn 2-40-4 mfvi_selection el2n M=48': 0.46,
+    'four_blobs fn 2-40-4 mfvi_selection kmeans M=48': 0.9,
+    'sinus mfvi_regressor': 0.4687,
+    'sinus mfvi_subset_regressor M=50': 0.4909,
+    'four_blobs fn 2-40-4 M=48 custom kmeans': 0.9,
+    'four_blobs fn 2-40-4 M=48 custom submodular': 0.89,
+    'four_blobs fn 2-40-4 M=48 custom entropy': 0.75,
+    'four_blobs fn 2-40-4 M=48 custom scored_kmeans_entropy': 0.91,
+    'four_blobs fn 2-40-4 M=48 custom kmeans_gradient': 0.89,
+    'synth_mnist lenet M=100 S=10 T=20 B=256 custom kmeans': 0.95,
+}
+TRAIN_RUNNERS = ("run_mfvi", "run_mfvi_subset", "run_selection_with_mfvi", "run_mfvi_regressor",
+                 "run_mfvi_subset_regressor")
+
+
+def runner_data(module, runner, data):
+    """A runner's data arguments, as the JAX package's INF_DICT passes them."""
+    if runner in TRAIN_RUNNERS:
+        return {"train": data, **({"N": data.N, "D": data.D} if runner == "run_mfvi" else {})}
+    xy = dict(x=data.x, y=data.y, xt=data.xt, yt=data.yt)
+    return xy if module == "sparsebbvi" else {**xy, "N": data.N, "D": data.D}
+
+
+def final_metric(res):
+    """A run's final accuracy, or final test RMSE for the regressors."""
+    return ("rmse", res["rmses"][-1]) if "rmses" in res else ("acc", res["accs"][-1])
 
 _T0 = time.perf_counter()
 
@@ -1693,6 +1847,167 @@ def check_zoo(mods, make_psvi_engine, read_dataset, halfmoon, only, card, SL):
     return engines, shapes
 
 
+def check_baselines(mods, make_psvi_engine, read_dataset, read_regression_dataset, only, card):
+    """The baselines phase (queue A.10), every launch counter set to 0 just
+    before each run and read just after.
+
+    1. ``BASELINE_RUNS`` through each runner's JAX signature: no kernel
+       launch (the baselines' nets take no dense backend and no fused
+       step), each final accuracy (sinus: test RMSE) held to
+       ``BASELINE_GATES``, with its seconds; every Laplace evaluation
+       (1000 Adam steps, a host loop of small launches) timed, and the
+       NUTS evaluation's accept statistic, divergences and seconds.
+    2. ``CUSTOM_RUNS``: the engine with ``init_args='custom'``; the
+       selection (pretraining, scores, k-means) launches no kernel, then
+       run_psvi launches B1 (dense) or B2 (LeNet) once a step; each held to
+       its gate, with the selection's and the run's seconds.
+    3. k-means on the LeNet run's penultimate embeddings (6000 × 84, k =
+       20): the on-device Lloyd from the native library's k-means++
+       centroids against the native fit from the same seed, inertia
+       within 1e-4 relative, and both times.
+    Every check runs; the phase fails at its end if any did."""
+    from psvi_torch import native
+    from psvi_torch.inference import baselines, sparsebbvi
+    from psvi_torch.inference import selection as PS
+    from psvi_torch.models import logreg as LR
+    from psvi_torch.ops import kmeans as PK
+
+    t_phase = time.perf_counter()
+    failed = []
+    dsets = {"halfmoon": read_dataset("halfmoon"), "four_blobs": read_dataset("four_blobs"),
+             "synth_mnist": read_dataset("synth_mnist"),
+             "sinus": read_regression_dataset("sinus")}
+    modules = {"baselines": baselines, "sparsebbvi": sparsebbvi}
+    timed = {"laplace": [], "nuts": []}
+    real_eval, real_mcmc = LR.evaluate_coreset_laplace, LR.mcmc_sample
+
+    def eval_laplace(*a, **k):
+        t0 = time.perf_counter()
+        out = tuple(float(v) for v in real_eval(*a, **k))
+        timed["laplace"].append(time.perf_counter() - t0)
+        return out
+
+    def mcmc_sample(*a, **k):
+        t0 = time.perf_counter()
+        samples, info = real_mcmc(*a, **k)
+        timed["nuts"].append({
+            "seconds": time.perf_counter() - t0, "draws": int(samples.shape[0]),
+            "accept_stat_mean": float(info["accept_stat"].mean()),
+            "divergences": int(info["diverging"].sum()), "step_size": float(info["step_size"])})
+        return samples, info
+
+    LR.evaluate_coreset_laplace, LR.mcmc_sample = eval_laplace, mcmc_sample
+    try:
+        for label, module, runner, name, opts in BASELINE_RUNS:
+            timed["laplace"].clear()
+            timed["nuts"].clear()
+            for mod in mods:
+                mod.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = getattr(modules[module], runner)(**runner_data(module, runner, dsets[name]),
+                                                   **opts)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {k: n for mod in mods for k, n in mod.LAUNCHES.items() if n}
+            kind, val = final_metric(res)
+            gate = BASELINE_GATES[label]
+            curve = res.get("rmses", res.get("accs"))
+            line = {"phase": "baselines", "card": card, "config": label, "runner": runner,
+                    kind + "s": curve, "gate": gate, "jax": BASELINE_JAX[label],
+                    "csizes": res.get("csizes") if runner != "run_mfvi_subset" else None,
+                    "launches": launches, "seconds": secs}
+            if timed["laplace"]:
+                line["laplace_eval_s"] = timed["laplace"][:]
+            if timed["nuts"]:
+                line["nuts"] = timed["nuts"][:]
+            emit(line)
+            if launches:
+                failed.append(f"{label}: kernels launched {launches}")
+            if not all(math.isfinite(x) for x in curve):
+                failed.append(f"{label}: non-finite {kind}")
+            if (val > gate) if kind == "rmse" else (val < gate):
+                failed.append(f"{label}: final {kind} {val} beyond the gate {gate}")
+    finally:
+        LR.evaluate_coreset_laplace, LR.mcmc_sample = real_eval, real_mcmc
+
+    # 2. init_args='custom' through the engine
+    embeddings = {}
+    real_emb = PS.Selection._penultimate_embeddings
+
+    def penultimate(self):
+        embeddings["lenet"] = real_emb(self)
+        return embeddings["lenet"]
+
+    def make_checked(data, **kw):
+        for mod in mods:
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        eng = make_psvi_engine(data, **kw)
+        torch.cuda.synchronize()
+        eng.init_seconds = time.perf_counter() - t0
+        eng.init_launches = {k: n for mod in mods for k, n in mod.LAUNCHES.items() if n}
+        return eng
+
+    PS.Selection._penultimate_embeddings = penultimate
+    try:
+        for label, name, opts, steps, path in CUSTOM_RUNS:
+            expected = (only(nested_fwd=steps, nested_outer=steps, nested_rev=steps)
+                        if path == "dense" else only(lenet_fwd=steps, lenet_rev=steps))
+            eng, res, launches, secs = run_engine(mods, make_checked, dsets[name], expected,
+                                                  **opts, num_epochs=steps,
+                                                  log_every=steps - 1)
+            acc, gate = res["accs"][-1], BASELINE_GATES[label]
+            emit({"phase": "baselines", "card": card, "config": label, "steps": steps,
+                  "accs": res["accs"], "nlls": res["nlls"], "gate": gate,
+                  "jax": BASELINE_JAX[label], "launches": launches,
+                  "selection_launches": eng.init_launches,
+                  "selection_seconds": eng.init_seconds, "seconds": secs,
+                  "step_ms": eng.step_ms, "step_path": eng.step_path,
+                  "chosen": len(set(eng.chosen_indices))})
+            if eng.init_launches:
+                failed.append(f"{label}: the selection launched {eng.init_launches}")
+            if len(set(eng.chosen_indices)) != eng.num_pseudo:
+                failed.append(f"{label}: {len(set(eng.chosen_indices))} distinct points chosen")
+            if not all(math.isfinite(x) for x in res["accs"] + res["nlls"]):
+                failed.append(f"{label}: non-finite accuracy or NLL")
+            if not acc >= gate:
+                failed.append(f"{label}: final accuracy {acc} < {gate}")
+    finally:
+        PS.Selection._penultimate_embeddings = real_emb
+
+    # 3. k-means on the LeNet embeddings: on the device against the native build
+    X = np.ascontiguousarray(embeddings["lenet"], np.float32)
+    k, iters = 20, 25
+    c0, _, _ = native.kmeans_fit(X, k, iters=0, seed=0)  # the k-means++ centroids
+    native_s, device_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cn, ln, inertia_n = native.kmeans_fit(X, k, iters=iters, seed=0)
+        native_s.append(time.perf_counter() - t0)
+    Xd, c0d = torch.as_tensor(X, device="cuda"), torch.as_tensor(c0, device="cuda")
+    for _ in range(6):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        cd, ld = PK.kmeans_fit(None, Xd, k, iters, init=c0d)
+        ev[1].record()
+        torch.cuda.synchronize()
+        device_ms.append(ev[0].elapsed_time(ev[1]))
+    _, inertia_d = native.assign_labels(X, cd.cpu().numpy())
+    rel = abs(inertia_d - inertia_n) / inertia_n
+    same_labels = float(np.mean(ld.cpu().numpy() == ln))
+    emit({"phase": "baselines", "card": card, "config": f"k-means on the LeNet embeddings "
+          f"{X.shape[0]}x{X.shape[1]} k={k} iters={iters}", "inertia_native": inertia_n,
+          "inertia_device": inertia_d, "rel": rel, "labels_equal_share": same_labels,
+          "native_seconds_median": float(np.median(native_s)),
+          "device_ms_median": float(np.median(device_ms[1:])), "device_ms": device_ms})
+    if not rel <= 1e-4:
+        failed.append(f"k-means inertia: device {inertia_d} native {inertia_n}, rel {rel}")
+    emit({"phase": "baselines", "card": card, "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError("baselines phase: " + "; ".join(failed))
+
+
 def median_ms(fn, reps=60, warmup=5):
     """Median per-call time from CUDA events around each call, issued back
     to back so the card stays busy between calls."""
@@ -2532,6 +2847,9 @@ def main() -> int:
     # full-covariance nets, B3 at the zoo's dense heads
     zoo_engines, zoo_shapes = check_zoo(mods, make_psvi_engine, read_dataset, halfmoon, only,
                                         card, SL)
+
+    # 4f. the baselines and coreset selection; init_args='custom' into B1 and B2
+    check_baselines(mods, make_psvi_engine, read_dataset, read_regression_dataset, only, card)
 
     # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; sinus
     # regressor 1-40-1, M=10, B=64; LeNet flagship)

@@ -14,13 +14,17 @@ Layout:
   device.py   device resolution, the fp32 and determinism policy
   data/       every dataset reader of the JAX package (generated,
               scikit-learn's, file-gated)
-  models/     mean-field variational layers, the network builders, packed nets
+  models/     mean-field variational layers, the network constructors, packed nets,
+              Bayesian and frequentist logistic regression
   ops/        ELBOs, the differentiable optimizers, hypergradient solvers,
-              the hand-written CUDA kernels and their plain versions
+              the hand-written CUDA kernels and their plain versions,
+              k-means on the device, NUTS
+  native/     the C++ k-means, built by g++ at first use
   inference/  the PSVI engines (nested, joint, alternating and hyper
-              trainers; the lifecycle; the engine options)
+              trainers; the lifecycle; the engine options), the baselines,
+              sparse black-box VI, coreset selection
   utils/      method specs, JAX-to-torch conversion, checkpoints, results,
-              resource logging
+              resource logging, the baselines' random draws
 """
 
 from psvi_torch.device import resolve_device

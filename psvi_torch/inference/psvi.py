@@ -89,13 +89,8 @@ from psvi_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 # JAX constructor options the port does not have yet, by ROADMAP.md queue A
-# item: selection and the baselines (10), parallelism (11)
-_UNPORTED = {
-    **dict.fromkeys(("mfvi_selection_method", "pretrain_epochs", "load_from_saved",
-                     "multiple_pts_per_cluster", "alpha_dirichlet", "choose_difficult",
-                     "distance_fn", "last_layer_only", "loaded_from_psvi"), "A.10"),
-    **dict.fromkeys(("mesh", "shard_batch", "shard_mc", "stream_data"), "A.11"),
-}
+# item: parallelism (11)
+_UNPORTED = dict.fromkeys(("mesh", "shard_batch", "shard_mc", "stream_data"), "A.11")
 
 
 class PSVIState(NamedTuple):
@@ -193,6 +188,17 @@ class PSVI:
       It unrolls JAX's ``lax.scan``, which has no torch meaning: the port's
       inner loop is a Python loop, and the option has no effect.
     - ``spec``: a ``MethodSpec`` in place of ``METHOD_SPECS[method]``.
+
+    ``init_args="custom"`` picks the initial pseudodata by
+    ``inference/selection.py::CoresetSelect`` with ``mfvi_selection_method``
+    as its ``score_method`` (JAX's default ``"random"``), and the raw v
+    standard normal. The selection options keep JAX's names and defaults:
+    ``pretrain_epochs`` (the MFVI pretraining of the score and embedding
+    methods), ``load_from_saved``, ``multiple_pts_per_cluster``,
+    ``alpha_dirichlet``, ``choose_difficult``, ``distance_fn``,
+    ``last_layer_only`` and ``loaded_from_psvi`` (the scores and embeddings
+    of a scoring run, read from ``data_folder``). The step is then chosen
+    as for any other init: B1 on the dense nets, B2 on LeNet.
     """
 
     likelihood = "categorical"
@@ -256,6 +262,15 @@ class PSVI:
         fuse_convpool: bool = True,
         fused_eps: str = "batched",
         packed=None,
+        mfvi_selection_method: str = "random",
+        pretrain_epochs: int = 5,
+        load_from_saved: bool = False,
+        multiple_pts_per_cluster: bool = True,
+        alpha_dirichlet: float = 0.0,
+        choose_difficult: bool = True,
+        distance_fn: str = "euclidean",
+        last_layer_only: bool = False,
+        loaded_from_psvi: bool = False,
         spec=None,
         device=None,
         **unported,
@@ -336,6 +351,13 @@ class PSVI:
         self.inner_unroll = None if inner_unroll is None else max(int(inner_unroll), 1)
         self.compute_dtype, self.pool_backend = compute_dtype, pool_backend
         self.fuse_convpool, self.fused_eps, self.packed = fuse_convpool, fused_eps, packed
+        # the selection of init_args='custom' (inference/selection.py::CoresetSelect)
+        self.mfvi_selection_method, self.pretrain_epochs = mfvi_selection_method, pretrain_epochs
+        self.load_from_saved, self.loaded_from_psvi = load_from_saved, loaded_from_psvi
+        self.multiple_pts_per_cluster = multiple_pts_per_cluster
+        self.alpha_dirichlet, self.choose_difficult = alpha_dirichlet, choose_difficult
+        self.distance_fn, self.last_layer_only = distance_fn, last_layer_only
+        self._custom_v = None
         self.elbos: list = []
         self.results: dict = {}
         self.chosen_indices: list = []
@@ -428,16 +450,16 @@ class PSVI:
         draws as the JAX engine: 'subsample' = class-balanced random subset
         of the current train set, or of ``init_dataset`` when one is given;
         'saved' the same ('load_saved_coreset' warm-starts from a stored
-        run); 'random' = noisy empirical mean + balanced labels."""
+        run); 'random' = noisy empirical mean + balanced labels; 'custom' =
+        the points ``CoresetSelect`` picks (``_custom_init``)."""
         M, nc = self.num_pseudo, self.nc
         x_np, y_np = self._init_pool()
         rng = np.random.default_rng(self.seed)
         ppc = [M // nc] * nc
         ppc[-1] = M - sum(ppc[:-1])
+        self._custom_v = None
         if self.init_args == "custom":
-            raise NotImplementedError(
-                "init_args='custom' needs the selection subsystem (CoresetSelect), which is "
-                "not ported yet (ROADMAP.md, queue A item 10)")
+            return self._custom_init(x_np, y_np, rng)
         if self.init_args in ("subsample", "saved"):
             us, zs, idcs = [], [], []
             for c in range(nc):
@@ -458,8 +480,37 @@ class PSVI:
         return (torch.as_tensor(u, dtype=torch.float32, device=dev),
                 torch.as_tensor(z, dtype=torch.float32, device=dev))
 
+    def _custom_init(self, x_np, y_np, rng):
+        """Pseudodata chosen by ``CoresetSelect`` with
+        ``mfvi_selection_method`` (JAX ``_init_pseudodata``'s custom branch;
+        ref ``custom_init`` :310-375): its points and labels, and raw v
+        drawn standard normal from the engine's NumPy stream."""
+        from psvi_torch.inference.selection import CoresetSelect
+
+        sel = CoresetSelect(
+            x_np, y_np, self.x_test.cpu().numpy(), self.y_test.cpu().numpy(),
+            num_pseudo=self.num_pseudo, nc=self.nc, architecture=self.architecture, D=self.D,
+            n_hidden=self.n_hidden or 100, mc_samples=self.mc_samples, init_sd=self.init_sd,
+            data_minibatch=self.data_minibatch, pretrain_epochs=self.pretrain_epochs,
+            lr0net=self.lrs["net"], seed=self.seed, score_method=self.mfvi_selection_method,
+            data_folder=self.data_folder, load_from_saved=self.load_from_saved, dnm=self.dnm,
+            multiple_pts_per_cluster=self.multiple_pts_per_cluster,
+            alpha_dirichlet=self.alpha_dirichlet, choose_difficult=self.choose_difficult,
+            distance_fn=self.distance_fn, last_layer_only=self.last_layer_only,
+            loaded_from_psvi=self.loaded_from_psvi, n_channels=self.data.channels or 1,
+            device=self.device)
+        idx, xs, zs, _ = sel.select_data()
+        self.chosen_indices = idx
+        dev = self.device
+        self._custom_v = torch.as_tensor(rng.standard_normal(self.num_pseudo).astype(np.float32),
+                                         device=dev)
+        return (torch.as_tensor(np.asarray(xs), dtype=torch.float32, device=dev),
+                torch.as_tensor(np.asarray(zs), dtype=torch.float32, device=dev))
+
     def _init_v(self):
         M = self.num_pseudo
+        if self._custom_v is not None:
+            return self._custom_v  # custom selection init: raw v ~ N(0, 1) (ref :373-374)
         if self.spec.parameterised:
             return torch.zeros(M, device=self.device)  # PSVILearnV (:1353-1357)
         v = torch.full((M,), 1.0 / M, device=self.device)

@@ -1,4 +1,5 @@
-"""Minimal pytree helpers over tuples, named tuples, lists and dicts of tensors.
+"""Minimal pytree helpers over tuples, named tuples, lists and dicts of tensors,
+and ``value_and_grad`` of a function of such a tree.
 
 Parameters and noise are nested tuples of per-layer dicts, as in the JAX
 package, and the engine state is a named tuple of them (with Adam states,
@@ -10,6 +11,8 @@ from JAX has its keys sorted, the port's layers build theirs in another).
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def tree_map(fn, tree, *rest):
@@ -36,3 +39,13 @@ def tree_unflatten(tree, leaves):
     """Rebuild ``tree``'s structure from ``leaves`` (as ``tree_leaves`` orders them)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def value_and_grad(fn, params):
+    """``fn(params)`` and its gradient with respect to every leaf of
+    ``params``, as a tree of the same structure (first order, detached)."""
+    with torch.enable_grad():
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = fn(leaves)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    return loss.detach(), tree_unflatten(params, list(grads))

@@ -17,8 +17,15 @@ plain step (``fused_inner=False``) and ``backend="xla"``: the Pallas ops
 compute the same functions, and the port's runs on the card go through its
 CUDA kernels.
 
+``--phases baselines`` runs the JAX package's baseline runners at each run
+of ``chip_smoke.BASELINE_RUNS`` (the runner, dataset and options named
+there; for the sinus regressors the gate is the highest final test RMSE
+plus 0.05) and its engine with ``init_args='custom'`` at each run of
+``chip_smoke.CUSTOM_RUNS``.
+
 Usage: JAX_PLATFORMS=cpu python scripts/torch_methods_jax_gates.py
-       [--seeds 0 1 2] [--phases methods lifecycle options zoo zoo_cifar]
+       [--seeds 0 1 2] [--phases methods lifecycle options zoo zoo_cifar baselines]
+       [--only LABEL_SUBSTRING]
 """
 
 import argparse
@@ -33,7 +40,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from psvi_tpu.data import read_dataset  # noqa: E402
+from psvi_tpu.data import read_dataset, read_regression_dataset  # noqa: E402
+from psvi_tpu.inference import baselines, sparsebbvi  # noqa: E402
 from psvi_tpu.inference.psvi import PSVI  # noqa: E402
 
 
@@ -47,8 +55,10 @@ def chip_smoke():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--only", default="", help="run only the runs whose label contains this")
     ap.add_argument("--phases", nargs="+",
-                    choices=["methods", "lifecycle", "options", "zoo", "zoo_cifar"],
+                    choices=["methods", "lifecycle", "options", "zoo", "zoo_cifar",
+                             "baselines"],
                     default=["methods", "lifecycle", "options", "zoo"])
     args = ap.parse_args()
     cs = chip_smoke()
@@ -61,8 +71,13 @@ def main():
             "zoo": [(label, name, opts, {}, steps) for label, name, opts, steps in cs.ZOO_RUNS
                     if name != "synth_cifar"],
             "zoo_cifar": [(label, name, opts, {}, steps) for label, name, opts, steps
-                          in cs.ZOO_RUNS if name == "synth_cifar"]}
-    for label, name, base, opts, steps in [r for phase in args.phases for r in runs[phase]]:
+                          in cs.ZOO_RUNS if name == "synth_cifar"],
+            "baselines": [(label, name, opts, {}, steps)
+                          for label, name, opts, steps, _ in cs.CUSTOM_RUNS]}
+    if "baselines" in args.phases:
+        baseline_gates(cs, args.seeds, args.only)
+    for label, name, base, opts, steps in [r for phase in args.phases for r in runs[phase]
+                                           if args.only in r[0]]:
         accs, t0 = [], time.time()
         data = read_dataset(name)
         for seed in args.seeds:
@@ -73,6 +88,23 @@ def main():
         print(json.dumps({"run": label, "steps": steps, "seeds": args.seeds, "accs": accs,
                           "gate": round(min(accs) - 0.05, 4), "seconds": time.time() - t0}),
               flush=True)
+
+
+def baseline_gates(cs, seeds, only=""):
+    """The JAX runners of ``chip_smoke.BASELINE_RUNS``, one JSON line each."""
+    modules = {"baselines": baselines, "sparsebbvi": sparsebbvi}
+    for label, module, runner, name, opts in [r for r in cs.BASELINE_RUNS if only in r[0]]:
+        t0 = time.time()
+        data = read_regression_dataset(name) if name == "sinus" else read_dataset(name)
+        vals = []
+        for seed in seeds:
+            res = getattr(modules[module], runner)(**cs.runner_data(module, runner, data),
+                                                   **{**opts, "seed": seed})
+            kind, val = cs.final_metric(res)
+            vals.append(float(val))
+        gate = max(vals) + 0.05 if kind == "rmse" else min(vals) - 0.05
+        print(json.dumps({"run": label, "seeds": seeds, kind + "s": vals, "gate": round(gate, 4),
+                          "seconds": time.time() - t0}), flush=True)
 
 
 if __name__ == "__main__":

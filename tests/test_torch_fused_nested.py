@@ -415,11 +415,13 @@ def test_supports_gating():
 
 def test_unported_options_raise():
     data = read_dataset("halfmoon")
-    # JAX's options of queue A items 10 (selection) and 11 (parallelism)
+    # JAX's options of queue A item 11 (parallelism); item 10's (selection)
+    # are ported
     for option, item in ((dict(mesh=None), "A.11"), (dict(stream_data=True), "A.11"),
-                         (dict(pretrain_epochs=5), "A.10")):
+                         (dict(shard_mc=True), "A.11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
             PSVI(data, **option, **ENGINE_KW)
+    assert PSVI(data, pretrain_epochs=5, **ENGINE_KW).pretrain_epochs == 5
     # the engine options are ported; the dense gate refuses all but inner Adam
     # and float32 compute
     for option in (dict(inner_unroll=2), dict(inner_optimizer="sgd"),
