@@ -161,6 +161,23 @@ there is no card or no ``psvi_torch`` beside it. Phases, one JSON line each:
              once a step, each held to its gate; k-means on those LeNet
              embeddings on the card against the native C++ build from one
              set of k-means++ centroids, inertia within 1e-4, both timed;
+   parallel — parallelism and the CLI (``check_parallel``) at the dense
+             flagship (four_blobs fn 2-40-4 psvi_learn_v M=48 S=10 T=10
+             B=128): the trial runner, 8 trials of 11 steps as one vmapped
+             step (B1 refuses it: 0 launches), chained against unchained,
+             each trial against a plain engine of its seed fed its
+             generator, the batched step's ms beside one trial's plain
+             step; the sharded engine on two gloo ranks on the one card
+             (``shard_batch`` 64 + 64 rows, ``shard_mc`` 5 + 5 samples,
+             each step against the unsharded plain step, the shard_mc
+             evaluation, ``run_mfvi`` with ``shard_batch``); ``stream_data``,
+             26 steps streamed against resident bit for bit through B1 (26
+             launches each), with the µs of a block's index copy; and
+             ``python -m psvi_torch.experiments`` (run in this process by
+             runpy, so the launch counters read): psvi_learn_v 2 trials of
+             26 epochs (B1 26 launches a trial), with ``--trial_parallel``
+             and 4 trials (none), and the random baseline, each trial at
+             its gate (``PARALLEL_GATES``, ``BASELINE_GATES``);
 5. times   — CUDA-event medians of each kernel (each head at its main
              path's shapes; the dense ones also as 50 calls queued behind a
              device sleep), its plain version, the fused engine steps and
@@ -304,6 +321,13 @@ METHODS_RUNS = [
 METHODS_GATES = {"psvi_ablated": 0.875, "psvi_no_iw": 0.875, "psvi_evaluate": 0.905,
                  "psvi_learn_v learn_z": 0.905, "psvi_learn_v truncated K=5": 0.85,
                  "hyper cg_normaleq": 0.87, "hyper fixed_point": 0.84, "hyper neumann": 0.84}
+
+# The parallel phase's runs through the CLI and the trial runner: the dense
+# flagship (METHODS_BASE) for 26 steps, its gate JAX's lowest over seeds
+# 0-3 minus 0.05 (scripts/torch_methods_jax_gates.py --phases parallel
+# --seeds 0 1 2 3; the trial runner's CLI run has four trials)
+PARALLEL_RUNS = [("psvi_learn_v", {}, 26)]
+PARALLEL_GATES = {"psvi_learn_v": 0.875}
 
 # The lifecycle phase: the dense flagship above (METHODS_BASE) with a
 # prune, with the incremental coreset (classes {0, 1} first, one class
@@ -959,10 +983,10 @@ def run_engine(mods, make_psvi_engine, data, expected, **kw):
     losses, events = [], []
     step = eng._step
 
-    def recording_step(state):
+    def recording_step(state, **kw):  # kw: a streamed block's batch and noise
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         ev[0].record()
-        state, aux = step(state)
+        state, aux = step(state, **kw)
         ev[1].record()
         events.append(ev)
         losses.append(aux["outer_loss"])
@@ -1845,6 +1869,282 @@ def check_zoo(mods, make_psvi_engine, read_dataset, halfmoon, only, card, SL):
     if failed:
         raise AssertionError("zoo phase: " + "; ".join(failed))
     return engines, shapes
+
+
+def _agreement(x, ref):
+    return {"cos": _cos(x, ref), "rel": _rel(x, ref)}
+
+
+def _parallel_rank(rank, base):
+    """One of the parallel phase's two ranks, both on the one card (gloo:
+    NCCL refuses two ranks on one device). From one state, batch and noise
+    (the same generator on both ranks): a nested step with ``shard_batch``
+    (64 + 64 rows) and with ``shard_mc`` (5 + 5 samples) against the
+    unsharded plain step on the card, the shard_mc evaluation against the
+    unsharded one on the same draws, and ``run_mfvi`` with ``shard_batch``
+    against the unsharded run; no fused kernel launches (the gates refuse
+    both modes)."""
+    from psvi_torch.data import read_dataset
+    from psvi_torch.inference.baselines import run_mfvi
+    from psvi_torch.inference.psvi import PSVI
+    from psvi_torch.ops import fused_lenet as FL
+    from psvi_torch.ops import fused_nested as FN
+    from psvi_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda:0")
+    blobs = read_dataset("four_blobs")
+    ref = PSVI(blobs, fused_inner=False, device=dev, **base)
+    batch, eps = ref._sample_batch(), ref._stream_eps()
+    st0 = ref.state
+    s_ref, aux_ref, g_ref = hypergrads_of(ref, ref._nested_step, st0, batch, eps)
+
+    def evaluate(eng, state):
+        with eng._drawing_from(torch.Generator(dev).manual_seed(5)):
+            return [float(x) for x in eng._evaluate_fn(state)]
+
+    out = {}
+    for mod in (FN, FL):
+        mod.reset_launches()
+    for name, axis in (("shard_batch", "data"), ("shard_mc", "mc")):
+        eng = PSVI(blobs, mesh=make_mesh(**{axis: 2}), shard_batch=axis == "data",
+                   shard_mc=axis == "mc", device=dev, **base)
+        t0 = time.perf_counter()
+        s1, aux, g = hypergrads_of(eng, eng._step, st0, batch, eps)
+        torch.cuda.synchronize()
+        out[name] = {"step_path": eng._step.__name__, "seconds": time.perf_counter() - t0,
+                     "loss": float(aux["outer_loss"]), "loss_ref": float(aux_ref["outer_loss"]),
+                     "grads": {k: _agreement(g[k], g_ref[k]) for k in g_ref},
+                     "v": _agreement(s1.v - st0.v, s_ref.v - st0.v),
+                     "u": _agreement(s1.u - st0.u, s_ref.u - st0.u),
+                     "eval": evaluate(eng, s_ref), "eval_ref": evaluate(ref, s_ref)}
+    mkw = dict(train=blobs, N=blobs.N, D=blobs.D, architecture="fn", n_hidden=40, nc=4,
+               mc_samples=10, data_minibatch=128, num_epochs=26, log_every=25, seed=0,
+               device=dev)
+    plain = run_mfvi(**mkw)
+    sharded = run_mfvi(**mkw, mesh=make_mesh(data=2), shard_batch=True)
+    out["mfvi"] = {k: (plain[k], sharded[k]) for k in ("accs", "nlls")}
+    out["mfvi"]["elbos"] = (plain["elbos"][-1], sharded["elbos"][-1])
+    out["launches"] = {k: n for mod in (FN, FL) for k, n in mod.LAUNCHES.items()}
+    return out
+
+
+def run_cli(mods, expected, argv):
+    """``python -m psvi_torch.experiments`` with ``argv``, in this process
+    (``runpy``, as ``-m`` runs it) so that the launch counters, set to 0
+    just before, can be read just after; returns its saved results and
+    seconds."""
+    import runpy
+
+    from psvi_torch.utils.results import load_results
+
+    for mod in mods:
+        mod.reset_launches()
+    saved = sys.argv
+    sys.argv = ["psvi_torch.experiments"] + argv
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("psvi_torch.experiments", run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = saved
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    read_launches(mods, expected)
+    folder = argv[argv.index("--results_folder") + 1]
+    for f in ("results.json", "results.pk", "config.json"):
+        if not Path(folder, f).exists():
+            raise AssertionError(f"the CLI wrote no {f} into {folder}")
+    return load_results(folder), secs
+
+
+def check_parallel(mods, make_psvi_engine, read_dataset, only, card, dev):
+    """The parallel phase (queue A.11 and A.12) at the dense flagship
+    (``METHODS_BASE``: four_blobs fn 2-40-4 psvi_learn_v M=48 S=10 T=10
+    B=128), every launch counter set to 0 just before each run and read
+    just after:
+
+    1. the trial runner: 8 trials of 11 steps (log_every 5) as one vmapped
+       step, B1 launched 0 times (its gate refuses the vmapped step);
+       chained equals unchained; each trial against a plain engine of its
+       seed on the card fed the trial's generator (u's and v's moves at
+       cosine > 0.9999 and max|Δ| ≤ 1e-3·max|ref|, the final accuracy
+       within one test point on one evaluation draw); the batched step's
+       median ms beside one trial's plain step;
+    2. the sharded engine: two gloo ranks on the card (``_parallel_rank``),
+       each check held to the hypergradient gate (cosine > 0.9999, max|Δ|
+       ≤ 1e-3·max|ref|), losses at rtol 1e-5, the evaluations' accuracy
+       equal and NLL at rtol 1e-4, run_mfvi's accuracies equal and last
+       ELBO at rtol 1e-4, no kernel launched;
+    3. ``stream_data``: 26 steps streamed against resident, bit for bit,
+       B1 launched 26 times in each; the train set on the host; the µs of
+       one log block's index copy;
+    4. the CLI, in this process: psvi_learn_v 2 trials of 26 epochs (B1 26
+       launches a trial), the same with ``--trial_parallel`` and 4 trials
+       (no launch), and the random baseline at ``BASELINE_RUNS``' config;
+       each run's results files written, each trial at its gate
+       (``PARALLEL_GATES``; the random run at ``BASELINE_GATES``).
+    Every check runs; the phase fails at its end if any did."""
+    import tempfile
+
+    from psvi_torch.parallel.distributed import spawn
+    from psvi_torch.parallel.trials import TrialParallelPSVI, index_tree
+    from psvi_torch.utils.prng import trial_generator
+
+    t_phase = time.perf_counter()
+    failed = []
+    blobs = read_dataset("four_blobs")
+    gate = PARALLEL_GATES["psvi_learn_v"]
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    def agrees(a, what):
+        check(a["cos"] > COS_MIN and a["rel"] <= REL_G, f"{what}: {a}")
+
+    # 1. the trial runner (the runner seeds trial t itself)
+    kw = {k: v for k, v in METHODS_BASE.items() if k != "seed"}
+    kw.update(num_epochs=11, log_every=5)
+    for mod in mods:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    tp = TrialParallelPSVI(blobs, 8, **kw)
+    res = tp.run(chain_steps=True)
+    torch.cuda.synchronize()
+    trial_secs = time.perf_counter() - t0
+    trial_launches = read_launches(mods, only())
+    res_unchained = TrialParallelPSVI(blobs, 8, **kw).run(chain_steps=False)
+    for a, b in zip(res, res_unchained):
+        check(all(a[k] == b[k] for k in ("accs", "nlls", "ness")),
+              f"chained and unchained trial runs differ: {a['accs']} {b['accs']}")
+    trials, plain_ms = [], []
+    for i, t in enumerate(tp.trials):
+        eng = make_psvi_engine(blobs, **{**kw, "seed": t, "fused_inner": False})
+        eng.gen = trial_generator(1000, t, dev)
+        st = s0 = eng.state
+        for _ in range(kw["num_epochs"]):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            st, _ = eng._step(st)
+            ev[1].record()
+            plain_ms.append(ev)
+        s_t = index_tree(tp.states, i)
+        row = {"trial": t, "u": _agreement(s_t.u - s0.u, st.u - s0.u),
+               "v": _agreement(s_t.v - s0.v, st.v - s0.v)}
+        accs = []
+        for state in (s_t, st):
+            with eng._drawing_from(torch.Generator(dev).manual_seed(11)):
+                accs.append(float(eng._evaluate_fn(state)[0]))
+        row["acc"], row["acc_plain"] = accs
+        agrees(row["u"], f"trial {t} u"), agrees(row["v"], f"trial {t} v")
+        check(abs(accs[0] - accs[1]) <= 1.0 / eng.x_test.shape[0] + 1e-6,
+              f"trial {t} accuracy {accs[0]} against the plain engine's {accs[1]}")
+        trials.append(row)
+    torch.cuda.synchronize()
+    plain_step_ms = float(np.median([a.elapsed_time(b) for a, b in plain_ms]))
+    draws = [tp.draw() for _ in range(5)]
+    vstep_ms = []
+    states = tp.states
+    for batches, eps in draws:
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        states, _ = tp.vstep(states, batches, eps)
+        ev[1].record()
+        vstep_ms.append(ev)
+    torch.cuda.synchronize()
+    emit({"phase": "parallel", "part": "trials", "card": card,
+          "config": "four_blobs fn 2-40-4 psvi_learn_v M=48 S=10 T=10 B=128, 8 trials x 11 "
+                    "steps, log_every 5", "step_path": tp._step.__name__,
+          "launches": trial_launches, "seconds": trial_secs,
+          "accs": [r["accs"] for r in res], "per_trial": trials,
+          "vmapped_step_ms_8_trials": float(np.median([a.elapsed_time(b)
+                                                       for a, b in vstep_ms])),
+          "plain_step_ms_one_trial": plain_step_ms})
+
+    # 2. the sharded engine: two ranks on the one card
+    t0 = time.perf_counter()
+    ranks = spawn(_parallel_rank, 2, METHODS_BASE, backend="gloo", timeout=600)
+    shard_secs = time.perf_counter() - t0
+    same = [{k: v for k, v in rk.items() if k != "seconds"} for rk in ranks]
+    for rk in same:
+        for name in ("shard_batch", "shard_mc"):
+            rk[name] = {k: v for k, v in rk[name].items() if k != "seconds"}
+    check(same[0] == same[1], "the two ranks disagree")
+    r = ranks[0]
+    check(not any(r["launches"].values()), f"a sharded run launched a kernel: {r['launches']}")
+    for name in ("shard_batch", "shard_mc"):
+        c = r[name]
+        check(c["step_path"] == "_nested_step", f"{name} took {c['step_path']}")
+        check(abs(c["loss"] - c["loss_ref"]) <= RTOL_LOSS * abs(c["loss_ref"]),
+              f"{name} loss {c['loss']} against {c['loss_ref']}")
+        for k, a in c["grads"].items():
+            agrees(a, f"{name} g_{k}")
+        agrees(c["v"], f"{name} v"), agrees(c["u"], f"{name} u")
+        ev, ref = c["eval"], c["eval_ref"]
+        check(ev[0] == ref[0] and abs(ev[1] - ref[1]) <= 1e-4 * abs(ref[1]),
+              f"{name} evaluation {ev[:2]} against {ref[:2]}")
+    m = r["mfvi"]
+    check(m["accs"][0] == m["accs"][1], f"run_mfvi sharded accuracies {m['accs']}")
+    check(abs(m["elbos"][0] - m["elbos"][1]) <= 1e-4 * abs(m["elbos"][0]),
+          f"run_mfvi sharded last ELBO {m['elbos']}")
+    emit({"phase": "parallel", "part": "sharded", "card": card,
+          "config": "two gloo ranks on one card; the dense flagship, one nested step each way; "
+                    "run_mfvi four_blobs fn 2-40-4 26 epochs", "seconds": shard_secs, **r})
+
+    # 3. stream_data: streamed against resident through B1
+    skw = dict(METHODS_BASE, num_epochs=26, log_every=5, fused_inner="auto")
+    b1 = only(nested_fwd=26, nested_outer=26, nested_rev=26)
+    eng_r, res_r, _, secs_r = run_engine(mods, make_psvi_engine, blobs, b1, **skw)
+    eng_s, res_s, launches_s, secs_s = run_engine(mods, make_psvi_engine, blobs, b1,
+                                                  stream_data=True, **skw)
+    check(res_s["accs"] == res_r["accs"] and res_s["nlls"] == res_r["nlls"],
+          f"streamed run {res_s['accs']} against resident {res_r['accs']}")
+    check(all(torch.equal(getattr(eng_s.state, k), getattr(eng_r.state, k))
+              for k in ("u", "v", "z")), "streamed and resident states differ")
+    check(eng_s.x_train.device.type == "cpu", "the streamed train set left the host")
+    copy_us = []
+    for _ in range(20):
+        idx = torch.stack([eng_s._batch_index() for _ in range(skw["log_every"])])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.cpu()
+        copy_us.append(1e6 * (time.perf_counter() - t0))
+    emit({"phase": "parallel", "part": "stream_data", "card": card,
+          "config": "the dense flagship, 26 steps, log_every 5", "launches": launches_s,
+          "step_path": eng_s.step_path, "accs": res_s["accs"], "seconds_streamed": secs_s,
+          "seconds_resident": secs_r, "step_ms_streamed": eng_s.step_ms,
+          "step_ms_resident": eng_r.step_ms,
+          "index_copy_us_block_of_5x128": float(np.median(copy_us))})
+
+    # 4. the CLI
+    flagship = ["--datasets", "four_blobs", "--methods", "psvi_learn_v", "--architecture", "fn",
+                "--n_hidden", "40", "--coreset_sizes", "48", "--mc_samples", "10",
+                "--inner_it", "10", "--data_minibatch", "128", "--init_sd", "1e-3",
+                "--num_epochs", "26", "--log_every", "25"]
+    random_run = ["--datasets", "halfmoon", "--methods", "random", "--num_epochs", "31",
+                  "--log_every", "30", "--mc_samples", "10", "--lr0net", "1e-2",
+                  "--num_trials", "1"]
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, argv, expected, n in (
+                ("psvi_learn_v 2 trials", flagship + ["--num_trials", "2"],
+                 only(nested_fwd=52, nested_outer=52, nested_rev=52), 2),
+                ("psvi_learn_v --trial_parallel 4 trials",
+                 flagship + ["--num_trials", "4", "--trial_parallel"], only(), 4),
+                ("random", random_run, only(), 1)):
+            folder = str(Path(tmp, label.replace(" ", "_")))
+            res, secs = run_cli(mods, expected, argv + ["--results_folder", folder])
+            method = "random" if label == "random" else "psvi_learn_v"
+            size = -1 if method == "random" else 48
+            node = res["four_blobs" if size > 0 else "halfmoon"][method][size]
+            accs = [node[t]["accs"][-1] for t in range(n)]
+            g = BASELINE_GATES["halfmoon random M=30"] if method == "random" else gate
+            check(len(node) == n and all(a >= g for a in accs),
+                  f"CLI {label}: final accuracies {accs} against the gate {g}")
+            cli[label] = {"accs": accs, "gate": g, "seconds": secs}
+    emit({"phase": "parallel", "part": "cli", "card": card, "runs": cli,
+          "t_phase_s": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError("parallel phase: " + "; ".join(failed))
 
 
 def check_baselines(mods, make_psvi_engine, read_dataset, read_regression_dataset, only, card):
@@ -2850,6 +3150,10 @@ def main() -> int:
 
     # 4f. the baselines and coreset selection; init_args='custom' into B1 and B2
     check_baselines(mods, make_psvi_engine, read_dataset, read_regression_dataset, only, card)
+
+    # 4g. parallelism and the CLI: the trial runner, the sharded engine on
+    # two ranks, streamed batches through B1, python -m psvi_torch.experiments
+    check_parallel(mods, make_psvi_engine, read_dataset, only, card, dev)
 
     # 5. times at the main paths' shapes (four_blobs fn 2-40-4, M=48; sinus
     # regressor 1-40-1, M=10, B=64; LeNet flagship)

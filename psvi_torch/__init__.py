@@ -23,8 +23,13 @@ Layout:
   inference/  the PSVI engines (nested, joint, alternating and hyper
               trainers; the lifecycle; the engine options), the baselines,
               sparse black-box VI, coreset selection
-  utils/      method specs, JAX-to-torch conversion, checkpoints, results,
-              resource logging, the baselines' random draws
+  parallel/   the ('trial', 'data', 'mc') mesh over torch.distributed ranks,
+              the process group and local launchers, trial-parallel runs
+  experiments.py
+              the CLI (python -m psvi_torch.experiments)
+  utils/      the experiment config and method specs, per-trial generators,
+              JAX-to-torch conversion, checkpoints, results, resource
+              logging, the baselines' random draws
 """
 
 from psvi_torch.device import resolve_device

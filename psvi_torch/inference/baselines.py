@@ -414,18 +414,26 @@ class _MFVI:
         self.opt = O.adam(lr0net)
         self.opt_state = self.opt.init(self.params)
 
-    def elbo_loss(self, params, eps, xb, yb, scale, distr, tau):
+    def elbo_loss(self, params, eps, xb, yb, scale, distr, tau, shard=None):
         """The negative ELBO: the scaled NLL summed over (samples, batch),
-        plus the KL."""
+        plus the KL; with ``shard`` (``parallel/mesh.AxisShard``) the batch
+        is this rank's rows and the sum runs over the data axis."""
         nll = E.nll_fn(distr, False, self.nc, tau)(self.net.apply(params, eps, xb), yb)
-        return scale * torch.sum(nll) + self.net.kl(params)
+        nll = torch.sum(nll) if shard is None else shard.sum(torch.sum(nll))
+        return scale * nll + self.net.kl(params)
 
-    def step(self, xb, yb, scale, distr, tau, eps=None):
-        """One Adam step of the ELBO on (xb, yb); ``eps`` drawn if None."""
+    def step(self, xb, yb, scale, distr, tau, eps=None, shard=None):
+        """One Adam step of the ELBO on (xb, yb); ``eps`` drawn if None. With
+        ``shard`` each rank takes its rows of the batch and the gradient is
+        averaged over the axis."""
         if eps is None:
             eps = draws.sample_eps(self.net, self.gen, self.mc_samples)
-        loss, g = value_and_grad(lambda p: self.elbo_loss(p, eps, xb, yb, scale, distr, tau),
-                                 self.params)
+        if shard is not None:
+            xb, yb = shard.take(xb), shard.take(yb)
+        loss, g = value_and_grad(
+            lambda p: self.elbo_loss(p, eps, xb, yb, scale, distr, tau, shard), self.params)
+        if shard is not None:
+            g = shard.mean(g)
         self.params, self.opt_state = self.opt.step(self.params, g, self.opt_state)
         return loss
 
@@ -444,21 +452,27 @@ def run_mfvi(train=None, mc_samples=4, data_minibatch=128, num_epochs=100, log_e
              nc=2, n_layers=1, init_sd=1e-3, mesh=None, shard_batch=False, device=None,
              **kwargs) -> Dict[str, Any]:
     """Mean-field VI on the full training set, a random minibatch a step.
-    ``mesh``/``shard_batch`` (batch sharding) belong to the parallelism
-    slice and are refused here (ROADMAP.md, queue A item 11)."""
-    if mesh is not None or shard_batch:
-        raise NotImplementedError("run_mfvi(mesh=..., shard_batch=True) is not ported yet "
-                                  "(ROADMAP.md, queue A item 11)")
+    ``mesh`` + ``shard_batch=True``: every rank draws the same minibatch and
+    keeps its rows of it (the mesh's ``data`` axis, the minibatch rounded
+    down to a multiple of it); the NLL's sum runs over the axis and the
+    gradient is averaged over it, so the numbers equal the unsharded run's
+    (JAX ``baselines.py:560-600``)."""
     data: DataBundle = train
     m = _MFVI(data, architecture, n_hidden, nc, mc_samples, init_sd, lr0net, data_minibatch,
               seed, n_layers, device=device)
+    shard = None
+    if mesh is not None and shard_batch:
+        from psvi_torch.parallel.mesh import AxisShard
+
+        shard = AxisShard(mesh, "data")
+        m.B = max(shard.size, (m.B // shard.size) * shard.size)
     x, y, xt, yt = (_t(a, m.device) for a in (data.x, data.y, data.xt, data.yt))
     accs, nlls, times, elbos = [], [], [0.0], []
     t0 = time.time()
     total_iterations = mul_fact * num_epochs
     for i in range(total_iterations):
         idx = draws.choice(m.gen, data.N, m.B)
-        loss = m.step(x[idx], y[idx], data.N / m.B, "categorical", None)
+        loss = m.step(x[idx], y[idx], data.N / m.B, "categorical", None, shard=shard)
         elbos.append(-float(loss))
         if i % log_every == 0 or i == total_iterations - 1:
             acc, nll = m.classify(xt, yt)

@@ -49,7 +49,15 @@ method of ``METHOD_SPECS``:
   name (``ops/optim.REGISTRY``), ``compute_dtype`` (bf16 operands, fp32
   loss math), ``pool_backend`` and ``fuse_convpool`` (the literal conv →
   MaxPool2d LeNet, which the LeNet kernel pair also serves), ``packed``
-  (``models/packed.py``), ``fused_eps`` and ``inner_unroll``.
+  (``models/packed.py``), ``fused_eps`` and ``inner_unroll``;
+- parallelism (JAX ``psvi.py:180-193``, ``:309-370``): ``mesh`` with
+  ``shard_batch`` (this rank's rows of every minibatch) and ``shard_mc``
+  (this rank's MC samples), the objectives' sums over either axis as
+  all-reduces (``parallel/mesh.py``); ``stream_data`` (the train set in
+  host memory, each block's batches gathered there and shipped in one
+  copy); and the seam of the trial runner (``parallel/trials.py``): under
+  ``_in_trial_vmap`` the step takes every gradient through ``torch.func``
+  so that ``torch.func.vmap`` batches it over a leading trial axis.
 
 Noise, batches and initial parameters come from one ``torch.Generator``
 per engine on its device, seeded from ``seed`` (the JAX engine's
@@ -62,7 +70,9 @@ and noise; the tests use that seam to line the port up with JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, NamedTuple
@@ -88,9 +98,13 @@ from psvi_torch.utils.results import retrieve_results
 from psvi_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
-# JAX constructor options the port does not have yet, by ROADMAP.md queue A
-# item: parallelism (11)
-_UNPORTED = dict.fromkeys(("mesh", "shard_batch", "shard_mc", "stream_data"), "A.11")
+class FlatEps(NamedTuple):
+    """A fused step's noise as it draws it under ``fused_eps="batched"``:
+    the inner noise in the kernels' flat (T, n_eps) layout, and the outer
+    draw (flat for the dense kernels, a tree for LeNet)."""
+
+    inner: torch.Tensor
+    outer: Any
 
 
 class PSVIState(NamedTuple):
@@ -108,8 +122,28 @@ class PSVIState(NamedTuple):
     net_step: int  # StepLR counter
 
 
+def _real():
+    """The engines' floating dtype: float32, or the default dtype where a
+    caller made it float64 (the CLI's ``--fp64``)."""
+    return torch.get_default_dtype()
+
+
 def _count_pad(n, b):
     return (b - n % b) % b
+
+
+def _value_grad_aux(fn, hyper: dict, functional: bool):
+    """``fn(hyper) = (loss, aux)``: the detached loss, its gradient with
+    respect to each entry of ``hyper``, and ``aux``; through
+    ``torch.autograd``, or through ``torch.func`` when ``functional``."""
+    if functional:
+        grads, (loss, aux) = torch.func.grad_and_value(fn, has_aux=True)(hyper)
+        return loss.detach(), grads, aux
+    with torch.enable_grad():
+        leaves = {k: x.detach().clone().requires_grad_(True) for k, x in hyper.items()}
+        loss, aux = fn(leaves)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    return loss.detach(), grads, aux
 
 
 class PSVI:
@@ -199,7 +233,30 @@ class PSVI:
     ``last_layer_only`` and ``loaded_from_psvi`` (the scores and embeddings
     of a scoring run, read from ``data_folder``). The step is then chosen
     as for any other init: B1 on the dense nets, B2 on LeNet.
+
+    Parallelism, with JAX's names, defaults and errors (``mesh`` from
+    ``parallel.make_mesh``; every rank builds the engine and runs the same
+    calls): ``shard_batch`` splits each minibatch's rows over the mesh's
+    ``data`` axis, the minibatch rounded down to a multiple of the axis;
+    ``shard_mc`` splits the S (and S_eval) samples over its ``mc`` axis,
+    which must divide them. Every rank draws the whole batch and noise from
+    the same generator and keeps its own rows or samples; the gradients of
+    a loss that sums over an axis are averaged over it. They serve the
+    nested (plain step), joint and alternating trainers, the retrain loop
+    and the evaluations; the hyper trainer (its ``torch.func`` products
+    cannot pass a collective) and ``shard_batch`` with learned soft labels
+    (their softmax runs over the whole batch) raise. ``stream_data`` keeps
+    the train set in host memory (``x_train`` stays a CPU tensor): the
+    batch indices are drawn on the device from the engine's generator, as
+    in a resident run, and each log block's are copied to the host in one
+    copy, its rows gathered there and shipped in one copy; the run equals
+    the resident one bit for bit. It refuses ``increment``. The fused
+    gates refuse ``shard_batch``, ``shard_mc`` and a vmapped trial, as
+    JAX's do; streamed batches go through them.
     """
+
+    # set only while the trial runner resolves the step (parallel/trials.py)
+    _in_trial_vmap = False
 
     likelihood = "categorical"
 
@@ -272,16 +329,12 @@ class PSVI:
         last_layer_only: bool = False,
         loaded_from_psvi: bool = False,
         spec=None,
+        mesh=None,
+        shard_batch: bool = False,
+        shard_mc: bool = False,
+        stream_data: bool = False,
         device=None,
-        **unported,
     ):
-        for name in unported:
-            if name not in _UNPORTED:
-                raise TypeError(f"PSVI() got an unexpected keyword argument {name!r}")
-        if unported:
-            raise NotImplementedError(
-                "options not ported yet: " + ", ".join(
-                    f"{k} (ROADMAP.md, {_UNPORTED[k]})" for k in sorted(unported)))
         if inner_optimizer.lower() not in O.REGISTRY:
             raise ValueError(f"unknown inner_optimizer {inner_optimizer!r}; "
                              f"available: {sorted(O.REGISTRY)}")
@@ -358,6 +411,7 @@ class PSVI:
         self.alpha_dirichlet, self.choose_difficult = alpha_dirichlet, choose_difficult
         self.distance_fn, self.last_layer_only = distance_fn, last_layer_only
         self._custom_v = None
+        self._setup_parallel(mesh, shard_batch, shard_mc, stream_data)
         self.elbos: list = []
         self.results: dict = {}
         self.chosen_indices: list = []
@@ -383,16 +437,58 @@ class PSVI:
     # construction
     # ------------------------------------------------------------------
 
+    def _setup_parallel(self, mesh, shard_batch, shard_mc, stream_data):
+        """The mesh's data and mc axes, as the objectives see them, and the
+        streamed train set, with JAX's checks (``psvi.py:309-370``)."""
+        from psvi_torch.parallel.mesh import AxisShard, axis_size
+
+        if stream_data and self.increment:
+            raise ValueError(
+                "stream_data is incompatible with incremental learning "
+                "(the growing task re-materializes the train set; "
+                "incremental datasets are small by construction)")
+        self.stream_data = stream_data
+        self._stream_block: list = []
+        self.mesh = mesh
+        self.data_shard = AxisShard(mesh, "data") if mesh is not None and shard_batch else None
+        self.shard_mc = bool(shard_mc)
+        self.mc_shard = None
+        if self.shard_mc:
+            if mesh is None or "mc" not in mesh.mesh_dim_names:
+                raise ValueError("shard_mc=True needs a mesh with an 'mc' axis "
+                                 "(parallel.make_mesh(mc=...))")
+            msize = axis_size(mesh, "mc")
+            if self.mc_samples % msize or self.mc_samples_eval % msize:
+                raise ValueError(
+                    f"mc_samples ({self.mc_samples}) and mc_samples_eval "
+                    f"({self.mc_samples_eval}) must be divisible by the "
+                    f"mesh 'mc' axis size ({msize})")
+            self.mc_shard = AxisShard(mesh, "mc")
+        if self.data_shard or self.mc_shard:
+            if self.trainer == "hyper":
+                raise ValueError("shard_batch and shard_mc serve the nested, joint and "
+                                 "alternating trainers: the hyper trainer's torch.func "
+                                 "Jacobian products cannot pass a collective")
+            if self.data_shard and self._learn_z_kldiv:
+                raise ValueError("shard_batch with learned soft labels (learn_z): the "
+                                 "soft-label NLL normalises over the whole batch")
+
     def _set_data(self, x, y, xt, yt):
-        """Put the current train and test sets on the device; the minibatch
-        shrinks to a smaller train set and never grows back."""
+        """Put the current train and test sets on the device (under
+        ``stream_data`` the train set in host memory); the minibatch shrinks
+        to a smaller train set and never grows back, and under
+        ``shard_batch`` is rounded down to a multiple of the data axis."""
         dev = self.device
-        self.x_train = torch.as_tensor(x, dtype=torch.float32, device=dev)
-        self.y_train = torch.as_tensor(y, dtype=torch.float32, device=dev)
-        self.x_test = torch.as_tensor(xt, dtype=torch.float32, device=dev)
-        self.y_test = torch.as_tensor(yt, dtype=torch.float32, device=dev)
+        host = torch.device("cpu") if self.stream_data else dev
+        self.x_train = torch.as_tensor(x, dtype=_real(), device=host)
+        self.y_train = torch.as_tensor(y, dtype=_real(), device=host)
+        self.x_test = torch.as_tensor(xt, dtype=_real(), device=dev)
+        self.y_test = torch.as_tensor(yt, dtype=_real(), device=dev)
         self.n_train_now = int(self.x_train.shape[0])
         self.data_minibatch = min(self.data_minibatch, self.n_train_now)
+        if self.data_shard is not None:
+            dsize = self.data_shard.size
+            self.data_minibatch = max(dsize, (self.data_minibatch // dsize) * dsize)
 
     def _reset_increment_data(self):
         """The incremental run's first task, classes {0, 1} (JAX
@@ -428,7 +524,7 @@ class PSVI:
     def _rebuild(self):
         """Re-choose the step for the current M, class count and minibatch
         (JAX ``_compile``): the fused gates are checked again."""
-        self._step = self._trainer_fn()
+        self._step, self._draw_eps = self._trainer_fn()
 
     def _core_weights(self, v, alpha):
         """N·f(v) and f(v) (ref ``psvi_classes.py:111,1358-1360,1486-1488``)."""
@@ -477,8 +573,8 @@ class PSVI:
         else:
             raise ValueError(f"unknown init_args {self.init_args!r}")
         dev = self.device
-        return (torch.as_tensor(u, dtype=torch.float32, device=dev),
-                torch.as_tensor(z, dtype=torch.float32, device=dev))
+        return (torch.as_tensor(u, dtype=_real(), device=dev),
+                torch.as_tensor(z, dtype=_real(), device=dev))
 
     def _custom_init(self, x_np, y_np, rng):
         """Pseudodata chosen by ``CoresetSelect`` with
@@ -503,9 +599,9 @@ class PSVI:
         self.chosen_indices = idx
         dev = self.device
         self._custom_v = torch.as_tensor(rng.standard_normal(self.num_pseudo).astype(np.float32),
-                                         device=dev)
-        return (torch.as_tensor(np.asarray(xs), dtype=torch.float32, device=dev),
-                torch.as_tensor(np.asarray(zs), dtype=torch.float32, device=dev))
+                                         dtype=_real(), device=dev)
+        return (torch.as_tensor(np.asarray(xs), dtype=_real(), device=dev),
+                torch.as_tensor(np.asarray(zs), dtype=_real(), device=dev))
 
     def _init_v(self):
         M = self.num_pseudo
@@ -522,7 +618,7 @@ class PSVI:
         params = self.net.init(self.gen)
         u, z = self._init_pseudodata()
         if self._learn_z_kldiv:  # soft labels start one-hot (ref :552-553)
-            z = torch.nn.functional.one_hot(z.long(), self.nc).to(torch.float32)
+            z = torch.nn.functional.one_hot(z.long(), self.nc).to(_real())
         v = self._init_v()
         alpha = torch.zeros(1, device=self.device)
         self.opt_u = O.adam(self.lrs["u"])
@@ -610,21 +706,21 @@ class PSVI:
         rng = np.random.default_rng(self.seed)
         dev = self.device
         self.chosen_indices = [int(i) for i in d["chosen_indices"]]
-        idx = torch.as_tensor(self.chosen_indices, dtype=torch.long, device=dev)
-        u = self.x_train[idx]
+        idx = torch.as_tensor(self.chosen_indices, dtype=torch.long, device=self.x_train.device)
+        u = self.x_train[idx].to(dev)
         if ablated_labels or d["labels"] is None:
-            z = self.y_train[idx]
+            z = self.y_train[idx].to(dev)
         else:
-            z = torch.as_tensor(d["labels"], dtype=torch.float32, device=dev)
+            z = torch.as_tensor(d["labels"], dtype=_real(), device=dev)
         if self._learn_z_kldiv and z.dim() == 1:
-            z = torch.nn.functional.one_hot(z.long(), self.nc).to(torch.float32)
+            z = torch.nn.functional.one_hot(z.long(), self.nc).to(_real())
         if ablated_weights or d["weights"] is None:
             v = rng.standard_normal(self.num_pseudo).astype(np.float32)
         else:
             v = d["weights"]
-        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        v = torch.as_tensor(v, dtype=_real(), device=dev)
         alpha = (torch.zeros(1, device=dev) if ablated_alpha else
-                 torch.as_tensor(np.atleast_1d(d["alpha"]), dtype=torch.float32, device=dev))
+                 torch.as_tensor(np.atleast_1d(d["alpha"]), dtype=_real(), device=dev))
         self.state = self.state._replace(
             u=u, z=z, v=v, alpha=alpha, opt_u=self.opt_u.init(u), opt_v=self.opt_v.init(v),
             opt_z=self.opt_z.init(z), opt_alpha=self.opt_alpha.init(alpha))
@@ -667,8 +763,8 @@ class PSVI:
             cls_idx = np.where(y_np == new_class)[0]
             take = rng.choice(cls_idx, size=n_extra, replace=len(cls_idx) < n_extra)
             new_u, new_z = x_np[take], y_np[take]
-        u = torch.cat([st.u, torch.as_tensor(new_u, dtype=torch.float32, device=dev)])
-        z = torch.cat([st.z, torch.as_tensor(new_z, dtype=torch.float32, device=dev)])
+        u = torch.cat([st.u, torch.as_tensor(new_u, dtype=_real(), device=dev)])
+        z = torch.cat([st.z, torch.as_tensor(new_z, dtype=_real(), device=dev)])
         self._set_coreset(u, z, v, opt_alpha=self.opt_alpha.init(st.alpha))
 
     def _set_coreset(self, u, z, v, **fresh):
@@ -718,63 +814,143 @@ class PSVI:
         """Learned soft labels: the KLDiv NLL of ``ops/elbo.soft_label_nll``."""
         return self.spec.learn_z and self.likelihood == "categorical"
 
+    def _local_eps(self, eps):
+        """This rank's samples of a noise tree drawn for all S (itself
+        unless ``shard_mc``)."""
+        return eps if self.mc_shard is None else tree_map(self.mc_shard.take, eps)
+
+    def _mean_grads(self, grads, axes=("data", "mc")):
+        """Gradients of a loss that sums over the sharded ``axes``, averaged
+        over them (``parallel/mesh.py``: the data-parallel rule)."""
+        for shard in (self.data_shard if "data" in axes else None,
+                      self.mc_shard if "mc" in axes else None):
+            if shard is not None:
+                grads = shard.mean(grads)
+        return grads
+
     def _inner_loss(self, params, eps, u, z, v, alpha):
         cw, _ = self._core_weights(v, alpha)
-        return E.inner_elbo(self.net, params, eps, u, z, cw, likelihood=self.likelihood,
-                            learn_z=self._learn_z_kldiv, nc=self.nc, tau=self.tau)
+        return E.inner_elbo(self.net, params, self._local_eps(eps), u, z, cw,
+                            likelihood=self.likelihood, learn_z=self._learn_z_kldiv, nc=self.nc,
+                            tau=self.tau, mc_shard=self.mc_shard)
 
     def _outer_loss(self, params, eps, u, z, v, alpha, xb, yb):
+        """The outer objective on a whole batch and noise draw; each rank
+        takes its rows and samples under ``shard_batch`` and ``shard_mc``."""
+        eps = self._local_eps(eps)
+        if self.data_shard is not None:
+            xb, yb = self.data_shard.take(xb), self.data_shard.take(yb)
+        shards = dict(data_shard=self.data_shard, mc_shard=self.mc_shard)
         if self.spec.ablated:
             return E.ablated_elbo(self.net, params, eps, xb, yb, self.N,
-                                  likelihood=self.likelihood, nc=self.nc, tau=self.tau)
+                                  likelihood=self.likelihood, nc=self.nc, tau=self.tau, **shards)
         cw, _ = self._core_weights(v, alpha)
         return E.psvi_elbo(self.net, params, eps, u, z, cw, xb, yb, self.N,
                            likelihood=self.likelihood, learn_z=self._learn_z_kldiv,
-                           nc=self.nc, tau=self.tau)
+                           nc=self.nc, tau=self.tau, **shards)
 
     def _sample_eps(self, S):
         return self.net.sample_eps(self.gen, S)
 
+    @contextlib.contextmanager
+    def _drawing_from(self, gen):
+        """Draw from ``gen`` in place of the engine's generator (the trial
+        runner's per-trial streams)."""
+        saved, self.gen = self.gen, gen
+        try:
+            yield
+        finally:
+            self.gen = saved
+
+    def _batch_index(self):
+        return torch.randperm(self.n_train_now, generator=self.gen,
+                              device=self.device)[:self.data_minibatch]
+
     def _sample_batch(self):
-        idx = torch.randperm(self.n_train_now, generator=self.gen,
-                             device=self.device)[:self.data_minibatch]
+        """A minibatch drawn without replacement; under ``stream_data`` its
+        indices come to the host, and its rows back to the device."""
+        idx = self._batch_index()
+        if self.stream_data:
+            (xb, yb), = self._ship_rows(idx[None])
+            return xb, yb
         return self.x_train[idx], self.y_train[idx]
 
-    def _inner_iter(self, params, ostate, eps, u, z, v, alpha, lr_now, opt, create_graph):
+    def _ship_rows(self, idx):
+        """Under ``stream_data``: the (n, B) indices to the host in one copy,
+        the rows gathered there (into pinned memory on a card) and shipped to
+        the device in one copy of each of x and y; the n batches."""
+        idx = idx.cpu()
+        xb, yb = self.x_train[idx], self.y_train[idx]
+        if self.device.type == "cuda":
+            xb = xb.pin_memory().to(self.device, non_blocking=True)
+            yb = yb.pin_memory().to(self.device, non_blocking=True)
+        return list(zip(xb, yb))
+
+    def _take_step(self, it):
+        """The run loop's next step. Under ``stream_data`` it takes its batch
+        and noise from the current block: a block is drawn at its first step,
+        every step's batch indices and then its noise from the engine's
+        generator in a resident run's order, and its rows shipped at once.
+        A block reaches the next evaluation, or is one step where a hook
+        draws between steps (reset, prune, the scoring run)."""
+        if not self.stream_data:
+            return self._step(self.state)
+        if not self._stream_block:
+            per_step = self.reset or self.prune or self.scoring_run
+            n = 1 if per_step else min(self.log_every - it % self.log_every,
+                                       self.num_epochs - it)
+            idx, eps = [], []
+            for _ in range(n):
+                idx.append(self._batch_index())
+                eps.append(self._draw_eps())
+            self._stream_block = list(zip(self._ship_rows(torch.stack(idx)), eps))
+        batch, eps = self._stream_block.pop(0)
+        return self._step(self.state, batch=batch, eps=eps)
+
+    def _inner_iter(self, params, ostate, eps, u, z, v, alpha, lr_now, opt, create_graph,
+                    functional=False):
         """One inner step: the inner loss and its gradient, then ``opt``'s
-        update. ``create_graph`` keeps the step differentiable."""
-        if create_graph:
+        update. ``create_graph`` keeps the step differentiable; under
+        ``functional`` the gradient comes from ``torch.func`` (differentiable
+        under an enclosing ``torch.func`` transform, and vmappable)."""
+        if functional:
+            g, loss = torch.func.grad_and_value(
+                lambda p: self._inner_loss(p, eps, u, z, v, alpha))(params)
+        elif create_graph:
             loss = self._inner_loss(params, eps, u, z, v, alpha)
-            g = torch.autograd.grad(loss, tree_leaves(params), create_graph=True)
+            g = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params),
+                                                           create_graph=True))
         else:
             with torch.enable_grad():
                 leaves = tree_map(lambda x: x.detach().requires_grad_(True), params)
                 loss = self._inner_loss(leaves, eps, u, z, v, alpha)
-                g = torch.autograd.grad(loss, tree_leaves(leaves))
-        params, ostate = opt.step(params, tree_unflatten(params, g), ostate, lr_now)
+                g = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(leaves)))
+        params, ostate = opt.step(params, self._mean_grads(g, axes=("mc",)), ostate, lr_now)
         return params, ostate, loss.detach()
 
     def _run_inner(self, params0, u, z, v, alpha, lr_now, eps=None, n_steps=None, opt=None,
-                   create_graph=True):
+                   create_graph=True, functional=False):
         """``n_steps`` (default ``inner_it``) inner steps of ``opt`` (default
         the inner Adam) from a fresh optimizer state (ref nested_step
         :549-555). ``create_graph=True`` keeps every step differentiable;
         under ``remat_inner`` each such step is recomputed in the backward
         pass (``torch.utils.checkpoint``) instead of keeping its graph.
-        ``create_graph=False`` runs them without a graph. All noise draws
-        are made before the loop, as the JAX engine pre-draws them outside
-        its scan."""
+        ``create_graph=False`` runs them without a graph. ``functional``
+        takes each gradient through ``torch.func`` (``_inner_iter``). All
+        noise draws are made before the loop, as the JAX engine pre-draws
+        them outside its scan."""
         T = self.inner_it if n_steps is None else n_steps
         opt = opt or self.inner_opt
         eps_stack = eps if eps is not None else [
             self._sample_eps(self.mc_samples) for _ in range(T)]
-        if not create_graph:
+        if not create_graph and not functional:
             params0 = tree_map(lambda x: x.detach(), params0)
         params, ostate = params0, opt.init(params0)
-        remat = create_graph and self.remat_inner
+        remat = create_graph and self.remat_inner and not functional
         losses = []
         for t in range(T):
-            args = (params, ostate, eps_stack[t], u, z, v, alpha, lr_now, opt, create_graph)
+            args = (params, ostate, eps_stack[t], u, z, v, alpha, lr_now, opt, create_graph,
+                    functional)
             if remat:
                 params, ostate, loss = torch.utils.checkpoint.checkpoint(
                     self._inner_iter, *args, use_reentrant=False)
@@ -817,20 +993,17 @@ class PSVI:
         return state._replace(u=u, v=v, z=z, alpha=alpha, opt_u=opt_u, opt_v=opt_v,
                               opt_z=opt_z, opt_alpha=opt_alpha)
 
-    def _nested_step(self, state: PSVIState, batch=None, eps=None):
+    def _nested_step(self, state: PSVIState, batch=None, eps=None, functional=False):
         """Bilevel step through torch.autograd: differentiate the outer
         IW-ELBO through the unrolled inner loop (ref ``nested_step``
         :541-600). ``eps = (list of T inner noise trees, outer noise tree)``;
         under ``truncated`` the first T − K inner trees drive the warm-up
         and the last K the differentiated steps. With no hyperparameters
         (``psvi_evaluate``) the step only fits the net: no graph, no outer
-        gradient."""
+        gradient. ``functional``: every gradient through ``torch.func``, the
+        inner ones nested in the outer (the trial runner's vmapped step)."""
         xb, yb = batch if batch is not None else self._sample_batch()
-        if eps is None:
-            eps_inner = [self._sample_eps(self.mc_samples) for _ in range(self.inner_it)]
-            eps_outer = self._sample_eps(self.mc_samples)
-        else:
-            eps_inner, eps_outer = eps
+        eps_inner, eps_outer = eps if eps is not None else self._stream_eps()
         lr_now = self.lr_net_sched(state.net_step)
         names = self._hyper_names()
         params0 = state.params
@@ -840,37 +1013,43 @@ class PSVI:
             n_warm = self.inner_it - self.truncated_K
             params0, _ = self._run_inner(params0, self.net.prep_input(state.u), state.z,
                                          state.v, state.alpha, 1e-4, eps_inner[:n_warm],
-                                         n_steps=n_warm, opt=O.adam(1e-4), create_graph=False)
+                                         n_steps=n_warm, opt=O.adam(1e-4), create_graph=False,
+                                         functional=functional)
             eps_inner = eps_inner[n_warm:]
         if not names:
             paramsT, inner_losses = self._run_inner(
                 params0, self.net.prep_input(state.u), state.z, state.v, state.alpha, lr_now,
-                eps_inner, n_steps=len(eps_inner), create_graph=False)
+                eps_inner, n_steps=len(eps_inner), create_graph=False, functional=functional)
             with torch.no_grad():
                 loss = self._outer_loss(paramsT, eps_outer, state.u, state.z, state.v,
                                         state.alpha, xb, yb)
             return (state._replace(params=paramsT, net_step=state.net_step + 1),
                     {"outer_loss": loss, "inner_losses": inner_losses})
-        with torch.enable_grad():
-            hyper = {k: getattr(state, k).detach().clone().requires_grad_(True) for k in names}
+        if not functional:
+            params0 = tree_map(lambda x: x.detach().requires_grad_(True), params0)
+
+        def outer(hyper):
             u = hyper.get("u", state.u)
             v = hyper.get("v", state.v)
             z = hyper.get("z", state.z)
             alpha = hyper.get("alpha", state.alpha)
-            params0 = tree_map(lambda x: x.detach().requires_grad_(True), params0)
             # patch-extract u once, outside the inner loop (a no-op for
             # dense nets; layers.PrePatched)
-            paramsT, inner_losses = self._run_inner(params0, self.net.prep_input(u), z,
-                                                    v, alpha, lr_now, eps_inner,
-                                                    n_steps=len(eps_inner))
-            loss = self._outer_loss(paramsT, eps_outer, u, z, v, alpha, xb, yb)
-            grads = dict(zip(names, torch.autograd.grad(loss, list(hyper.values()))))
-        state = self._apply_hyper_updates(state, grads)
+            paramsT, inner_losses = self._run_inner(params0, self.net.prep_input(u), z, v,
+                                                    alpha, lr_now, eps_inner,
+                                                    n_steps=len(eps_inner),
+                                                    functional=functional)
+            return (self._outer_loss(paramsT, eps_outer, u, z, v, alpha, xb, yb),
+                    (paramsT, inner_losses))
+
+        loss, grads, (paramsT, inner_losses) = _value_grad_aux(
+            outer, {k: getattr(state, k) for k in names}, functional)
+        state = self._apply_hyper_updates(state, self._mean_grads(grads))
         state = state._replace(params=tree_map(lambda x: x.detach(), paramsT),
                                net_step=state.net_step + 1)
-        return state, {"outer_loss": loss.detach(), "inner_losses": inner_losses}
+        return state, {"outer_loss": loss, "inner_losses": inner_losses}
 
-    def _hyper_step(self, state: PSVIState, batch=None, eps=None):
+    def _hyper_step(self, state: PSVIState, batch=None, eps=None, functional=False):
         """AID step (JAX ``_hyper_step``; ref ``hyper_step`` :602-687): T
         inner steps that are not differentiated, at the constant lr0net
         (the reference never steps the net's StepLR here), then the
@@ -880,29 +1059,22 @@ class PSVI:
         hyperparameters take one hyper-Adam step; ``net_step`` is not
         advanced. ``eps = (list of T inner noise trees, the outer noise
         tree, {tag: noise tree} for the solver's products)`` (tags:
-        ``ops/hypergrad.py``); a tag missing from the dict is drawn."""
+        ``ops/hypergrad.py``), drawn by ``_hyper_eps`` when not given.
+        ``functional``: the inner gradients and the solver's outer gradient
+        through ``torch.func``."""
         xb, yb = batch if batch is not None else self._sample_batch()
-        if eps is None:
-            eps_inner = [self._sample_eps(self.mc_samples) for _ in range(self.inner_it)]
-            eps_outer, draws = self._sample_eps(self.mc_samples), {}
-        else:
-            eps_inner, eps_outer, draws = eps[0], eps[1], dict(eps[2])
+        eps_inner, eps_outer, draws = eps if eps is not None else self._hyper_eps()
         paramsT, inner_losses = self._run_inner(
             state.params, self.net.prep_input(state.u), state.z, state.v, state.alpha,
-            self.lrs["net"], eps_inner, create_graph=False)
+            self.lrs["net"], eps_inner, create_graph=False, functional=functional)
 
         def unpack(h):
             return (h.get("u", state.u), h.get("z", state.z), h.get("v", state.v),
                     h.get("alpha", state.alpha))
 
-        def noise(tag):
-            if tag not in draws:
-                draws[tag] = self._sample_eps(self.mc_samples)
-            return draws[tag]
-
         def fp_map(p, h, tag):  # one gradient step on the inner loss
             u, z, v, alpha = unpack(h)
-            e = noise(tag)
+            e = draws[tag]
             g = torch.func.grad(lambda q: self._inner_loss(q, e, u, z, v, alpha))(p)
             return tree_map(lambda w, gw: w - self.linsys_lr * gw, p, g)
 
@@ -915,7 +1087,8 @@ class PSVI:
         solver = {"cg_normaleq": H.cg_normaleq, "fixed_point": H.fixed_point,
                   "neumann": H.neumann}[self.hypergrad_approx]
         hg = solver(fp_map, outer_loss_fn, paramsT,
-                    {k: getattr(state, k) for k in self._hyper_names()}, self.hyper_K)
+                    {k: getattr(state, k) for k in self._hyper_names()}, self.hyper_K,
+                    functional=functional)
         state = self._apply_hyper_updates(state, hg.hyper_grads)
         return (state._replace(params=paramsT),
                 {"outer_loss": hg.outer_loss, "inner_losses": inner_losses})
@@ -936,19 +1109,60 @@ class PSVI:
             learn_z=bool(self.spec.learn_z and self.likelihood == "gaussian"),
         )
 
+    # Each step's noise, drawn from the engine's generator in the step's
+    # order and in the form its ``eps`` argument takes. A step given no
+    # ``eps`` calls its own; ``_trainer_fn`` pairs each step with it, so the
+    # trial runner and ``stream_data`` can draw ahead of the step.
+
     def _stream_eps(self):
         """The noise of ``_nested_step``, in its order: T inner trees, then
-        the outer tree (``fused_eps="stream"``)."""
+        the outer tree (the fused steps' under ``fused_eps="stream"``)."""
         return ([self._sample_eps(self.mc_samples) for _ in range(self.inner_it)],
                 self._sample_eps(self.mc_samples))
+
+    def _hyper_eps(self):
+        """``_hyper_step``'s: the nested step's, then one tree per solver tag
+        in the order the solver first asks for them."""
+        eps_inner, eps_outer = self._stream_eps()
+        tags = H.noise_tags(self.hypergrad_approx, self.hyper_K)
+        return eps_inner, eps_outer, {tag: self._sample_eps(self.mc_samples) for tag in tags}
+
+    def _joint_eps(self):
+        return self._sample_eps(self.mc_samples)
+
+    def _alternating_eps(self):
+        """The net step's tree, then the u step's."""
+        return self._sample_eps(self.mc_samples), self._sample_eps(self.mc_samples)
+
+    def _fused_dense_eps(self, n_eps=None):
+        """``_nested_step_fused``'s: under ``fused_eps="batched"`` the flat
+        (T, n_eps) inner and (n_eps,) outer draws; ``n_eps`` is the step's
+        config's, built here when not given."""
+        if self.fused_eps == "stream":
+            return self._stream_eps()
+        if n_eps is None:
+            n_eps = self._fused_cfg(self.data_minibatch).n_eps
+        return FlatEps(torch.randn((self.inner_it, n_eps), generator=self.gen, device=self.device),
+                       torch.randn((n_eps,), generator=self.gen, device=self.device))
+
+    def _fused_lenet_eps(self, n_eps=None):
+        """``_nested_step_fused_lenet``'s: under ``fused_eps="batched"`` the
+        flat (T, n_eps) inner draw, then the outer noise tree."""
+        if self.fused_eps == "stream":
+            return self._stream_eps()
+        if n_eps is None:
+            n_eps = FL.cfg_from_engine(self).n_eps
+        return FlatEps(torch.randn((self.inner_it, n_eps), generator=self.gen, device=self.device),
+                       self._sample_eps(self.mc_samples))
 
     def _nested_step_fused(self, state: PSVIState, batch=None, eps=None):
         """The nested step through the fused kernels: the CUDA kernels on
         the card, their plain versions on the CPU. Under ``fused_eps=
         "batched"`` the noise is drawn in the kernels' flat layout in one
-        call per step; injected noise (``eps`` as for ``_nested_step``), or
-        under ``"stream"`` noise drawn as ``_nested_step`` draws it, is
-        packed into it. The targets are class labels, or for a Gaussian
+        call per step (``FlatEps``, which ``eps`` may also hand in);
+        injected noise (``eps`` as for ``_nested_step``), or under
+        ``"stream"`` noise drawn as ``_nested_step`` draws it, is packed
+        into it. The targets are class labels, or for a Gaussian
         likelihood the real pseudo- and batch targets as flat (M,) and (B,)
         rows."""
         xb, yb = batch if batch is not None else self._sample_batch()
@@ -956,11 +1170,10 @@ class PSVI:
             yb = yb.reshape(-1)
         didx = self._fused_dense_idx()
         cfg = self._fused_cfg(xb.shape[0])
-        if eps is None and self.fused_eps == "stream":
-            eps = self._stream_eps()
         if eps is None:
-            e_in = torch.randn((cfg.T, cfg.n_eps), generator=self.gen, device=self.device)
-            e_out = torch.randn((cfg.n_eps,), generator=self.gen, device=self.device)
+            eps = self._fused_dense_eps(cfg.n_eps)
+        if isinstance(eps, FlatEps):
+            e_in, e_out = eps
         else:
             eps_inner, eps_outer = eps
             e_in = torch.stack([FN.pack_eps([e[i] for i in didx]) for e in eps_inner])
@@ -984,18 +1197,17 @@ class PSVI:
         card, their plain versions on the CPU) and the outer IW-ELBO and
         its gradient through autograd, as ``_nested_step``. Under
         ``fused_eps="batched"`` the inner noise is drawn in the kernels' flat
-        layout in one call per step; injected noise (``eps`` as for
+        layout in one call per step (``FlatEps``); injected noise (``eps`` as for
         ``_nested_step``), or under ``"stream"`` noise drawn as
         ``_nested_step`` draws it, is packed into it. The net is the folded
         or the literal LeNet; both hold the same parameter tree."""
         xb, yb = batch if batch is not None else self._sample_batch()
         cfg = FL.cfg_from_engine(self)
         didx = self.net.variational_layers
-        if eps is None and self.fused_eps == "stream":
-            eps = self._stream_eps()
         if eps is None:
-            e_in = torch.randn((cfg.T, cfg.n_eps), generator=self.gen, device=self.device)
-            eps_outer = self._sample_eps(self.mc_samples)
+            eps = self._fused_lenet_eps(cfg.n_eps)
+        if isinstance(eps, FlatEps):
+            e_in, eps_outer = eps
         else:
             eps_inner, eps_outer = eps
             e_in = torch.stack([FL.pack_eps([e[i] for i in didx]) for e in eps_inner])
@@ -1018,38 +1230,37 @@ class PSVI:
                                net_step=state.net_step + 1)
         return state, {"outer_loss": loss.detach(), "inner_losses": inner_losses.detach()}
 
-    def _joint_step(self, state: PSVIState, batch=None, eps=None):
+    def _joint_step(self, state: PSVIState, batch=None, eps=None, functional=False):
         """One Adam step on (params, u[, v]) jointly, on the outer objective
         (JAX ``_joint_step``; ref ``joint_step`` :517-525). ``eps`` is one
-        noise tree."""
+        noise tree; ``functional``: the gradient through ``torch.func``."""
         xb, yb = batch if batch is not None else self._sample_batch()
         if eps is None:
-            eps = self._sample_eps(self.mc_samples)
+            eps = self._joint_eps()
         leaves = self._joint_leaves(state.params, state.u, state.v)
         loss, grads = H.value_and_grad(lambda lv: self._outer_loss(
             lv["params"], eps, lv["u"], state.z, lv.get("v", state.v), state.alpha, xb, yb),
-            leaves)
-        leaves, opt_joint = self.opt_joint.step(leaves, grads, state.opt_joint)
+            leaves, functional)
+        leaves, opt_joint = self.opt_joint.step(leaves, self._mean_grads(grads), state.opt_joint)
         state = state._replace(params=leaves["params"], u=leaves["u"],
                                v=leaves.get("v", state.v), opt_joint=opt_joint)
         return state, {"outer_loss": loss, "inner_losses": torch.zeros(1, device=self.device)}
 
-    def _alternating_step(self, state: PSVIState, batch=None, eps=None):
+    def _alternating_step(self, state: PSVIState, batch=None, eps=None, functional=False):
         """A net step, then a u step at the new net, each on the outer
         objective with its own noise draw (JAX ``_alternating_step``; ref
         ``alternating_step`` :527-539). ``eps`` is the pair of draws, net
         step first. ``inner_losses`` holds the u step's loss, as JAX returns
-        it (the stream tag 1 of ``register_elbos``)."""
+        it (the stream tag 1 of ``register_elbos``). ``functional``: the
+        gradients through ``torch.func``."""
         xb, yb = batch if batch is not None else self._sample_batch()
-        if eps is None:
-            eps = (self._sample_eps(self.mc_samples), self._sample_eps(self.mc_samples))
-        eps_net, eps_u = eps
+        eps_net, eps_u = eps if eps is not None else self._alternating_eps()
         loss0, gp = H.value_and_grad(lambda p: self._outer_loss(
-            p, eps_net, state.u, state.z, state.v, state.alpha, xb, yb), state.params)
-        params, opt_net = self.opt_net.step(state.params, gp, state.opt_net)
+            p, eps_net, state.u, state.z, state.v, state.alpha, xb, yb), state.params, functional)
+        params, opt_net = self.opt_net.step(state.params, self._mean_grads(gp), state.opt_net)
         loss1, gu = H.value_and_grad(lambda u: self._outer_loss(
-            params, eps_u, u, state.z, state.v, state.alpha, xb, yb), state.u)
-        u, opt_u = self.opt_u.step(state.u, gu, state.opt_u)
+            params, eps_u, u, state.z, state.v, state.alpha, xb, yb), state.u, functional)
+        u, opt_u = self.opt_u.step(state.u, self._mean_grads(gu), state.opt_u)
         state = state._replace(params=params, u=u, opt_net=opt_net, opt_u=opt_u)
         return state, {"outer_loss": loss0, "inner_losses": loss1[None]}
 
@@ -1061,7 +1272,8 @@ class PSVI:
             eps = self._sample_eps(self.mc_samples)
         loss, g = H.value_and_grad(lambda p: self._inner_loss(
             p, eps, state.u, state.z, state.v, state.alpha), state.params)
-        params, opt_net = self.opt_retrain.step(state.params, g, state.opt_net)
+        params, opt_net = self.opt_retrain.step(state.params, self._mean_grads(g, axes=("mc",)),
+                                                state.opt_net)
         return state._replace(params=params, opt_net=opt_net), loss
 
     def _use_fused_inner(self):
@@ -1079,23 +1291,38 @@ class PSVI:
         return which if self.device.type == "cuda" else None
 
     def _trainer_fn(self):
+        """The step for this config and the draw of its noise (a step given
+        no ``eps`` draws the same)."""
         # evaluated first, so that fused_inner=True raises for a configuration
         # the kernels do not serve, a first-order trainer included (JAX
         # psvi.py:1258-1261)
         which = self._use_fused_inner()
         if self.spec.evaluate_only:
-            return self._nested_step  # PSVIEvaluate: the net-only nested step
-        if self.trainer == "joint":
-            return self._joint_step
-        if self.trainer == "alternating":
-            return self._alternating_step
-        if self.trainer == "hyper":
-            return self._hyper_step
-        if which == "dense":
-            return self._nested_step_fused
-        if which == "lenet":
-            return self._nested_step_fused_lenet
-        return self._nested_step
+            # PSVIEvaluate: the net-only nested step
+            step, draw = self._nested_step, self._stream_eps
+        elif self.trainer in ("joint", "alternating", "hyper"):
+            step = getattr(self, f"_{self.trainer}_step")
+            draw = getattr(self, f"_{self.trainer}_eps")
+        else:
+            step, draw = {"dense": (self._nested_step_fused, self._fused_dense_eps),
+                          "lenet": (self._nested_step_fused_lenet, self._fused_lenet_eps),
+                          }.get(which, (self._nested_step, self._stream_eps))
+        return (self._vmappable(step) if self._in_trial_vmap else step), draw
+
+    def _vmappable(self, step):
+        """``step`` with every gradient through ``torch.func``, so that
+        ``torch.func.vmap`` batches it over a leading trial axis of the state
+        (the trial runner). Its noise and batch are handed in: ``vmap``
+        draws nothing. What cannot pass ``vmap`` raises, by name."""
+        for bad, why in ((self.remat_inner, "remat_inner: torch.utils.checkpoint's saved-tensor "
+                                            "hooks do not pass torch.func"),
+                         (self.backend == "pallas", "backend='pallas': kernel B3's "
+                                                    "autograd.Function has no vmap rule"),
+                         (self.data_shard or self.mc_shard, "shard_batch/shard_mc: a "
+                                                            "collective does not pass vmap")):
+            if bad:
+                raise ValueError(f"the trial runner cannot vmap the step with {why}")
+        return functools.wraps(step)(functools.partial(step, functional=True))
 
     # ------------------------------------------------------------------
     # evaluation
@@ -1105,7 +1332,8 @@ class PSVI:
     def _evaluate_fn(self, state: PSVIState, correction: bool = True):
         """Importance-weighted predictive accuracy and NLL over padded test
         batches, and the IW diagnostics of the last batch (ref ``evaluate``
-        :1031-1108)."""
+        :1031-1108); under ``shard_mc`` each rank's samples, the mixture
+        over S summed over the mc axis."""
         S = self.mc_samples_eval
         n_test = int(self.x_test.shape[0])
         B = min(self.data_minibatch, n_test)
@@ -1118,20 +1346,22 @@ class PSVI:
         M = state.u.shape[0]
         corrects = nll_sum = total = 0.0
         weights = None
+        mc = self.mc_shard
         for b0 in range(0, n_test + pad, B):
             xb, yb, m = xt[b0:b0 + B], yt[b0:b0 + B], mask[b0:b0 + B]
-            eps = self._sample_eps(S)
+            eps = self._local_eps(self._sample_eps(S))
             all_logits = self.net.apply(state.params, eps, torch.cat([state.u, xb]))
             lw = E.importance_log_weights(self.net, state.params, eps, state.u, state.z, cw,
                                           learn_z=self._learn_z_kldiv, nc=self.nc,
-                                          pseudo_out=all_logits[:, :M])
-            probs, weights = E.predictive_mixture(all_logits[:, M:], lw, correction=correction)
+                                          pseudo_out=all_logits[:, :M], mc_shard=mc)
+            probs, weights = E.predictive_mixture(all_logits[:, M:], lw, correction=correction,
+                                                  mc_shard=mc)
             pred = torch.argmax(probs, dim=-1).to(torch.float32)
             corrects = corrects + torch.sum((pred == yb) * m)
             p_true = torch.gather(probs, 1, yb.long()[:, None])[:, 0]
             nll_sum = nll_sum - torch.sum(torch.log(torch.clamp_min(p_true, 1e-38)) * m)
             total = total + torch.sum(m)
-        iw_ent, ness, vent = E.iw_diagnostics(weights, fv, self.num_pseudo)
+        iw_ent, ness, vent = E.iw_diagnostics(weights, fv, self.num_pseudo, mc)
         return corrects / total, nll_sum / total, iw_ent, ness, vent
 
     # ------------------------------------------------------------------
@@ -1177,6 +1407,7 @@ class PSVI:
         log_resource = LogResource(self.device)
         t_start = time.time()
         prune_idx = increment_idx = 0
+        self._stream_block = []
         for it in range(self.num_epochs):
             self._forgetting_calculator()
             if it % self.log_every == 0:
@@ -1199,7 +1430,7 @@ class PSVI:
                         grid_preds.append(self.pred_on_grid())
             if self.reset and it % self.reset_interval == 0:
                 self.weight_reset()
-            self.state, aux = self._step(self.state)
+            self.state, aux = self._take_step(it)
             if self.register_elbos:
                 # stream tags (ref :521-559): 1 for the inner entries, then
                 # the step's own, 2 for the joint trainer and 0 otherwise
@@ -1261,8 +1492,13 @@ class PSVI:
         out = []
         for j, i in enumerate(range(0, self.n_train_now, batch)):
             e = eps[j] if eps is not None else self._sample_eps(self.mc_samples_eval)
-            logits = self.net.apply(self.state.params, e, self.x_train[i:i + batch])
-            out.append(torch.softmax(logits.mean(dim=0), dim=-1).cpu().numpy())
+            logits = self.net.apply(self.state.params, self._local_eps(e),
+                                    self.x_train[i:i + batch].to(self.device))
+            if self.mc_shard is None:
+                mean = logits.mean(dim=0)
+            else:
+                mean = self.mc_shard.sum(logits.sum(dim=0)) / self.mc_samples_eval
+            out.append(torch.softmax(mean, dim=-1).cpu().numpy())
         return np.concatenate(out, axis=0)
 
     def _forgetting_calculator(self, eps=None):
@@ -1318,14 +1554,16 @@ class PSVI:
         params = self.net.unpack(self.state.params) if packed else self.state.params
         rows = []
         for j, i in enumerate(range(0, self.n_train_now, batch)):
-            e = eps[j] if eps is not None else self._sample_eps(S)
+            e = self._local_eps(eps[j] if eps is not None else self._sample_eps(S))
             if packed:
                 e = self.net.unpack_eps(e)
-            xb = self.x_train[i:i + batch]
-            h = xb.unsqueeze(0).expand((S,) + tuple(xb.shape))
+            xb = self.x_train[i:i + batch].to(self.device)
+            h = xb.unsqueeze(0).expand((S // (self.mc_shard.size if self.mc_shard else 1),)
+                                       + tuple(xb.shape))
             for layer, p, el in zip(list(self.net.layers)[:-1], params[:-1], e[:-1]):
                 h = layer.apply(p, el, h)
-            rows.append(h.sum(dim=0).float().cpu().numpy())
+            h = h.sum(dim=0) if self.mc_shard is None else self.mc_shard.sum(h.sum(dim=0))
+            rows.append(h.float().cpu().numpy())
         np.savetxt(os.path.join(self.data_folder or ".", f"embedding_{self.dnm}_{self.seed}.csv"),
                    np.concatenate(rows, axis=0), delimiter=",")
 
@@ -1341,14 +1579,17 @@ class PSVI:
         grid = torch.stack([g0.reshape(-1), g1.reshape(-1)], dim=-1)
         if eps is None:
             eps = self._sample_eps(self.mc_samples_eval)
+        eps = self._local_eps(eps)
         st = self.state
         cw, _ = self._core_weights(st.v, st.alpha)
         logits = self.net.apply(st.params, eps, torch.cat([st.u, grid]))
         M = st.u.shape[0]
         lw = E.importance_log_weights(self.net, st.params, eps, st.u, st.z, cw,
                                       likelihood=self.likelihood, learn_z=self._learn_z_kldiv,
-                                      nc=self.nc, tau=self.tau, pseudo_out=logits[:, :M])
-        probs, _ = E.predictive_mixture(logits[:, M:], lw, correction=correction)
+                                      nc=self.nc, tau=self.tau, pseudo_out=logits[:, :M],
+                                      mc_shard=self.mc_shard)
+        probs, _ = E.predictive_mixture(logits[:, M:], lw, correction=correction,
+                                        mc_shard=self.mc_shard)
         return probs.T.cpu().numpy()
 
 
@@ -1367,8 +1608,8 @@ class PSVIRegressor(PSVI):
         rng = np.random.default_rng(self.seed)
         x_pool, y_pool = self._init_pool()
         idx = rng.choice(x_pool.shape[0], size=self.num_pseudo, replace=False)
-        return (torch.as_tensor(x_pool[idx], dtype=torch.float32, device=self.device),
-                torch.as_tensor(y_pool[idx].reshape(-1), dtype=torch.float32, device=self.device))
+        return (torch.as_tensor(x_pool[idx], dtype=_real(), device=self.device),
+                torch.as_tensor(y_pool[idx].reshape(-1), dtype=_real(), device=self.device))
 
     @torch.no_grad()
     def _evaluate_fn(self, state: PSVIState, correction: bool = True, eps=None):
@@ -1379,20 +1620,23 @@ class PSVIRegressor(PSVI):
         cw, fv = self._core_weights(state.v, state.alpha)
         if eps is None:
             eps = self._sample_eps(self.mc_samples_eval)
+        eps, mc = self._local_eps(eps), self.mc_shard
         out = self.net.apply(state.params, eps, torch.cat([state.u, self.x_test])).squeeze(-1)
         M = state.u.shape[0]
         lw = E.importance_log_weights(self.net, state.params, eps, state.u, state.z, cw,
                                       likelihood="gaussian", nc=self.nc, tau=self.tau,
-                                      pseudo_out=out[:, :M])
-        weights = torch.softmax(lw, dim=0)
+                                      pseudo_out=out[:, :M], mc_shard=mc)
+        weights = E.sample_softmax(lw, mc)
         test_out = out[:, M:] * y_std + y_mean  # revert_norm (ref :2226-2227)
         y_pred = torch.einsum("sn,s->n", test_out, weights)
+        if mc is not None:
+            y_pred = mc.sum(y_pred)
         yt = self.y_test.reshape(-1)
         rmse = torch.sqrt(torch.mean(torch.square(y_pred - yt)))
         scale = 1.0 / torch.sqrt(torch.tensor(self.tau, dtype=torch.float32))
         ll = torch.mean(-0.5 * torch.square((yt - y_pred) / scale) - torch.log(scale)
                         - E.HALF_LOG_2PI)
-        iw_ent, ness, vent = E.iw_diagnostics(weights, fv, self.num_pseudo)
+        iw_ent, ness, vent = E.iw_diagnostics(weights, fv, self.num_pseudo, mc)
         return rmse, ll, iw_ent, ness, vent
 
     def _run_psvi_impl(self) -> dict:
@@ -1404,6 +1648,7 @@ class PSVIRegressor(PSVI):
         if self.spec.learn_alpha:
             self.results.setdefault("alpha", [])
         t_start = time.time()
+        self._stream_block = []
         for it in range(self.num_epochs):
             if it % self.log_every == 0:
                 rmse, ll, *_ = self._evaluate_fn(self.state)
@@ -1415,7 +1660,7 @@ class PSVIRegressor(PSVI):
                 vs.append(fv.cpu().numpy())
                 if self.spec.learn_alpha:
                     self.results["alpha"].append(self.state.alpha.cpu().numpy())
-            self.state, _ = self._step(self.state)
+            self.state, _ = self._take_step(it)
         self.results.update(rmses=rmses, lls=lls, csizes=csizes, times=times[1:], vs=vs,
                             went=[], ness=[], vent=[])
         return self.results

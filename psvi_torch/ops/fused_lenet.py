@@ -624,7 +624,11 @@ def supports(engine) -> bool:
     compute, parameters and data; categorical hard labels; the plain nested
     trainer (not truncated, ablated or evaluate-only) with inner Adam; and
     the CUDA design's caps (2 ≤ S ≤ 64, M ≤ 1024, classes ≤ 32). A packed
-    net is not a ``Sequential`` and is refused, as in JAX."""
+    net is not a ``Sequential`` and is refused, as in JAX; so are a step
+    under the trial runner's vmap, ``shard_mc`` and a sharded batch (JAX
+    ``fused_lenet.py:1143,1173-1174``)."""
+    if engine._in_trial_vmap or engine.shard_mc or engine.data_shard is not None:
+        return False
     dense = _lenet_dense(engine)
     if dense is None:
         return False

@@ -860,7 +860,13 @@ def supports(engine) -> bool:
     the plain nested trainer (not truncated, ablated or evaluate-only) with
     inner Adam; and the CUDA design's caps (L ≤ 8, 2 ≤ S ≤ 32,
     S·max(width) ≤ 2048, M + B ≤ 2048). A packed net is not a
-    ``Sequential`` and is refused, as in JAX."""
+    ``Sequential`` and is refused, as in JAX; so are a step under the trial
+    runner's vmap, ``shard_mc`` and a sharded batch (JAX
+    ``fused_nested.py:553,573-574``)."""
+    if engine._in_trial_vmap or engine.shard_mc or engine.data_shard is not None:
+        return False
+    if engine.state.u.dtype != torch.float32:
+        return False
     net = engine.net
     if not isinstance(net, Sequential) or not len(net.layers):
         return False

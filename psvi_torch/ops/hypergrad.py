@@ -25,7 +25,13 @@ noise). The solvers use JAX's pattern of draws per product:
 ∂Φ/∂λ, and a fresh one for each J product (tags ``("jvp", i)``, i = −1 for
 the right-hand side, then 0…K−1); ``fixed_point`` a fresh draw per
 iteration (tags 0…K−1) and tag K for ∂Φ/∂λ; ``neumann`` one draw (tag
-``"vjp"``).
+``"vjp"``). ``noise_tags`` lists them in the order a solver first asks
+for them.
+
+``functional=True`` takes every gradient through ``torch.func`` instead of
+``torch.autograd``, so that a solver (and ``value_and_grad``) runs under
+``torch.func.vmap``, which cannot pass ``torch.autograd.grad`` (the trial
+runner, ``parallel/trials.py``).
 """
 
 from __future__ import annotations
@@ -76,9 +82,23 @@ class HyperGrads(NamedTuple):
     outer_loss: torch.Tensor
 
 
-def value_and_grad(fn, tree):
+def noise_tags(solver: str, K: int) -> list:
+    """The noise tags ``solver`` draws at ``K`` iterations, in the order it
+    first asks for them."""
+    if solver == "cg_normaleq":
+        return ["vjp"] + [("jvp", i) for i in range(-1, K)]
+    if solver == "fixed_point":
+        return list(range(K + 1))
+    return ["vjp"]
+
+
+def value_and_grad(fn, tree, functional: bool = False):
     """``fn(tree)`` and its gradient with respect to every leaf of ``tree``
-    (zeros for a leaf ``fn`` does not read), through ``torch.autograd``."""
+    (zeros for a leaf ``fn`` does not read), through ``torch.autograd``, or
+    through ``torch.func`` when ``functional``."""
+    if functional:
+        grads, loss = torch.func.grad_and_value(fn)(tree)
+        return loss.detach(), grads
     with torch.enable_grad():
         leaves = tree_map(lambda x: x.detach().requires_grad_(True), tree)
         loss = fn(leaves)
@@ -88,8 +108,8 @@ def value_and_grad(fn, tree):
     return loss.detach(), tree_unflatten(tree, grads)
 
 
-def _outer_grads(outer_loss_fn, params, hyper):
-    loss, g = value_and_grad(lambda t: outer_loss_fn(t[0], t[1]), (params, hyper))
+def _outer_grads(outer_loss_fn, params, hyper, functional):
+    loss, g = value_and_grad(lambda t: outer_loss_fn(t[0], t[1]), (params, hyper), functional)
     return loss, g[0], g[1]
 
 
@@ -99,11 +119,12 @@ def _vjp_hyper(fp_map, params, hyper, tag, cot):
     return vjp_h(cot)[0]
 
 
-def cg_normaleq(fp_map: Callable, outer_loss_fn: Callable, params, hyper, K: int) -> HyperGrads:
+def cg_normaleq(fp_map: Callable, outer_loss_fn: Callable, params, hyper, K: int,
+                functional: bool = False) -> HyperGrads:
     """CG on the normal equations (ref ``hypergradients.py:199-244``): solve
     (I − J)(I − Jᵀ) v = (I − J) g_w, then the hypergradient is
     (∂Φ/∂λ)ᵀ v + g_λ, with J = ∂Φ/∂w at the inner solution ``params``."""
-    loss, g_w, g_h = _outer_grads(outer_loss_fn, params, hyper)
+    loss, g_w, g_h = _outer_grads(outer_loss_fn, params, hyper, functional)
     # the Jᵀ side reuses one draw (ref :213-216); each J product draws anew
     _, vjp_fn = torch.func.vjp(lambda p: fp_map(p, hyper, "vjp"), params)
 
@@ -119,11 +140,12 @@ def cg_normaleq(fp_map: Callable, outer_loss_fn: Callable, params, hyper, K: int
     return HyperGrads(tree_add(g_h, _vjp_hyper(fp_map, params, hyper, "vjp", vs)), loss)
 
 
-def neumann(fp_map: Callable, outer_loss_fn: Callable, params, hyper, K: int) -> HyperGrads:
+def neumann(fp_map: Callable, outer_loss_fn: Callable, params, hyper, K: int,
+            functional: bool = False) -> HyperGrads:
     """Neumann series (ref ``hypergradients.py:247-278``):
     g = Σ_{k=0..K} (Jᵀ)^k g_w, hypergradient (∂Φ/∂λ)ᵀ g + g_λ; every product
     shares one draw, as the reference reuses one graph (:264-269)."""
-    loss, g_w, g_h = _outer_grads(outer_loss_fn, params, hyper)
+    loss, g_w, g_h = _outer_grads(outer_loss_fn, params, hyper, functional)
     _, vjp_fn = torch.func.vjp(lambda p: fp_map(p, hyper, "vjp"), params)
     vs = gs = g_w
     for _ in range(K):
@@ -132,11 +154,12 @@ def neumann(fp_map: Callable, outer_loss_fn: Callable, params, hyper, K: int) ->
     return HyperGrads(tree_add(g_h, _vjp_hyper(fp_map, params, hyper, "vjp", gs)), loss)
 
 
-def fixed_point(fp_map: Callable, outer_loss_fn: Callable, params, hyper, K: int) -> HyperGrads:
+def fixed_point(fp_map: Callable, outer_loss_fn: Callable, params, hyper, K: int,
+                functional: bool = False) -> HyperGrads:
     """Fixed-point iteration (ref ``hypergradients.py:83-140``,
     stochastic=True): v ← Jᵀ v + g_w, K times, each with its own draw;
     hypergradient (∂Φ/∂λ)ᵀ v + g_λ."""
-    loss, g_w, g_h = _outer_grads(outer_loss_fn, params, hyper)
+    loss, g_w, g_h = _outer_grads(outer_loss_fn, params, hyper, functional)
     vs = tree_map(torch.zeros_like, g_w)
     for i in range(K):
         _, vjp_fn = torch.func.vjp(lambda p, i=i: fp_map(p, hyper, i), params)

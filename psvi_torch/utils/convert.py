@@ -11,7 +11,11 @@ pretrainer, the MFVI baselines and the frequentist model
 
 A packed JAX net's state (``packed=True``: flat ``{'mu', 'rho'}``
 parameters and their Adam moments) carries across by the same functions:
-the flat dict is a tree like any other.
+the flat dict is a tree like any other. So does the trial runner's stacked
+state (JAX ``TrialParallelPSVI.states``: every leaf with a leading trial
+axis): its tensors keep the axis, as the port's ``parallel/trials.py``
+stacks them, and its step counts, one per trial and equal, become the one
+int the port's stacked state holds.
 
 ``device=None`` means the CUDA card, as everywhere in the port; the tests
 pass ``device="cpu"``.
@@ -49,10 +53,19 @@ def params_from_jax(tree, device=None):
     return conv(tree)
 
 
+def _shared_int(x) -> int:
+    """A step count: a scalar, or a stacked one (one per trial) whose
+    entries must agree."""
+    a = np.asarray(x).reshape(-1)
+    if (a != a[0]).any():
+        raise ValueError(f"stacked trials disagree on a step count: {a}")
+    return int(a[0])
+
+
 def adam_from_jax(opt, device=None):
     """A JAX ``AdamState`` (count, mu, nu) → the port's ``AdamState``."""
     device = resolve_device(device)
-    return AdamState(int(np.asarray(opt.count)),
+    return AdamState(_shared_int(opt.count),
                      params_from_jax(opt.mu, device), params_from_jax(opt.nu, device))
 
 
@@ -74,8 +87,8 @@ def model_state_from_jax(jmodel, pmodel):
 
 def state_from_jax(jstate, device=None):
     """The JAX ``PSVIState`` (leaves as NumPy arrays or anything
-    ``np.asarray`` accepts) → the port's :class:`PSVIState` on ``device``
-    (None: CUDA, or raise)."""
+    ``np.asarray`` accepts), or a stacked one of the trial runner → the
+    port's :class:`PSVIState` on ``device`` (None: CUDA, or raise)."""
     from psvi_torch.inference.psvi import PSVIState
 
     device = resolve_device(device)
@@ -92,5 +105,5 @@ def state_from_jax(jstate, device=None):
         opt_alpha=adam_from_jax(jstate.opt_alpha, device),
         opt_net=adam_from_jax(jstate.opt_net, device),
         opt_joint=adam_from_jax(jstate.opt_joint, device),
-        net_step=int(np.asarray(jstate.net_step)),
+        net_step=_shared_int(jstate.net_step),
     )

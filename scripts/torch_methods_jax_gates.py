@@ -17,6 +17,10 @@ plain step (``fused_inner=False``) and ``backend="xla"``: the Pallas ops
 compute the same functions, and the port's runs on the card go through its
 CUDA kernels.
 
+``--phases parallel`` runs the JAX engine at ``chip_smoke.PARALLEL_RUNS``
+(the dense flagship through the CLI and the trial runner; run it with
+``--seeds 0 1 2 3``: the trial runner's CLI run has four trials).
+
 ``--phases baselines`` runs the JAX package's baseline runners at each run
 of ``chip_smoke.BASELINE_RUNS`` (the runner, dataset and options named
 there; for the sinus regressors the gate is the highest final test RMSE
@@ -24,7 +28,8 @@ plus 0.05) and its engine with ``init_args='custom'`` at each run of
 ``chip_smoke.CUSTOM_RUNS``.
 
 Usage: JAX_PLATFORMS=cpu python scripts/torch_methods_jax_gates.py
-       [--seeds 0 1 2] [--phases methods lifecycle options zoo zoo_cifar baselines]
+       [--seeds 0 1 2] [--phases methods lifecycle options zoo zoo_cifar baselines
+       parallel]
        [--only LABEL_SUBSTRING]
 """
 
@@ -58,7 +63,7 @@ def main():
     ap.add_argument("--only", default="", help="run only the runs whose label contains this")
     ap.add_argument("--phases", nargs="+",
                     choices=["methods", "lifecycle", "options", "zoo", "zoo_cifar",
-                             "baselines"],
+                             "baselines", "parallel"],
                     default=["methods", "lifecycle", "options", "zoo"])
     args = ap.parse_args()
     cs = chip_smoke()
@@ -73,7 +78,9 @@ def main():
             "zoo_cifar": [(label, name, opts, {}, steps) for label, name, opts, steps
                           in cs.ZOO_RUNS if name == "synth_cifar"],
             "baselines": [(label, name, opts, {}, steps)
-                          for label, name, opts, steps, _ in cs.CUSTOM_RUNS]}
+                          for label, name, opts, steps, _ in cs.CUSTOM_RUNS],
+            "parallel": [(label, "four_blobs", cs.METHODS_BASE, opts, steps)
+                         for label, opts, steps in cs.PARALLEL_RUNS]}
     if "baselines" in args.phases:
         baseline_gates(cs, args.seeds, args.only)
     for label, name, base, opts, steps in [r for phase in args.phases for r in runs[phase]

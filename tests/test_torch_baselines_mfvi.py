@@ -77,6 +77,10 @@ def test_mfvi_regressor_tau_grid_matches_jax(monkeypatch):
 
 
 def test_mfvi_refuses_the_mesh():
-    with pytest.raises(NotImplementedError, match="A.11|item 11"):
-        PB.run_mfvi(train=read_dataset("halfmoon"), architecture="fn", n_hidden=4,
-                    shard_batch=True, device="cpu")
+    # batch sharding is ported (tests/test_torch_parallel_dist.py runs it over
+    # two ranks); without a mesh shard_batch shards nothing, as in JAX
+    kw = dict(train=read_dataset("halfmoon"), architecture="fn", n_hidden=4, num_epochs=3,
+              log_every=2, device="cpu")
+    sharded, plain = PB.run_mfvi(shard_batch=True, **kw), PB.run_mfvi(**kw)
+    for k in ("accs", "nlls", "elbos"):
+        assert sharded[k] == plain[k], k

@@ -106,8 +106,11 @@ def test_nine_options_reach_coreset_select(monkeypatch):
     for k, v in NINE.items():
         assert getattr(eng, k) == v
         assert seen[renamed.get(k, k)] == v, k
-    assert PP._UNPORTED == dict.fromkeys(("mesh", "shard_batch", "shard_mc", "stream_data"),
-                                         "A.11")
-    for k in PP._UNPORTED:
-        with pytest.raises(NotImplementedError, match=k):
-            PSVI(read_dataset("four_blobs"), device="cpu", **{**TOY, k: True})
+    # the parallel options are ported (queue A item 11): none is refused by
+    # name, shard_mc takes JAX's error without a mesh
+    assert not hasattr(PP, "_UNPORTED")
+    for k in ("shard_batch", "stream_data"):
+        assert getattr(PSVI(read_dataset("four_blobs"), device="cpu", **{**TOY, k: True}),
+                       "stream_data") == (k == "stream_data")
+    with pytest.raises(ValueError, match="shard_mc"):
+        PSVI(read_dataset("four_blobs"), device="cpu", **{**TOY, "shard_mc": True})

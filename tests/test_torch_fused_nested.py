@@ -415,12 +415,13 @@ def test_supports_gating():
 
 def test_unported_options_raise():
     data = read_dataset("halfmoon")
-    # JAX's options of queue A item 11 (parallelism); item 10's (selection)
-    # are ported
-    for option, item in ((dict(mesh=None), "A.11"), (dict(stream_data=True), "A.11"),
-                         (dict(shard_mc=True), "A.11")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
-            PSVI(data, **option, **ENGINE_KW)
+    # every JAX option is ported: parallelism (queue A item 11) takes JAX's
+    # errors, and streamed batches go through the fused step, as in JAX
+    assert PSVI(data, mesh=None, **ENGINE_KW).mesh is None
+    eng = PSVI(data, stream_data=True, fused_inner=True, **ENGINE_KW)
+    assert FN.supports(eng) and eng._step.__name__ == "_nested_step_fused"
+    with pytest.raises(ValueError, match="'mc' axis"):
+        PSVI(data, shard_mc=True, **ENGINE_KW)
     assert PSVI(data, pretrain_epochs=5, **ENGINE_KW).pretrain_epochs == 5
     # the engine options are ported; the dense gate refuses all but inner Adam
     # and float32 compute
