@@ -33,7 +33,10 @@ method of ``METHOD_SPECS``:
   :602-687);
 - ``_evaluate_fn`` and the ``run_psvi`` loop with the reference's
   results-dict keys, the ``register_elbos`` streams, ``reset`` and
-  ``retrain_on_coreset``;
+  ``retrain_on_coreset``; the loop's layer spans (``utils/resource.py::
+  span``) ``psvi.step``, ``psvi.evaluate`` and ``psvi.readback``, and in
+  the LeNet step ``psvi.outer.fwd`` and ``psvi.outer.bwd`` (the kernel
+  pair's own are ``psvi.unroll.fwd`` and ``psvi.unroll.rev``);
 - ``PSVIRegressor`` — the Gaussian likelihood at precision ``tau``, the
   pseudo-targets z learned with the other hyperparameters, RMSE and
   predictive-LL evaluation;
@@ -93,7 +96,7 @@ from psvi_torch.ops import hypergrad as H
 from psvi_torch.ops import optim as O
 from psvi_torch.utils.checkpoint import load_state, save_state
 from psvi_torch.utils.config import METHOD_SPECS
-from psvi_torch.utils.resource import LogResource
+from psvi_torch.utils.resource import LogResource, span
 from psvi_torch.utils.results import retrieve_results
 from psvi_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -1223,8 +1226,11 @@ class PSVI:
             paramsT = list(state.params)
             for i, layer in zip(didx, FL.unpack_params(pT, cfg)):
                 paramsT[i] = layer
-            loss = self._outer_loss(tuple(paramsT), eps_outer, u, state.z, v, alpha, xb, yb)
-            grads = dict(zip(names, torch.autograd.grad(loss, list(hyper.values())))) if names else {}
+            with span("psvi.outer.fwd"):
+                loss = self._outer_loss(tuple(paramsT), eps_outer, u, state.z, v, alpha, xb, yb)
+            with span("psvi.outer.bwd"):
+                grads = (dict(zip(names, torch.autograd.grad(loss, list(hyper.values()))))
+                         if names else {})
         state = self._apply_hyper_updates(state, grads)
         state = state._replace(params=tree_map(lambda x: x.detach(), tuple(paramsT)),
                                net_step=state.net_step + 1)
@@ -1411,18 +1417,20 @@ class PSVI:
         for it in range(self.num_epochs):
             self._forgetting_calculator()
             if it % self.log_every == 0:
-                acc, nll, iw_ent, ness, vent = self._evaluate_fn(self.state)
-                accs.append(float(acc))
-                nlls.append(float(nll))
-                csizes.append(self.num_pseudo)
-                times.append(times[-1] + time.time() - t_start)
-                vs.append(self.state.v.cpu().numpy())
-                if self.compute_weights_entropy:
-                    iws_ent.append(float(iw_ent))
-                    vs_ent.append(float(vent))
-                nesses.append(float(ness))
-                if self.spec.learn_alpha:
-                    self.results["alpha"].append(self.state.alpha.cpu().numpy())
+                with span("psvi.evaluate"):
+                    acc, nll, iw_ent, ness, vent = self._evaluate_fn(self.state)
+                with span("psvi.readback"):
+                    accs.append(float(acc))
+                    nlls.append(float(nll))
+                    csizes.append(self.num_pseudo)
+                    times.append(times[-1] + time.time() - t_start)
+                    vs.append(self.state.v.cpu().numpy())
+                    if self.compute_weights_entropy:
+                        iws_ent.append(float(iw_ent))
+                        vs_ent.append(float(vent))
+                    nesses.append(float(ness))
+                    if self.spec.learn_alpha:
+                        self.results["alpha"].append(self.state.alpha.cpu().numpy())
                 if self.log_pseudodata:
                     us.append(self.state.u.cpu().numpy())
                     zs.append(self.state.z.cpu().numpy())
@@ -1430,7 +1438,8 @@ class PSVI:
                         grid_preds.append(self.pred_on_grid())
             if self.reset and it % self.reset_interval == 0:
                 self.weight_reset()
-            self.state, aux = self._take_step(it)
+            with span("psvi.step"):
+                self.state, aux = self._take_step(it)
             if self.register_elbos:
                 # stream tags (ref :521-559): 1 for the inner entries, then
                 # the step's own, 2 for the joint trainer and 0 otherwise

@@ -60,6 +60,7 @@ from psvi_torch.ops.fused_nested import (_F, _I, _P, _adam, _check, _cw_vjp, _la
                                          core_weights, pack_eps, pack_params, unpack_eps,
                                          unpack_params)
 from psvi_torch.ops.optim import _sqrt_safe
+from psvi_torch.utils.resource import span
 from psvi_torch.utils.tree import tree_leaves
 
 # Caps of the CUDA design (enforced by supports()): the head keeps one
@@ -493,7 +494,8 @@ class LeNetUnroll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p0, u, v, alpha, z, eps_in, lr, cfg, plain):
         fwd = lenet_fwd_torch if plain else lenet_fwd
-        losses, hist, _ = fwd(p0, u, z, v, alpha, eps_in, lr, cfg)
+        with span("psvi.unroll.fwd"):
+            losses, hist, _ = fwd(p0, u, z, v, alpha, eps_in, lr, cfg)
         ctx.save_for_backward(hist, u, v, alpha, z, eps_in)
         ctx.lr, ctx.cfg, ctx.plain = lr, cfg, plain
         return hist[cfg.T, 0].clone(), losses
@@ -503,8 +505,9 @@ class LeNetUnroll(torch.autograd.Function):
     def backward(ctx, pbar, dlosses):
         hist, u, v, alpha, z, eps_in = ctx.saved_tensors
         rev = lenet_rev_torch if ctx.plain else lenet_rev
-        p0bar, ubar, vbar, abar = rev(hist, pbar.contiguous(), dlosses.contiguous(), u, z, v,
-                                      alpha, eps_in, ctx.lr, ctx.cfg)
+        with span("psvi.unroll.rev"):
+            p0bar, ubar, vbar, abar = rev(hist, pbar.contiguous(), dlosses.contiguous(), u, z, v,
+                                          alpha, eps_in, ctx.lr, ctx.cfg)
         return p0bar, ubar, vbar, abar, None, None, None, None, None
 
 
