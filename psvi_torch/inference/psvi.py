@@ -85,6 +85,7 @@ import torch
 
 from psvi_torch.data.datasets import DataBundle
 from psvi_torch.device import resolve_device
+from psvi_torch.inference.eval_graph import EvalGraph
 from psvi_torch.models.layers import (VILinear, fuse_conv_pool, with_compute_dtype,
                                      with_dense_backend, with_pool_backend)
 from psvi_torch.models.networks import set_up_model
@@ -414,6 +415,7 @@ class PSVI:
         self.alpha_dirichlet, self.choose_difficult = alpha_dirichlet, choose_difficult
         self.distance_fn, self.last_layer_only = distance_fn, last_layer_only
         self._custom_v = None
+        self._eval_graph, self._eval_test = EvalGraph(), None
         self._setup_parallel(mesh, shard_batch, shard_mc, stream_data)
         self.elbos: list = []
         self.results: dict = {}
@@ -1334,26 +1336,43 @@ class PSVI:
     # evaluation
     # ------------------------------------------------------------------
 
-    @torch.no_grad()
-    def _evaluate_fn(self, state: PSVIState, correction: bool = True):
-        """Importance-weighted predictive accuracy and NLL over padded test
-        batches, and the IW diagnostics of the last batch (ref ``evaluate``
-        :1031-1108); under ``shard_mc`` each rank's samples, the mixture
-        over S summed over the mc axis."""
-        S = self.mc_samples_eval
+    def _padded_test(self):
+        """The test set padded to whole batches of B = min(minibatch, test
+        size) with its own first points, and the mask of the real ones:
+        ``(B, x, y, mask)``, built once per test set."""
         n_test = int(self.x_test.shape[0])
         B = min(self.data_minibatch, n_test)
+        t = self._eval_test
+        if t is not None and t[0] is self.x_test and t[1] is self.y_test and t[2][0] == B:
+            return t[2]
         pad = _count_pad(n_test, B)
         xt = torch.cat([self.x_test, self.x_test[:pad]]) if pad else self.x_test
         yt = torch.cat([self.y_test, self.y_test[:pad]]) if pad else self.y_test
         mask = torch.cat([torch.ones(n_test, device=self.device),
                           torch.zeros(pad, device=self.device)])
+        self._eval_test = (self.x_test, self.y_test, (B, xt, yt, mask))
+        return self._eval_test[2]
+
+    @torch.no_grad()
+    def _evaluate_fn(self, state: PSVIState, correction: bool = True):
+        """Importance-weighted predictive accuracy and NLL over padded test
+        batches, and the IW diagnostics of the last batch (ref ``evaluate``
+        :1031-1108); under ``shard_mc`` each rank's samples, the mixture
+        over S summed over the mc axis. On a CUDA device the loop
+        (``_evaluate_batches``) is replayed from a CUDA graph
+        (``inference/eval_graph.py``), which draws the same noise."""
+        return self._eval_graph(self, state, correction, self._padded_test())
+
+    def _evaluate_batches(self, state: PSVIState, correction, test):
+        """``_evaluate_fn``'s loop over the padded test set ``test``."""
+        B, xt, yt, mask = test
+        S = self.mc_samples_eval
         cw, fv = self._core_weights(state.v, state.alpha)
         M = state.u.shape[0]
         corrects = nll_sum = total = 0.0
         weights = None
         mc = self.mc_shard
-        for b0 in range(0, n_test + pad, B):
+        for b0 in range(0, xt.shape[0], B):
             xb, yb, m = xt[b0:b0 + B], yt[b0:b0 + B], mask[b0:b0 + B]
             eps = self._local_eps(self._sample_eps(S))
             all_logits = self.net.apply(state.params, eps, torch.cat([state.u, xb]))

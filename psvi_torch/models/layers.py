@@ -134,7 +134,7 @@ class _MeanField(Layer):
     def nkl(self, params, eps):
         # per-sample log p(θ_s) − log q(θ_s), shape (S,) (ref neural_net.py:110-115)
         w, b = self._theta(params, eps)
-        sp = torch.tensor(self.prior_sd, dtype=w.dtype, device=w.device)
+        sp = w.new_full((), self.prior_sd)  # made on the device: no host copy, no sync
         sd_w = softplus(params["rho_w"])
         axes = tuple(range(1, w.dim()))
         out = (torch.sum(_normal_logpdf(w, 0.0, sp), dim=axes)
@@ -306,7 +306,7 @@ class VILinearFullCov(Layer):
         theta, L = self._theta_flat(params, eps)
         lq = (-0.5 * torch.sum(torch.square(eps["e"]), dim=-1)
               - torch.sum(torch.log(torch.diagonal(L))) - self.num_params * _HALF_LOG_2PI)
-        sp = torch.tensor(self.prior_sd, dtype=theta.dtype, device=theta.device)
+        sp = theta.new_full((), self.prior_sd)
         return torch.sum(_normal_logpdf(theta, 0.0, sp), dim=-1) - lq
 
     @property

@@ -60,7 +60,7 @@ from psvi_torch.ops.fused_nested import (_F, _I, _P, _adam, _check, _cw_vjp, _la
                                          core_weights, pack_eps, pack_params, unpack_eps,
                                          unpack_params)
 from psvi_torch.ops.optim import _sqrt_safe
-from psvi_torch.utils.resource import span
+from psvi_torch.utils.resource import launch_counter, span
 from psvi_torch.utils.tree import tree_leaves
 
 # Caps of the CUDA design (enforced by supports()): the head keeps one
@@ -375,7 +375,7 @@ def lenet_rev_torch(hist, pbar, dlosses, u, y, v, alpha, eps_in, lr: float, cfg:
 # ---------------------------------------------------------------------------
 
 #: Launch count of each kernel: its wrapper adds one where it launches it.
-LAUNCHES = {"lenet_fwd": 0, "lenet_rev": 0}
+LAUNCHES = launch_counter({"lenet_fwd": 0, "lenet_rev": 0})
 
 
 def reset_launches():

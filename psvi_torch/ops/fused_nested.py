@@ -70,6 +70,7 @@ from psvi_torch.models.layers import ReLU, Sequential, VILinear, softplus
 from psvi_torch.models.networks import make_dense
 from psvi_torch.ops import elbo
 from psvi_torch.ops.optim import _sqrt_safe
+from psvi_torch.utils.resource import launch_counter
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -503,8 +504,8 @@ def nested_rev_torch(hist, pbar, ubar, cwbar, zbar, u, y, cw, v, alpha, eps_in,
 #: Launch count of each kernel and likelihood branch (``<kernel>`` for the
 #: categorical head, ``<kernel>_gaussian`` for the Gaussian one): its
 #: wrapper adds one where it launches it.
-LAUNCHES = {f"{k}{b}": 0 for k in ("nested_fwd", "nested_outer", "nested_rev")
-            for b in ("", "_gaussian")}
+LAUNCHES = launch_counter({f"{k}{b}": 0 for k in ("nested_fwd", "nested_outer", "nested_rev")
+                           for b in ("", "_gaussian")})
 
 
 def reset_launches():

@@ -37,12 +37,13 @@ from torch.autograd.function import once_differentiable
 
 from psvi_torch.models.layers import softplus
 from psvi_torch.ops.fused_nested import _F, _P, _check
+from psvi_torch.utils.resource import launch_counter
 
 #: Launch count of the kernel: its wrapper adds one where it launches it,
 #: and one to ``LAUNCH_SHAPES[(S, N, Din, Dout)]``, so a run shows which
 #: layers went through it.
-LAUNCHES = {"sampled_linear": 0}
-LAUNCH_SHAPES: collections.Counter = collections.Counter()
+LAUNCHES = launch_counter({"sampled_linear": 0})
+LAUNCH_SHAPES: collections.Counter = launch_counter(collections.Counter())
 
 
 def reset_launches():

@@ -63,9 +63,10 @@ from psvi_torch.ops.elbo import HALF_LOG_2PI
 from psvi_torch.ops.fused_nested import _F, _P, _check
 from psvi_torch.ops.sampled_linear import (SMS, _cdiv, _fwd_plan, _n_splits,
                                            sampled_linear_reference)
+from psvi_torch.utils.resource import launch_counter
 
 #: Launch count of each kernel: its wrapper adds one where it launches it.
-LAUNCHES = {"prng_fwd": 0, "prng_dx": 0, "prng_dparam": 0, "prng_nkl": 0}
+LAUNCHES = launch_counter({"prng_fwd": 0, "prng_dx": 0, "prng_dparam": 0, "prng_nkl": 0})
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers

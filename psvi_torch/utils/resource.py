@@ -19,6 +19,11 @@ clears. ``step`` is the index of the current step, advanced as
 the backward of an ``autograd.Function`` runs on autograd's device thread
 on the card, so a span's step and parent come from the step index and
 from which spans' intervals cover it, not from a stack.
+
+``LAUNCH_COUNTERS`` holds every kernel wrapper's launch counter (the
+``LAUNCHES`` of the ``ops`` modules), each registered by
+``launch_counter`` where its module makes it: whatever replays captured
+launches (``inference/eval_graph.py``) walks them.
 """
 
 from __future__ import annotations
@@ -110,3 +115,17 @@ def take_spans() -> list:
     out = list(_records)
     _records.clear()
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel launch counters
+# ---------------------------------------------------------------------------
+
+LAUNCH_COUNTERS: list = []
+
+
+def launch_counter(counts):
+    """Register ``counts``, a dict of launch counts that starts at zero and
+    that a kernel's wrapper adds to where it launches, and return it."""
+    LAUNCH_COUNTERS.append(counts)
+    return counts
