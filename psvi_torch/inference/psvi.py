@@ -35,8 +35,12 @@ method of ``METHOD_SPECS``:
   results-dict keys, the ``register_elbos`` streams, ``reset`` and
   ``retrain_on_coreset``; the loop's layer spans (``utils/resource.py::
   span``) ``psvi.step``, ``psvi.evaluate`` and ``psvi.readback``, and in
-  the LeNet step ``psvi.outer.fwd`` and ``psvi.outer.bwd`` (the kernel
-  pair's own are ``psvi.unroll.fwd`` and ``psvi.unroll.rev``);
+  the LeNet step and the plain nested step ``psvi.outer.fwd`` and
+  ``psvi.outer.bwd`` (the kernel pair's own are ``psvi.unroll.fwd`` and
+  ``psvi.unroll.rev``; the plain step's ``psvi.unroll.fwd`` is its
+  differentiated inner loop, whose reverse runs inside ``psvi.outer.bwd``);
+  ``UNROLL`` counts the plain step's differentiated inner iterations and
+  the memory their graph holds for the reverse;
 - ``PSVIRegressor`` — the Gaussian likelihood at precision ``tau``, the
   pseudo-targets z learned with the other hyperparameters, RMSE and
   predictive-LL evaluation;
@@ -126,6 +130,24 @@ class PSVIState(NamedTuple):
     net_step: int  # StepLR counter
 
 
+#: The plain nested step's differentiated unroll: ``iterations``, the inner
+#: iterations run with their graph kept (or recomputed, under ``remat``);
+#: ``remat``, whether the last step ran under ``remat_inner``;
+#: ``resident_bytes``, the device memory the last step's unroll left
+#: allocated for the reverse (``torch.cuda.memory_allocated`` after it less
+#: before it: the allocator's host-side count, no synchronise; 0 off the
+#: card), and ``resident_bytes_max``, the largest such reading.
+UNROLL = {"iterations": 0, "remat": False, "resident_bytes": 0, "resident_bytes_max": 0}
+
+
+def reset_unroll():
+    UNROLL.update(iterations=0, remat=False, resident_bytes=0, resident_bytes_max=0)
+
+
+def _allocated(device) -> int:
+    return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+
+
 def _real():
     """The engines' floating dtype: float32, or the default dtype where a
     caller made it float64 (the CLI's ``--fp64``)."""
@@ -146,7 +168,8 @@ def _value_grad_aux(fn, hyper: dict, functional: bool):
     with torch.enable_grad():
         leaves = {k: x.detach().clone().requires_grad_(True) for k, x in hyper.items()}
         loss, aux = fn(leaves)
-        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        with span("psvi.outer.bwd"):
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     return loss.detach(), grads, aux
 
 
@@ -1038,14 +1061,21 @@ class PSVI:
             v = hyper.get("v", state.v)
             z = hyper.get("z", state.z)
             alpha = hyper.get("alpha", state.alpha)
-            # patch-extract u once, outside the inner loop (a no-op for
-            # dense nets; layers.PrePatched)
-            paramsT, inner_losses = self._run_inner(params0, self.net.prep_input(u), z, v,
-                                                    alpha, lr_now, eps_inner,
-                                                    n_steps=len(eps_inner),
-                                                    functional=functional)
-            return (self._outer_loss(paramsT, eps_outer, u, z, v, alpha, xb, yb),
-                    (paramsT, inner_losses))
+            before = _allocated(self.device)
+            with span("psvi.unroll.fwd"):
+                # patch-extract u once, outside the inner loop (a no-op for
+                # dense nets; layers.PrePatched)
+                paramsT, inner_losses = self._run_inner(params0, self.net.prep_input(u), z, v,
+                                                        alpha, lr_now, eps_inner,
+                                                        n_steps=len(eps_inner),
+                                                        functional=functional)
+            held = _allocated(self.device) - before
+            UNROLL.update(iterations=UNROLL["iterations"] + len(eps_inner),
+                          remat=bool(self.remat_inner and not functional), resident_bytes=held,
+                          resident_bytes_max=max(UNROLL["resident_bytes_max"], held))
+            with span("psvi.outer.fwd"):
+                loss = self._outer_loss(paramsT, eps_outer, u, z, v, alpha, xb, yb)
+            return loss, (paramsT, inner_losses)
 
         loss, grads, (paramsT, inner_losses) = _value_grad_aux(
             outer, {k: getattr(state, k) for k in names}, functional)
