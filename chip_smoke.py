@@ -1013,12 +1013,16 @@ def run_engine(mods, make_psvi_engine, data, expected, **kw):
 
 def hypergrads_of(eng, step, state, batch, eps):
     """One step and the hypergradients it hands to the hyper-Adam update
-    (``batch`` and ``eps`` None: the step draws its own)."""
+    (``batch`` and ``eps`` None: the step draws its own). A graphed LeNet
+    step calls the hook only where it captures (``inference/step_graph.py``):
+    its eager warm-up's gradients are kept, the captured run's hold no
+    values."""
     seen = {}
     apply = eng._apply_hyper_updates
 
     def capture(st, grads):
-        seen.update(grads)
+        if not torch.cuda.is_current_stream_capturing():
+            seen.update(grads)
         return apply(st, grads)
 
     eng._apply_hyper_updates = capture

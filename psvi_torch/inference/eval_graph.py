@@ -47,7 +47,8 @@ from dataclasses import dataclass
 
 import torch
 
-from psvi_torch.utils.resource import LAUNCH_COUNTERS, span
+from psvi_torch.utils.resource import (add_launches, launch_counts, launches_since,
+                                       restore_launch_counts, span)
 from psvi_torch.utils.tree import tree_leaves, tree_unflatten
 
 EVAL_GRAPH = {"captures": 0, "replays": 0, "eager": 0}
@@ -99,14 +100,6 @@ def graph_key(eng, state, correction, test):
             eng.num_pseudo)
 
 
-def _counts():
-    return {id(c): dict(c) for c in LAUNCH_COUNTERS}
-
-
-def _added(counter, before):
-    return {k: n - before.get(k, 0) for k, n in counter.items() if n != before.get(k, 0)}
-
-
 @dataclass
 class _Graph:
     graph: object  # torch.cuda.CUDAGraph, or None where the capture failed
@@ -149,9 +142,7 @@ class EvalGraph:
             g.gen.set_state(eng.gen.get_state())
             g.graph.replay()
             eng.gen.set_state(g.gen.get_state())
-            for counter, n in g.launches:
-                for k, c in n.items():
-                    counter[k] = counter.get(k, 0) + c
+            add_launches(g.launches)
             EVAL_GRAPH["replays"] += 1
             return tuple(x.clone() for x in g.out)
 
@@ -175,7 +166,7 @@ class EvalGraph:
         for x in out:
             x.record_stream(stream)
         eng.gen.set_state(gen.get_state())
-        warm = _counts()
+        warm = launch_counts()
         try:
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(gen)
@@ -187,7 +178,7 @@ class EvalGraph:
                     g.out = eng._evaluate_batches(st, correction, test)
                 finally:
                     graph.capture_end()
-            g.launches = [(c, _added(c, warm.get(id(c), {}))) for c in LAUNCH_COUNTERS]
+            g.launches = launches_since(warm)
             g.graph = graph
             EVAL_GRAPH["captures"] += 1
         except RuntimeError as e:
@@ -198,10 +189,7 @@ class EvalGraph:
             warnings.warn(f"the evaluation runs its eager loop: {g.reason}", RuntimeWarning,
                           stacklevel=3)
         finally:
-            for c in LAUNCH_COUNTERS:  # a counter made since started at zero
-                b = warm.get(id(c), dict.fromkeys(c, 0))
-                c.clear()
-                c.update(b)
+            restore_launch_counts(warm)
         return g, out
 
 

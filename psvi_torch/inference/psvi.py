@@ -90,6 +90,7 @@ import torch
 from psvi_torch.data.datasets import DataBundle
 from psvi_torch.device import resolve_device
 from psvi_torch.inference.eval_graph import EvalGraph
+from psvi_torch.inference.step_graph import StepGraph
 from psvi_torch.models.layers import (VILinear, fuse_conv_pool, with_compute_dtype,
                                      with_dense_backend, with_pool_backend)
 from psvi_torch.models.networks import set_up_model
@@ -439,6 +440,7 @@ class PSVI:
         self.distance_fn, self.last_layer_only = distance_fn, last_layer_only
         self._custom_v = None
         self._eval_graph, self._eval_test = EvalGraph(), None
+        self._step_graph = StepGraph()
         self._setup_parallel(mesh, shard_batch, shard_mc, stream_data)
         self.elbos: list = []
         self.results: dict = {}
@@ -1235,17 +1237,27 @@ class PSVI:
         layout in one call per step (``FlatEps``); injected noise (``eps`` as for
         ``_nested_step``), or under ``"stream"`` noise drawn as
         ``_nested_step`` draws it, is packed into it. The net is the folded
-        or the literal LeNet; both hold the same parameter tree."""
+        or the literal LeNet; both hold the same parameter tree. The step
+        past its draws (``_fused_lenet_body``) is replayed on the card from
+        one CUDA graph (``inference/step_graph.py``)."""
         xb, yb = batch if batch is not None else self._sample_batch()
         cfg = FL.cfg_from_engine(self)
-        didx = self.net.variational_layers
         if eps is None:
             eps = self._fused_lenet_eps(cfg.n_eps)
         if isinstance(eps, FlatEps):
             e_in, eps_outer = eps
         else:
             eps_inner, eps_outer = eps
+            didx = self.net.variational_layers
             e_in = torch.stack([FL.pack_eps([e[i] for i in didx]) for e in eps_inner])
+        return self._step_graph(self, state, cfg, (xb, yb, e_in, eps_outer))
+
+    def _fused_lenet_body(self, state: PSVIState, cfg, xb, yb, e_in, eps_outer):
+        """``_nested_step_fused_lenet`` from its drawn inputs: the pair's
+        unroll, the outer IW-ELBO and its gradient, the hyper-Adam. Returns
+        the state with the hyperparameters stepped, the flat net the unroll
+        ended at (``_with_unrolled_net`` puts it in) and the aux."""
+        didx = self.net.variational_layers
         lr_now = self.lr_net_sched(state.net_step)
         names = self._hyper_names()
         p0 = FL.pack_params([state.params[i] for i in didx])
@@ -1264,9 +1276,16 @@ class PSVI:
                 grads = (dict(zip(names, torch.autograd.grad(loss, list(hyper.values()))))
                          if names else {})
         state = self._apply_hyper_updates(state, grads)
-        state = state._replace(params=tree_map(lambda x: x.detach(), tuple(paramsT)),
-                               net_step=state.net_step + 1)
-        return state, {"outer_loss": loss.detach(), "inner_losses": inner_losses.detach()}
+        return (state, pT.detach(),
+                {"outer_loss": loss.detach(), "inner_losses": inner_losses.detach()})
+
+    def _with_unrolled_net(self, state: PSVIState, pT, cfg):
+        """``state`` with the net the unroll ended at, views of the flat
+        ``pT``, and the StepLR counter one on."""
+        params = list(state.params)
+        for i, layer in zip(self.net.variational_layers, FL.unpack_params(pT, cfg)):
+            params[i] = layer
+        return state._replace(params=tuple(params), net_step=state.net_step + 1)
 
     def _joint_step(self, state: PSVIState, batch=None, eps=None, functional=False):
         """One Adam step on (params, u[, v]) jointly, on the outer objective

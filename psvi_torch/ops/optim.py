@@ -62,10 +62,27 @@ class AdamState(NamedTuple):
 class Optimizer:
     init: Callable
     step: Callable
+    hyper: Optional[tuple] = None  # Adam's (name, value) arguments
 
 
-def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
-    """torch.optim.Adam-equivalent, as a pure tree-to-tree step."""
+def _scalar_div(x, c):
+    """``x / c`` for a 0-dim tensor ``c``, as torch divides by ``c``'s value
+    given as a host scalar: on CUDA the product with its reciprocal in x's
+    precision (the scalar path of ``div_true_kernel_cuda``), on the CPU the
+    quotient."""
+    c = c.to(x.dtype)
+    return x * torch.reciprocal(c) if x.is_cuda else x / c
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         corrections=None) -> Optimizer:
+    """torch.optim.Adam-equivalent, as a pure tree-to-tree step.
+
+    ``corrections``: a tensor (2,) on the parameters' device that holds
+    ``bias_corrections`` of the step's count, written there before each
+    step, so that a replayed CUDA graph of the step reads them
+    (``inference/step_graph.py``). The update divides by them as it divides
+    by the host scalars (``_scalar_div``): bit for bit the same step."""
 
     def init(params):
         zeros = lambda x: torch.zeros_like(x)  # noqa: E731
@@ -74,16 +91,21 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Op
     def step(params, grads, state: AdamState, lr_now: Optional[float] = None):
         lr_t = lr if lr_now is None else lr_now
         count = state.count + 1
-        bc1, bc2s = bias_corrections(count, b1, b2)
+        if corrections is None:
+            bc1, bc2s = bias_corrections(count, b1, b2)
+            div = lambda x, c: x / c  # noqa: E731
+        else:
+            bc1, bc2s = corrections[0], corrections[1]
+            div = _scalar_div
         mu = tree_map(lambda m, g: b1 * m + (1.0 - b1) * g, state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1.0 - b2) * torch.square(g), state.nu, grads)
         new_params = tree_map(
-            lambda p, m, v: p - lr_t * (m / bc1) / (_sqrt_safe(v) / bc2s + eps),
+            lambda p, m, v: p - lr_t * div(m, bc1) / (div(_sqrt_safe(v), bc2s) + eps),
             params, mu, nu,
         )
         return new_params, AdamState(count, mu, nu)
 
-    return Optimizer(init, step)
+    return Optimizer(init, step, (("lr", lr), ("b1", b1), ("b2", b2), ("eps", eps)))
 
 
 def _f32(x) -> np.float32:

@@ -23,7 +23,8 @@ from which spans' intervals cover it, not from a stack.
 ``LAUNCH_COUNTERS`` holds every kernel wrapper's launch counter (the
 ``LAUNCHES`` of the ``ops`` modules), each registered by
 ``launch_counter`` where its module makes it: whatever replays captured
-launches (``inference/eval_graph.py``) walks them.
+launches (``inference/eval_graph.py``, ``inference/step_graph.py``) walks
+them (``launch_counts``, ``launches_since``, ``restore_launch_counts``).
 """
 
 from __future__ import annotations
@@ -129,3 +130,34 @@ def launch_counter(counts):
     that a kernel's wrapper adds to where it launches, and return it."""
     LAUNCH_COUNTERS.append(counts)
     return counts
+
+
+def launch_counts() -> dict:
+    """A snapshot of every registered counter, by the counter's id."""
+    return {id(c): dict(c) for c in LAUNCH_COUNTERS}
+
+
+def launches_since(snapshot: dict) -> list:
+    """``(counter, {kernel: launches})`` added to each counter since
+    ``snapshot``; a counter made since then started at zero."""
+    out = []
+    for c in LAUNCH_COUNTERS:
+        before = snapshot.get(id(c), {})
+        out.append((c, {k: n - before.get(k, 0) for k, n in c.items()
+                        if n != before.get(k, 0)}))
+    return out
+
+
+def add_launches(launches: list):
+    """Add ``launches_since``'s counts again (a replay of what was counted)."""
+    for counter, n in launches:
+        for k, c in n.items():
+            counter[k] = counter.get(k, 0) + c
+
+
+def restore_launch_counts(snapshot: dict):
+    """Put every counter back to ``snapshot`` (zero where made since)."""
+    for c in LAUNCH_COUNTERS:
+        b = snapshot.get(id(c), dict.fromkeys(c, 0))
+        c.clear()
+        c.update(b)
