@@ -1014,7 +1014,7 @@ def run_engine(mods, make_psvi_engine, data, expected, **kw):
 def hypergrads_of(eng, step, state, batch, eps):
     """One step and the hypergradients it hands to the hyper-Adam update
     (``batch`` and ``eps`` None: the step draws its own). A graphed LeNet
-    step calls the hook only where it captures (``inference/step_graph.py``):
+    step calls the hook only where it captures (``inference/cuda_graph.py``):
     its eager warm-up's gradients are kept, the captured run's hold no
     values."""
     seen = {}

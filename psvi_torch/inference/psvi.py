@@ -89,8 +89,7 @@ import torch
 
 from psvi_torch.data.datasets import DataBundle
 from psvi_torch.device import resolve_device
-from psvi_torch.inference.eval_graph import EvalGraph
-from psvi_torch.inference.step_graph import StepGraph
+from psvi_torch.inference.cuda_graph import EvalGraph, StepGraph
 from psvi_torch.models.layers import (VILinear, fuse_conv_pool, with_compute_dtype,
                                      with_dense_backend, with_pool_backend)
 from psvi_torch.models.networks import set_up_model
@@ -114,6 +113,18 @@ class FlatEps(NamedTuple):
 
     inner: torch.Tensor
     outer: Any
+
+
+def _flat_eps(eps, pack_eps, didx, pack_outer=False):
+    """A fused step's ``eps`` as ``(flat inner draw, outer part)``: a
+    ``FlatEps`` as it is; injected or ``"stream"`` trees ``(T inner trees,
+    outer tree)`` with each inner tree's layers ``didx`` packed by the
+    kernels' ``pack_eps``, and the outer tree too where ``pack_outer``."""
+    if isinstance(eps, FlatEps):
+        return eps
+    eps_inner, eps_outer = eps
+    e_in = torch.stack([pack_eps([e[i] for i in didx]) for e in eps_inner])
+    return e_in, pack_eps([eps_outer[i] for i in didx]) if pack_outer else eps_outer
 
 
 class PSVIState(NamedTuple):
@@ -1209,12 +1220,7 @@ class PSVI:
         cfg = self._fused_cfg(xb.shape[0])
         if eps is None:
             eps = self._fused_dense_eps(cfg.n_eps)
-        if isinstance(eps, FlatEps):
-            e_in, e_out = eps
-        else:
-            eps_inner, eps_outer = eps
-            e_in = torch.stack([FN.pack_eps([e[i] for i in didx]) for e in eps_inner])
-            e_out = FN.pack_eps([eps_outer[i] for i in didx])
+        e_in, e_out = _flat_eps(eps, FN.pack_eps, didx, pack_outer=True)
         p0 = FN.pack_params([state.params[i] for i in didx])
         lr_now = self.lr_net_sched(state.net_step)
         loss, inner_losses, pT, g_u, g_v, g_a, g_z = FN.fused_nested_flat(
@@ -1239,17 +1245,12 @@ class PSVI:
         ``_nested_step`` draws it, is packed into it. The net is the folded
         or the literal LeNet; both hold the same parameter tree. The step
         past its draws (``_fused_lenet_body``) is replayed on the card from
-        one CUDA graph (``inference/step_graph.py``)."""
+        one CUDA graph (``inference/cuda_graph.py``)."""
         xb, yb = batch if batch is not None else self._sample_batch()
         cfg = FL.cfg_from_engine(self)
         if eps is None:
             eps = self._fused_lenet_eps(cfg.n_eps)
-        if isinstance(eps, FlatEps):
-            e_in, eps_outer = eps
-        else:
-            eps_inner, eps_outer = eps
-            didx = self.net.variational_layers
-            e_in = torch.stack([FL.pack_eps([e[i] for i in didx]) for e in eps_inner])
+        e_in, eps_outer = _flat_eps(eps, FL.pack_eps, self.net.variational_layers)
         return self._step_graph(self, state, cfg, (xb, yb, e_in, eps_outer))
 
     def _fused_lenet_body(self, state: PSVIState, cfg, xb, yb, e_in, eps_outer):
@@ -1409,7 +1410,7 @@ class PSVI:
         :1031-1108); under ``shard_mc`` each rank's samples, the mixture
         over S summed over the mc axis. On a CUDA device the loop
         (``_evaluate_batches``) is replayed from a CUDA graph
-        (``inference/eval_graph.py``), which draws the same noise."""
+        (``inference/cuda_graph.py``), which draws the same noise."""
         return self._eval_graph(self, state, correction, self._padded_test())
 
     def _evaluate_batches(self, state: PSVIState, correction, test):

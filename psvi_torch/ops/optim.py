@@ -81,7 +81,7 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     ``corrections``: a tensor (2,) on the parameters' device that holds
     ``bias_corrections`` of the step's count, written there before each
     step, so that a replayed CUDA graph of the step reads them
-    (``inference/step_graph.py``). The update divides by them as it divides
+    (``inference/cuda_graph.py``). The update divides by them as it divides
     by the host scalars (``_scalar_div``): bit for bit the same step."""
 
     def init(params):

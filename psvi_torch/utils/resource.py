@@ -23,8 +23,8 @@ from which spans' intervals cover it, not from a stack.
 ``LAUNCH_COUNTERS`` holds every kernel wrapper's launch counter (the
 ``LAUNCHES`` of the ``ops`` modules), each registered by
 ``launch_counter`` where its module makes it: whatever replays captured
-launches (``inference/eval_graph.py``, ``inference/step_graph.py``) walks
-them (``launch_counts``, ``launches_since``, ``restore_launch_counts``).
+launches (``inference/cuda_graph.py``) walks them (``launch_counts``,
+``launches_since``, ``restore_launch_counts``).
 """
 
 from __future__ import annotations

@@ -21,6 +21,8 @@ float64 on the CPU: S=2, T=2, M=4, B=8, seeded weights.
   step; off, nothing is recorded.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,8 @@ keys are equal exactly; the accuracies agree within one test point
 summed in another order).
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import numpy as np
 import pytest
 

@@ -9,6 +9,8 @@ accuracies agree within one test point, NLLs, RMSEs, LLs and ELBOs within
 rtol 1e-5, and the regressor's tau is JAX's.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import dataclasses
 
 import jax

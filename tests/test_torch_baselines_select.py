@@ -9,6 +9,8 @@ steps take Adam on gradients summed over the inner loop, which carry the
 float32 rounding further).
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import pytest
 
 from psvi_torch.data import read_dataset

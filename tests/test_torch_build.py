@@ -3,6 +3,8 @@ hashes its source, the headers of ``csrc/`` it includes and the flags, so an
 edited header rebuilds every library that includes it and no other. Nothing
 is compiled here: ``library_path`` only reads the sources."""
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import shutil
 
 import pytest

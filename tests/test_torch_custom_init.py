@@ -17,6 +17,8 @@ nine selection options.
   are still refused.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

@@ -1,6 +1,8 @@
 """The port's datasets equal the JAX package's bit for bit (halfmoon without
 scikit-learn, and the synth_mnist images, included)."""
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import numpy as np
 import pytest
 

@@ -16,6 +16,8 @@
   spreadsheet's name.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import os
 
 import numpy as np

@@ -3,6 +3,8 @@ soft-label NLL of learned categorical labels (learn_z) in the inner and
 outer ELBOs and the evaluation weights, and the ablated ELBO, on the same
 parameters and noise (``params_from_jax``)."""
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

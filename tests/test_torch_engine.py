@@ -21,6 +21,8 @@
   results-dict keys.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

@@ -25,6 +25,8 @@ no JAX-side counterpart to compare, against the port's own plain step).
   ``fused_inner=True`` raises there. ``inner_unroll`` changes nothing.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import dataclasses
 
 import jax

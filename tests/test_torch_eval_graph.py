@@ -1,6 +1,6 @@
 """The classifier's evaluation as one CUDA graph
-(``psvi_torch/inference/eval_graph.py``) and the NKL's prior scale made on
-the device.
+(``psvi_torch/inference/cuda_graph.py::EvalGraph``), the capture's failures
+of both graphed calls, and the NKL's prior scale made on the device.
 
 On the CPU (tier 1):
 
@@ -13,6 +13,10 @@ On the CPU (tier 1):
   the old loop's values bit for bit from one generator state;
 - ``graph_key`` moves with M, the IW correction, the net, the test set and
   S, and not with a new state of the same shapes;
+- the graph's plumbing (static buffers, the loop drawing from the graph's
+  generator, the caller's generator state copied in and back) gives the
+  eager loop bit for bit and leaves the caller's generator where it does,
+  with the engine's generator and with one swapped in;
 - every launch counter of the ``ops`` modules is registered, so that a
   replay adds to it;
 - only a capture's own failures (refused operations, no memory) send the
@@ -23,12 +27,16 @@ a small LeNet and an ``fn`` engine against the eager loop from the same
 generator state, across a changed state, a prune (one recapture),
 ``correction=False``, a restored checkpoint and ten generators swapped in
 as the trial runner does (no recapture), with the counts; the kernels'
-launch counters through replays; a capture that runs out of memory falls
-back with a warning, and a kernel's fault during the capture is raised. On
-the card machine, which has no JAX:
+launch counters through replays; for the evaluation and for the LeNet
+step, a capture that runs out of memory falls back with a warning, and a
+kernel's fault during the capture is raised. On the card machine, which
+has no JAX:
 ``python -m pytest --noconftest -m card tests/test_torch_eval_graph.py``.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
+import contextlib
 import importlib
 import pkgutil
 
@@ -39,12 +47,14 @@ import torch
 from psvi_torch.data import read_dataset
 from psvi_torch.data.datasets import DataBundle
 from psvi_torch.data.synthetic import make_synth_images
-from psvi_torch.inference import eval_graph as EG
+from psvi_torch.inference import cuda_graph as CG
 from psvi_torch.inference.psvi import PSVI, _count_pad
 from psvi_torch.models.layers import (_HALF_LOG_2PI, VIConv2d, VILinear, VILinearFullCov,
                                      _normal_logpdf, softplus)
 from psvi_torch.ops import elbo as E
 from psvi_torch.parallel.mesh import make_mesh
+
+import test_torch_step_graph as step_file
 
 
 def _lenet(device="cpu", **kw):
@@ -124,14 +134,14 @@ def test_nkl_prior_scale_on_device_bit_identical(kind, prior_sd, monkeypatch):
 @pytest.mark.parametrize("case", ["cpu", "shard_mc"])
 def test_eager_loop_where_no_graph_serves(case):
     eng = _lenet() if case == "cpu" else _fn(mesh=make_mesh(), shard_mc=True)
-    EG.reset_eval_graph()
-    reason = EG.ineligible(eng)
+    CG.reset_counts(CG.EVAL_GRAPH)
+    reason = eng._eval_graph.ineligible(eng)
     assert reason.startswith("device cpu" if case == "cpu" else "shard_mc")
     out = eng._evaluate_fn(eng.state)
     eng._evaluate_fn(eng.state, correction=False)
     assert len(out) == 5 and all(torch.isfinite(x) for x in out)
-    assert EG.EVAL_GRAPH == {"captures": 0, "replays": 0, "eager": 2}
-    assert EG.last_eager_reason == reason
+    assert CG.EVAL_GRAPH == {"captures": 0, "replays": 0, "eager": 2,
+                             "last_eager_reason": reason}
     assert eng._eval_graph.g is None
 
 
@@ -204,12 +214,46 @@ KEY_CHANGES = {
 @pytest.mark.parametrize("change", sorted(KEY_CHANGES))
 def test_graph_key_follows_what_the_launches_depend_on(change):
     eng = _lenet()
-    key = lambda c=True: EG.graph_key(eng, eng.state, c, eng._padded_test())  # noqa: E731
+    key = lambda c=True: eng._eval_graph.graph_key(  # noqa: E731
+        eng, eng.state, c, eng._padded_test())
     k0 = key()
     assert key() == k0 and key(False) != k0
     act, moves = KEY_CHANGES[change]
     act(eng)
     assert (key() != k0) == moves
+
+
+@pytest.mark.parametrize("swapped", [False, True], ids=["own_gen", "swapped_gen"])
+@pytest.mark.parametrize("correction", [True, False])
+def test_graph_plumbing_gives_the_eager_evaluation(correction, swapped):
+    """What a capture and a replay do around the graph, on the CPU: the
+    loop on the static buffers, drawing from the graph's generator, which
+    takes the caller's generator state before (at the capture, then before
+    each replay) and gives it back after."""
+    eng = _lenet()
+    G, test, own = eng._eval_graph, eng._padded_test(), None
+    st = eng.state
+    for k in range(3):
+        with (eng._drawing_from(torch.Generator().manual_seed(k)) if swapped
+              else contextlib.nullcontext()):
+            g0 = eng.gen.get_state()
+            with torch.no_grad():
+                want = G.eager(eng, st, correction, test)
+            g1 = eng.gen.get_state()
+            eng.gen.set_state(g0)
+            static, ins = G.static(eng, (st, correction, test))
+            assert not any(x is y for x, y in zip(static, G.leaves(eng, st, correction, test)))
+            if own is None:
+                own = G.own(eng, st, correction, test)
+            else:
+                G.before(eng, own, st, correction, test)
+            assert own.gen is not eng.gen
+            with torch.no_grad():
+                outs = G.body(eng, own, *ins)
+            got = G.after(eng, own, [x.clone() for x in outs], st, correction, test)
+            assert torch.equal(eng.gen.get_state(), g1)
+        assert len(got) == 5 and all(torch.equal(a, b) for a, b in zip(got, want))
+        st, _ = eng._step(st)
 
 
 def test_every_ops_launch_counter_is_registered():
@@ -243,7 +287,7 @@ FAULTS = {
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_only_the_captures_own_failures_fall_back(fault):
     e, falls_back = FAULTS[fault]
-    assert EG.capture_failed(e) == falls_back
+    assert CG.capture_failed(e) == falls_back
 
 
 # ----------------------------------------------------------------------
@@ -279,10 +323,11 @@ def _against_eager(eng, state, correction=True):
 @pytest.mark.parametrize("make", [_lenet, _fn], ids=["lenet", "fn"])
 def test_graphed_evaluation_matches_eager(card, make, tmp_path):
     eng = make(card)
-    EG.reset_eval_graph()
+    CG.reset_counts(CG.EVAL_GRAPH)
 
     def counts(c, r):
-        assert EG.EVAL_GRAPH == {"captures": c, "replays": r, "eager": 0}, EG.last_eager_reason
+        assert CG.EVAL_GRAPH == {"captures": c, "replays": r, "eager": 0,
+                                 "last_eager_reason": ""}, CG.EVAL_GRAPH
 
     _against_eager(eng, eng.state)  # the capture's call: its eager run is the result
     counts(1, 0)
@@ -309,39 +354,62 @@ def test_graphed_evaluation_matches_eager(card, make, tmp_path):
     assert again == first
 
 
-def _failing_capture(eng, error):
-    """``eng``'s loop, raising ``error`` when run inside a capture."""
-    loop = eng._evaluate_batches
+def _eval_against_eager(eng):
+    return _against_eager(eng, eng.state)
 
-    def batches(*a):
+
+def _step_against_eager(eng):
+    eng.state = step_file._against_eager(eng, eng.state)[0]
+
+
+# each graphed call: its engine, the body a capture runs, the call, its check
+# against the eager call, its counter and its warning's words
+CALLERS = {
+    "evaluate": (_fn, "_evaluate_batches", lambda e: e._evaluate_fn(e.state),
+                 _eval_against_eager, CG.EVAL_GRAPH, "eager loop"),
+    "step": (lambda card: _lenet(card, fused_inner=True), "_fused_lenet_body",
+             lambda e: e._step(e.state), _step_against_eager, CG.STEP_GRAPH, "runs eagerly"),
+}
+
+
+def _failing_capture(eng, body, error):
+    """``eng``'s ``body``, raising ``error`` when run inside a capture."""
+    run = getattr(eng, body)
+
+    def failing(*a):
         if torch.cuda.is_current_stream_capturing():
             raise error
-        return loop(*a)
+        return run(*a)
 
-    eng._evaluate_batches = batches
-
-
-@pytest.mark.card
-def test_capture_out_of_memory_falls_back_with_a_warning(card):
-    eng = _fn(card)
-    _failing_capture(eng, torch.cuda.OutOfMemoryError("CUDA out of memory in the capture"))
-    EG.reset_eval_graph()
-    with pytest.warns(RuntimeWarning, match="eager loop: capture failed: OutOfMemoryError"):
-        _against_eager(eng, eng.state)
-    _against_eager(eng, eng.state)  # no second capture, no second warning
-    assert EG.EVAL_GRAPH == {"captures": 0, "replays": 0, "eager": 2}
-    assert EG.last_eager_reason.startswith("capture failed: OutOfMemoryError")
+    setattr(eng, body, failing)
 
 
 @pytest.mark.card
-def test_kernel_fault_in_the_capture_is_raised(card):
-    eng = _fn(card)
-    _failing_capture(eng, torch.AcceleratorError(
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+def test_capture_out_of_memory_falls_back_with_a_warning(card, caller):
+    make, body, _, against_eager, counts, words = CALLERS[caller]
+    eng = make(card)
+    _failing_capture(eng, body, torch.cuda.OutOfMemoryError("CUDA out of memory in the capture"))
+    CG.reset_counts(counts)
+    with pytest.warns(RuntimeWarning, match=f"{words}: capture failed: OutOfMemoryError"):
+        against_eager(eng)
+    against_eager(eng)  # no second capture, no second warning
+    assert {k: counts[k] for k in ("captures", "replays", "eager")} == {
+        "captures": 0, "replays": 0, "eager": 2}
+    assert counts["last_eager_reason"].startswith("capture failed: OutOfMemoryError")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+def test_kernel_fault_in_the_capture_is_raised(card, caller):
+    make, body, call, _, counts, _ = CALLERS[caller]
+    eng = make(card)
+    _failing_capture(eng, body, torch.AcceleratorError(
         "CUDA error: an illegal memory access was encountered"))
-    EG.reset_eval_graph()
+    CG.reset_counts(counts)
     with pytest.raises(torch.AcceleratorError, match="illegal memory access"):
-        eng._evaluate_fn(eng.state)
-    assert EG.EVAL_GRAPH == {"captures": 0, "replays": 0, "eager": 0}
+        call(eng)
+    assert counts == {"captures": 0, "replays": 0, "eager": 0, "last_eager_reason": ""}
 
 
 @pytest.mark.card
@@ -357,10 +425,11 @@ def test_replays_count_the_kernels_launches(card):
         eng._evaluate_batches(eng.state, True, eng._padded_test())
     per_eval, shapes = SL.LAUNCHES["sampled_linear"], dict(SL.LAUNCH_SHAPES)
     assert per_eval > 0
-    EG.reset_eval_graph()
+    CG.reset_counts(CG.EVAL_GRAPH)
     SL.reset_launches()
     for _ in range(3):
         eng._evaluate_fn(eng.state)
-    assert EG.EVAL_GRAPH == {"captures": 1, "replays": 2, "eager": 0}, EG.last_eager_reason
+    assert CG.EVAL_GRAPH == {"captures": 1, "replays": 2, "eager": 0,
+                             "last_eager_reason": ""}, CG.EVAL_GRAPH
     assert SL.LAUNCHES["sampled_linear"] == 3 * per_eval
     assert dict(SL.LAUNCH_SHAPES) == {k: 3 * n for k, n in shapes.items()}

@@ -13,6 +13,8 @@
   mode as they were.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import dataclasses
 import json
 import os

@@ -23,6 +23,8 @@ forward on CPU tensors is the plain version and whose backward is the same
 - A 101-step four_blobs fn joint run, and the port's gates.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

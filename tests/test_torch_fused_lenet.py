@@ -14,6 +14,8 @@ At the JAX tests' toy size (T=3, S=3, M=4, LeNet at its real 28×28 widths,
 - ``supports()`` admits exactly the fused LeNet the kernels compute.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import dataclasses
 import functools
 import math

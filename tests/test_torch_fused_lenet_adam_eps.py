@@ -16,6 +16,8 @@ engine's own ε:
   implementations share, not a difference between them.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import numpy as np
 
 from psvi_tpu.data import read_dataset as jax_read_dataset

@@ -12,6 +12,8 @@ comparison are those of ``test_torch_fused_lenet.py``):
   and every cotangent (p̄0, ū, v̄, ᾱ).
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

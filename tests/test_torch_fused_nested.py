@@ -23,6 +23,8 @@
   runs here).
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import dataclasses
 import importlib.util
 import math

@@ -13,6 +13,8 @@ hypergradients lie at most 5.1e-5·max|ref| apart (LeNet's g_v; the dense
 cases under 1.8e-5), so the float32 run is the reference here.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ with the fixed-point map Φ(w, λ) = w − η(Aw − λ), which draws no noise, 
 the solvers' noise tags (the port) and keys (JAX) change nothing.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

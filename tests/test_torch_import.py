@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and its
 entry points default to CUDA and raise without it."""
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import re
 import subprocess
 import sys

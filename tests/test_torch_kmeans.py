@@ -14,6 +14,8 @@ against the JAX package's.
   function × optimizer on JAX's matrix picks JAX's indices.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

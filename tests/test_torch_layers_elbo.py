@@ -2,6 +2,8 @@
 the JAX parameters carried across by ``params_from_jax`` and the same
 NumPy noise handed to both sides."""
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

@@ -2,6 +2,8 @@
 parameters carried across by ``params_from_jax`` and the same NumPy noise
 and inputs handed to both sides, at LeNet's real 28×28 widths."""
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

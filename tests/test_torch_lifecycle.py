@@ -24,6 +24,8 @@
   ``profile_dir`` runs.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import json
 import os
 

@@ -12,6 +12,8 @@ against the JAX package's.
   leapfrog step (rtol 1e-6).
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

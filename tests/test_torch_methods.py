@@ -16,6 +16,8 @@ port's own nested step.
   as JAX's do.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

@@ -12,6 +12,8 @@ full-width nets at 1e-5·max |ref| on the forward and 2e-5 on KL and NKL
 1e-4·max |ref| per leaf.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import dataclasses
 
 import jax

@@ -6,6 +6,8 @@ against its Laplace approximation, and ``run_random(mcmc=True)``'s
 accuracy on halfmoon.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import numpy as np
 import torch
 

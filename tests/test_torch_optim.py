@@ -2,6 +2,8 @@
 three steps and the gradient of a loss after three steps w.r.t. a
 hyperparameter that shapes every inner gradient (grad-of-grad)."""
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ steps, values and state, and the gradient of a loss after three steps
 w.r.t. a hyperparameter that shapes every inner gradient (grad-of-grad),
 at Adam's tolerances; ``make`` and the registry's error."""
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,8 @@ the unpacked nets and the JAX package.
   ``unpack``) with the grid predictions.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

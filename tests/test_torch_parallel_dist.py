@@ -29,6 +29,8 @@ process, the mesh's size check and both fused gates' refusal of a sharded
 batch and of sharded samples (on a one-rank axis) need no second rank.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import types
 
 import jax

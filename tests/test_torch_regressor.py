@@ -16,6 +16,8 @@
   ``state_from_jax`` with ``opt_z``, and ``run_psvi``'s results dict.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import dataclasses
 
 import jax

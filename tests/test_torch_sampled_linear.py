@@ -17,6 +17,8 @@ The kernel itself runs only on the card: ``chip_smoke.py`` holds it against
 the plain version there.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,8 @@ only on the card: ``chip_smoke.py`` holds them to these plain versions
 there, their Philox words bit for bit.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import math
 
 import jax

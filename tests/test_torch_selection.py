@@ -16,6 +16,8 @@
   scores and test metrics within rtol 1e-5, the same largest-EL2N indices.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pandas as pd

@@ -11,6 +11,8 @@
 - ``profile_dir``'s Chrome trace holds the program's spans.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import json
 from collections import defaultdict
 

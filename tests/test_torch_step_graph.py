@@ -1,5 +1,5 @@
 """The fused LeNet nested step as one CUDA graph
-(``psvi_torch/inference/step_graph.py``).
+(``psvi_torch/inference/cuda_graph.py::StepGraph``).
 
 On the CPU (tier 1):
 
@@ -14,18 +14,22 @@ On the CPU (tier 1):
 - the LeNet step is the step of the tree before it became a graph's body,
   bit for bit, from one generator state, drawn and fed through the seam;
 - the graph's plumbing (static buffers, the body with the buffer's
-  corrections, the step put together from its outputs) gives the eager
-  step bit for bit, for each set of hyperparameter names.
+  corrections written at the capture and before each replay, the step put
+  together from its outputs) gives the eager step bit for bit, for each set
+  of hyperparameter names.
 
 On the card (``-m card``; skipped without one): 14 graphed steps of a small
 LeNet engine, drawn and fed through the seam, against the eager step from
 the same state and generator state, bit for bit, with the counts; the
 states and ``aux`` it returned unchanged by later replays; a recapture on a
 StepLR tick and after a prune; a profiler window over replays that names
-the pair's kernels; a capture that runs out of memory falls back with a
-warning. On the card's machine, which has no JAX:
+the pair's kernels. The capture's failures are checked for the step and the
+evaluation in ``tests/test_torch_eval_graph.py``. On the card's machine,
+which has no JAX:
 ``python -m pytest --noconftest -m card tests/test_torch_step_graph.py``.
 """
+
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
 
 import dataclasses
 import types
@@ -36,8 +40,8 @@ import torch
 
 from psvi_torch.data.datasets import DataBundle
 from psvi_torch.data.synthetic import make_synth_images
-from psvi_torch.inference import step_graph as SG
-from psvi_torch.inference.psvi import PSVI, FlatEps
+from psvi_torch.inference import cuda_graph as CG
+from psvi_torch.inference.psvi import PSVI, FlatEps, _flat_eps
 from psvi_torch.ops import fused_lenet as FL
 from psvi_torch.ops import optim as O
 from psvi_torch.parallel.mesh import make_mesh
@@ -86,18 +90,18 @@ def _same(a, b):
 def test_eager_step_where_no_graph_serves(case):
     if case == "cpu":
         eng = _lenet()
-        SG.reset_step_graph()
+        CG.reset_counts(CG.STEP_GRAPH)
         for _ in range(2):
             eng.state, aux = eng._step(eng.state)
             assert torch.isfinite(aux["outer_loss"])
-        assert {k: SG.STEP_GRAPH[k] for k in ("captures", "replays", "eager")} == {
-            "captures": 0, "replays": 0, "eager": 2}
-        assert SG.STEP_GRAPH["last_eager_reason"] == SG.ineligible(eng)
-        assert SG.ineligible(eng).startswith("device cpu")
+        reason = eng._step_graph.ineligible(eng)
+        assert CG.STEP_GRAPH == {"captures": 0, "replays": 0, "eager": 2,
+                                 "last_eager_reason": reason}
+        assert reason.startswith("device cpu")
         assert eng._step_graph.g is None
     else:  # the fused gate refuses sharding before the step is chosen
         eng = _lenet(fused_inner="auto", mesh=make_mesh(), shard_mc=True, mc_samples=2)
-        assert SG.ineligible(eng).startswith("shard_mc/shard_batch")
+        assert eng._step_graph.ineligible(eng).startswith("shard_mc/shard_batch")
 
 
 def _at_quarter(e):
@@ -126,7 +130,7 @@ def test_graph_key_follows_what_the_launches_depend_on(change):
 
     def key():
         cfg, inputs = _inputs(eng)
-        return SG.graph_key(eng, eng.state, cfg, inputs)
+        return eng._step_graph.graph_key(eng, eng.state, cfg, inputs)
 
     k0 = key()
     assert key() == k0
@@ -147,7 +151,7 @@ def test_bias_corrections_from_the_buffer_equal_the_host_scalars(dtype):
     p = torch.randn(7, 5, generator=g, dtype=dtype)
     host, dev = (p, opt.init(p)), (p, twin.init(p))
     for count in range(50):
-        SG.write_corrections(bc, types.SimpleNamespace(opt_u=dev[1]), ["u"], [opt])
+        CG.write_corrections(bc, types.SimpleNamespace(opt_u=dev[1]), ["u"], [opt])
         assert dev[1].count == count
         # the host scalars are float32 values, held exactly in either dtype
         assert bc[0].tolist() == list(O.bias_corrections(count + 1, 0.9, 0.999))
@@ -218,19 +222,23 @@ def test_lenet_step_unchanged_from_the_tree_before(fed):
 def test_graph_plumbing_gives_the_eager_step(method):
     """What a capture and a replay do around the graph, on the CPU: the
     body on the static buffers with the hyper-Adams reading the buffer's
-    corrections, and the step put together from its outputs."""
+    corrections (written at the capture, then before each replay), and the
+    step put together from its outputs."""
     eng = _lenet(method=method)
-    names = eng._hyper_names()
-    bc = torch.empty((len(names), 2))
+    G, names, own = eng._step_graph, eng._hyper_names(), None
     st = eng.state
     for _ in range(3):
         cfg, inputs = _inputs(eng)
         want_st, pT, aux = eng._fused_lenet_body(st, cfg, *inputs)
         want = (eng._with_unrolled_net(want_st, pT, cfg), aux)
-        static, s_st, s_in = SG._static(st, names, inputs)
-        SG.write_corrections(bc, st, names, [getattr(eng, "opt_" + n) for n in names])
-        outs = SG._run_body(eng, s_st, cfg, s_in, names, bc)
-        got = SG._assemble(eng, st, cfg, names, [x.clone() for x in outs])
+        static, ins = G.static(eng, (st, cfg, inputs))
+        assert not any(x is y for x, y in zip(static, G.leaves(eng, st, cfg, inputs)))
+        if own is None:
+            own = G.own(eng, st, cfg, inputs)
+        else:
+            G.before(eng, own, st, cfg, inputs)
+        outs = G.body(eng, own, *ins)
+        got = G.after(eng, own, [x.clone() for x in outs], st, cfg, inputs)
         assert _same(got, want)
         assert all(getattr(got[0], "opt_" + n).count == getattr(st, "opt_" + n).count + 1
                    for n in names)
@@ -257,12 +265,7 @@ def _eager_step(eng, state, batch=None, eps=None):
     xb, yb = batch if batch is not None else eng._sample_batch()
     if eps is None:
         eps = eng._fused_lenet_eps(cfg.n_eps)
-    if isinstance(eps, FlatEps):
-        e_in, eps_outer = eps
-    else:
-        didx = eng.net.variational_layers
-        e_in = torch.stack([FL.pack_eps([e[i] for i in didx]) for e in eps[0]])
-        eps_outer = eps[1]
+    e_in, eps_outer = _flat_eps(eps, FL.pack_eps, eng.net.variational_layers)
     st, pT, aux = eng._fused_lenet_body(state, cfg, xb, yb, e_in, eps_outer)
     return eng._with_unrolled_net(st, pT, cfg), aux
 
@@ -284,15 +287,15 @@ def _against_eager(eng, state, batch=None, eps=None):
 
 
 def _counts(c, r):
-    assert {k: SG.STEP_GRAPH[k] for k in ("captures", "replays", "eager")} == {
-        "captures": c, "replays": r, "eager": 0}, SG.STEP_GRAPH["last_eager_reason"]
+    assert CG.STEP_GRAPH == {"captures": c, "replays": r, "eager": 0,
+                             "last_eager_reason": ""}, CG.STEP_GRAPH
 
 
 @pytest.mark.card
 @pytest.mark.parametrize("method", ["psvi_learn_v", "psvi_alpha_v"])
 def test_graphed_steps_match_eager_and_stay_put(card, method):
     eng = _lenet(card, method=method)
-    SG.reset_step_graph()
+    CG.reset_counts(CG.STEP_GRAPH)
     st, kept = eng.state, []
     for k in range(14):
         batch, eps = _seam(eng) if k % 3 == 1 else (None, None)
@@ -311,7 +314,7 @@ def test_graphed_steps_match_eager_and_stay_put(card, method):
 def test_recapture_on_a_steplr_tick_and_a_prune(card):
     eng = _lenet(card, gamma=0.5, n_per_class=7)  # N = 70, B = 8: a tick every 2 steps
     assert (eng.N // eng.data_minibatch) // 4 == 2
-    SG.reset_step_graph()
+    CG.reset_counts(CG.STEP_GRAPH)
     for _ in range(4):
         eng.state = _against_eager(eng, eng.state)[0]
     _counts(2, 2)
@@ -328,7 +331,7 @@ def test_profiler_names_the_pairs_kernels_in_replays(card):
     eng = _lenet(card)
     for _ in range(2):
         eng.state, _ = eng._step(eng.state)
-    SG.reset_step_graph()
+    CG.reset_counts(CG.STEP_GRAPH)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             eng.state, _ = eng._step(eng.state)
@@ -338,23 +341,3 @@ def test_profiler_names_the_pairs_kernels_in_replays(card):
              if e.device_type == torch.autograd.DeviceType.CUDA}
     for kernel in ("k_gemm", "k_conv2_back", "k_conv2_wpart", "k_conv1", "k_ubar_part"):
         assert any(kernel in n for n in names), (kernel, sorted(names)[:40])
-
-
-@pytest.mark.card
-def test_capture_out_of_memory_falls_back_with_a_warning(card):
-    eng = _lenet(card)
-    body = eng._fused_lenet_body
-
-    def failing(*a):
-        if torch.cuda.is_current_stream_capturing():
-            raise torch.cuda.OutOfMemoryError("CUDA out of memory in the capture")
-        return body(*a)
-
-    eng._fused_lenet_body = failing
-    SG.reset_step_graph()
-    with pytest.warns(RuntimeWarning, match="runs eagerly: capture failed: OutOfMemoryError"):
-        st = _against_eager(eng, eng.state)[0]
-    _against_eager(eng, st)  # no second capture, no second warning
-    assert {k: SG.STEP_GRAPH[k] for k in ("captures", "replays", "eager")} == {
-        "captures": 0, "replays": 0, "eager": 2}
-    assert SG.STEP_GRAPH["last_eager_reason"].startswith("capture failed: OutOfMemoryError")

@@ -8,6 +8,8 @@ atol 0), through every trainer and through the fused step (its plain
 versions on the CPU), as JAX's gates let streamed batches through.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import numpy as np
 import pytest
 

@@ -27,6 +27,8 @@ plain step, trial by trial.
   where the gates refuse the vmapped step, which both gates do.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

@@ -25,6 +25,8 @@ parameters at rtol 2e-4, atol 1e-6 on the dense nets and atol 3e-5 on the
 conv nets.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

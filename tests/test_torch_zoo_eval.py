@@ -14,6 +14,8 @@ test batch padded by repeated points) is part of the function:
   order the layers built them) is refused by name.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest

@@ -5,6 +5,8 @@ of ``test_torch_model_zoo.net_pair_check``: the forward within 1e-5·max
 |ref|, KL and NKL within 2e-5 (fp32 sums over up to 11M terms in another
 order)."""
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 

@@ -19,6 +19,8 @@ batch padded by repeated points. Here:
   ``test_torch_zoo_eval.py``.
 """
 
+import torch_threads  # noqa: F401  (torch on this worker's share of the cores)
+
 import jax
 import numpy as np
 import pytest
